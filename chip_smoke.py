@@ -12,9 +12,17 @@
               and greedy tokens;
   4. serve    ServingEngine with the full qwen2-moe-a2.7b config (24
               layers, bf16 weights drawn from a seed on the card): 16
-              requests, 8 slots, max_context 1024; every kernel must have
-              launched during serving;
-  5. report   one JSON line with every kernel's numbers, the card's name and
+              requests, 8 slots, max_context 1024, on three paths, each
+              run with the launch counts set to 0 just before it and read
+              just after: paged KV with the dense footprint as its pool
+              ("paged"); dense KV ("serve"), whose greedy tokens the paged
+              run must equal; a paired dense/paged decode-step timing;
+              paged KV under a pool that must preempt, with a shared
+              system prompt ("pressure");
+  5. xlstm    ServingEngine with the full xlstm-1.3b config (48 layers,
+              42 mLSTM through the mLSTM scan kernel, 6 sLSTM): 16
+              requests, 8 slots, max_context 1024;
+  6. report   one JSON line with every kernel's numbers, the card's name and
               power limit, and as the last line {"ok": true, "device": ...}.
 
 Any failure ends the run with a traceback and a non-zero exit. Without a
@@ -22,6 +30,7 @@ CUDA device it exits non-zero and prints no result.
 
 Run from the repository root:  python3 chip_smoke.py
 (``--no-serve`` stops after phase 3: a quick check of new kernels.)
+Each serve path is profiled over 3 decode steps after its run.
 """
 from __future__ import annotations
 
@@ -44,11 +53,16 @@ from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as dec_kernel  # noqa: E402
-from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
+    decode_attention, decode_attention_paged)
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref, gather_pages, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.mlstm_scan import kernel as mlstm_kernel  # noqa: E402
+from repro_torch.kernels.mlstm_scan.ops import mlstm_scan  # noqa: E402
+from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import kernel as gemm_kernel  # noqa: E402
 from repro_torch.kernels.moe_gemm.ops import moe_gemm  # noqa: E402
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref  # noqa: E402
@@ -184,6 +198,146 @@ def check_decode(gen):
                       f"{lengths.tolist()} bf16")
 
 
+def paged_layout(lengths, n_blocks: int, bs: int, pool: int, seed: int):
+    """A block table for ``lengths``: each row's blocks are pages drawn
+    without replacement from pages 1..pool-1 (page 0 is the reserved
+    scratch page), -1 past the row's blocks."""
+    order = list(np.random.RandomState(seed).permutation(
+        np.arange(1, pool)))
+    tbl = np.full((len(lengths), n_blocks), -1, np.int32)
+    for b, n in enumerate(lengths):
+        for c in range(-(-n // bs)):
+            tbl[b, c] = order.pop()
+    return torch.from_numpy(tbl).cuda()
+
+
+def check_decode_paged(gen):
+    print("[kernels] decode_attention_paged")
+    B, H, Kv, D, bs, n_blocks, pool = 8, 16, 16, 128, 32, 32, 257
+    lens_list = [0, 1, 1024, 37, 500, 1000, 33, 613]
+    lengths = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    tbl = paged_layout(lens_list, n_blocks, bs, pool, seed=3)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = randn(gen, (B, H, D), dtype)
+        kp = randn(gen, (pool, bs, Kv, D), dtype)
+        vp = randn(gen, (pool, bs, Kv, D), dtype)
+        out = decode_attention_paged(q, kp, vp, lengths, tbl)
+        if float(out[lengths == 0].float().abs().max()) != 0.0:
+            fail("decode_attention_paged: a length-0 row is not exactly zero")
+        errs[dtype] = compare(
+            f"B={B} H={H} Kv={Kv} D={D} bs={bs} blocks={n_blocks} {dtype}",
+            out, paged_decode_attention_ref(q, kp, vp, lengths, tbl), dtype)
+        # the dense kernel over the gathered contents: bitwise equal
+        kd = gather_pages(kp, tbl).contiguous()
+        vd = gather_pages(vp, tbl).contiguous()
+        dense = decode_attention(q, kd, vd, lengths)
+        torch.cuda.synchronize()
+        if not torch.equal(out, dense):
+            fail(f"decode_attention_paged {dtype}: not bitwise equal to the "
+                 "dense kernel on the gathered contents")
+        print(f"  bitwise equal to the dense kernel on the gathered "
+              f"contents ({dtype})")
+    # GQA g=6 at a page size that is not the kernel's tile
+    lg = [600, 0, 17, 333]
+    tg = paged_layout(lg, 38, 16, 65, seed=4)
+    q = randn(gen, (4, 12, 128), torch.float32)
+    kp = randn(gen, (65, 16, 2, 128), torch.float32)
+    vp = randn(gen, (65, 16, 2, 128), torch.float32)
+    lgt = torch.tensor(lg, dtype=torch.int32, device="cuda")
+    compare("GQA g=6 bs=16 f32", decode_attention_paged(q, kp, vp, lgt, tg),
+            paged_decode_attention_ref(q, kp, vp, lgt, tg), torch.float32)
+
+    dtype = torch.bfloat16
+    q = randn(gen, (B, H, D), dtype)
+    kp = randn(gen, (pool, bs, Kv, D), dtype)
+    vp = randn(gen, (pool, bs, Kv, D), dtype)
+    kd = gather_pages(kp, tbl).contiguous()
+    vd = gather_pages(vp, tbl).contiguous()
+    ms = time_ms(lambda: decode_attention_paged(q, kp, vp, lengths, tbl))
+    dense_ms = time_ms(lambda: decode_attention(q, kd, vd, lengths))
+    plain = time_ms(lambda: paged_decode_attention_ref(q, kp, vp, lengths,
+                                                       tbl))
+    tokens = sum(lens_list)
+    pages = sum(-(-n // bs) for n in lens_list)
+    nbytes = (2 * B * H * D + 2 * tokens * Kv * D) * 2 + 4 * B + 4 * pages
+    flops = 4.0 * tokens * H * D
+    b, by = bound_ms(nbytes, flops, dtype)
+    print(f"  bf16: kernel {ms:.3f} ms, dense kernel on the same contents "
+          f"{dense_ms:.3f} ms, plain {plain:.3f} ms, bound {b:.4f} ms ({by})")
+    return dict(name="decode_attention_paged", source=dec_kernel.SOURCE,
+                replaces=dec_kernel.PAGED_REPLACES, max_abs_err=errs[dtype],
+                ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                library_ms=None, dense_kernel_ms=dense_ms,
+                shape=f"B={B} H={H} Kv={Kv} D={D} bs={bs} blocks={n_blocks} "
+                      f"pool={pool} lengths={lens_list} bf16")
+
+
+# mLSTM: the summation order differs (warp reductions against einsum) over
+# a recurrence of up to 600 steps; f32 throughout
+MLSTM_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def mlstm_inputs(gen, B, H, S, D):
+    q = randn(gen, (B, H, S, D), torch.float32)
+    k = randn(gen, (B, H, S, D), torch.float32, D ** -0.5)
+    v = randn(gen, (B, H, S, D), torch.float32)
+    ig = randn(gen, (B, H, S), torch.float32)
+    lf = F.logsigmoid(randn(gen, (B, H, S), torch.float32) + 3.0)
+    C0 = randn(gen, (B, H, D, D), torch.float32, 0.1)
+    n0 = randn(gen, (B, H, D), torch.float32, 0.1)
+    m0 = randn(gen, (B, H), torch.float32)
+    return q, k, v, ig, lf, C0, n0, m0
+
+
+def check_mlstm(gen):
+    print("[kernels] mlstm_scan")
+    H, D = 4, 1024
+    errs = {}
+    timing = {}
+    for B, S in ((1, 600), (1, 37), (8, 1)):
+        args = mlstm_inputs(gen, B, H, S, D)
+        got = mlstm_scan(*args)
+        want = mlstm_scan_ref(*args)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for name, g, w in zip(("h", "C", "n", "m"), got, want):
+            if g.shape != w.shape or g.dtype != torch.float32:
+                fail(f"mlstm_scan {name}: {tuple(g.shape)} {g.dtype}, plain "
+                     f"{tuple(w.shape)} {w.dtype}")
+            if not torch.isfinite(g).all():
+                fail(f"mlstm_scan {name}: non-finite kernel output")
+            err = float((g - w).abs().max())
+            worst = max(worst, err)
+            if not torch.allclose(g, w, **MLSTM_TOL):
+                fail(f"mlstm_scan B={B} S={S} {name}: max_abs_err {err:.3e} "
+                     f"beyond rtol={MLSTM_TOL['rtol']} "
+                     f"atol={MLSTM_TOL['atol']}")
+        errs[(B, S)] = worst
+        print(f"  B={B} H={H} S={S} D={D} f32, non-zero state: h, C, n, m "
+              f"max_abs_err={worst:.3e} (rtol={MLSTM_TOL['rtol']}, "
+              f"atol={MLSTM_TOL['atol']}) ok")
+        if S != 37:
+            ms = time_ms(lambda: mlstm_scan(*args))
+            plain = time_ms(lambda: mlstm_scan_ref(*args), iters=3, warmup=1)
+            nbytes = 4 * (4 * B * H * S * D + 2 * B * H * S
+                          + 2 * B * H * D * D + 2 * B * H * D + 2 * B * H)
+            flops = 4.0 * D * D * S * H * B
+            b, by = bound_ms(nbytes, flops, torch.float32)
+            timing[(B, S)] = dict(ms=ms, plain_ms=plain, bound_ms=b,
+                                  bound_by=by)
+            print(f"  B={B} S={S}: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+                  f"bound {b:.4f} ms ({by})")
+        del args, got, want
+        torch.cuda.empty_cache()
+    t = timing[(1, 600)]
+    return dict(name="mlstm_scan", source=mlstm_kernel.SOURCE,
+                replaces=mlstm_kernel.REPLACES, max_abs_err=errs[(1, 600)],
+                library_ms=None, **t,
+                decode=dict(timing[(8, 1)], shape="B=8 H=4 S=1 D=1024 f32"),
+                shape=f"B=1 H={H} S=600 D={D} f32")
+
+
 def check_moe_gemm(gen):
     print("[kernels] moe_gemm")
     E, M, H = 60, 2048, 1408
@@ -265,7 +419,7 @@ def check_flash(gen):
 # ---------------------------------------------------------------------------
 
 def phase_small() -> None:
-    for arch in ("qwen2-moe-a2.7b", "qwen2-1.5b"):
+    for arch in ("qwen2-moe-a2.7b", "qwen2-1.5b", "xlstm-1.3b"):
         cfg = get_smoke_config(arch)
         ctx = ExecutionContext(attn_impl="decode_kernel")
         cpu = build_model(cfg, ctx=ctx, dtype=torch.float32, device="cpu")
@@ -275,7 +429,8 @@ def phase_small() -> None:
         gpu = build_model(cfg, ctx=ctx, dtype=torch.float32, device="cuda")
         p_gpu = params_from_numpy(_to_numpy(p_cpu), "cuda", torch.float32)
         rng = np.random.RandomState(0)
-        lens = [5, 9, 13]
+        # a recurrent state would carry the padding of shorter rows
+        lens = [16, 16, 16] if cfg.family == "ssm" else [5, 9, 13]
         toks = np.zeros((3, 16), np.int64)
         for i, n in enumerate(lens):
             toks[i, :n] = rng.randint(0, cfg.vocab_size, size=n)
@@ -287,8 +442,9 @@ def phase_small() -> None:
                                            seq_budget=32,
                                            last_positions=last)
             for c in caches:
-                c["index"] = torch.tensor(lens, dtype=torch.int32,
-                                          device=model.device)
+                if "index" in c:
+                    c["index"] = torch.tensor(lens, dtype=torch.int32,
+                                              device=model.device)
             seq = [logits[:, -1].float().cpu()]
             lengths = torch.tensor(lens, dtype=torch.int32) + 1
             for _ in range(4):
@@ -307,6 +463,39 @@ def phase_small() -> None:
         print(f"[small] {cfg.name}: prefill + 4 decode steps on the card "
               f"match the CPU (max |dlogit| {worst:.2e}, rtol=atol=1e-4), "
               "greedy tokens equal")
+    small_paged()
+
+
+def small_paged() -> None:
+    """A paged engine (page size 16, GQA g=2) on the card against the same
+    engine on the CPU: equal greedy tokens on a shared-prefix trace."""
+    cfg = get_smoke_config("qwen2-1.5b")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    p_cpu = build_model(cfg, dtype=torch.float32, device="cpu").init(gen)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        params = (p_cpu if dev == "cpu" else
+                  params_from_numpy(_to_numpy(p_cpu), "cuda", torch.float32))
+        eng = ServingEngine(cfg, params=params, num_slots=3, max_context=64,
+                            kv_layout="paged", kv_block_size=16,
+                            dtype=torch.float32, device=dev)
+        rng = np.random.RandomState(2)
+        shared = list(rng.randint(0, cfg.vocab_size, size=20))
+        reqs = [Request(prompt=shared + list(rng.randint(
+            0, cfg.vocab_size, size=n)), max_new_tokens=6)
+            for n in (3, 9, 12, 1)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        eng.kv.check_invariants()
+        outs[dev] = [r.output for r in reqs]
+        hits = eng.paging_stats()["prefix_hit_tokens"]
+    if outs["cpu"] != outs["cuda"]:
+        fail(f"paged smoke engine: card tokens {outs['cuda']} differ from "
+             f"the CPU's {outs['cpu']}")
+    print(f"[small] {cfg.name} paged engine (bs=16, {hits} prefix-hit "
+          "tokens): greedy tokens on the card equal the CPU's")
 
 
 def _to_numpy(tree):
@@ -318,24 +507,13 @@ def _to_numpy(tree):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve the full-width model
+# phase 4: serve the full-width models, one path at a time
 # ---------------------------------------------------------------------------
 
-def phase_serve():
-    cfg = get_config("qwen2-moe-a2.7b")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    eng = ServingEngine(cfg, num_slots=8, max_context=1024,
-                        dtype=torch.bfloat16, seed=0)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(eng.params))
-    print(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
-          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} + "
-          f"{cfg.moe.num_shared_experts} shared, vocab {cfg.vocab_size}; "
-          f"{n_params / 1e9:.2f} B params in bf16 drawn on the card in "
-          f"{time.perf_counter() - t0:.1f} s")
-    rng = np.random.RandomState(0)
+def mixed_requests(cfg, seed: int = 0):
+    """16 requests with prompts of 16-600 tokens and 32 new tokens, even
+    ones greedy and odd ones at temperature 0.8."""
+    rng = np.random.RandomState(seed)
     reqs = []
     for i in range(16):
         n = int(rng.randint(16, 601))
@@ -343,6 +521,33 @@ def phase_serve():
                                                     size=n)),
                             max_new_tokens=32,
                             temperature=0.0 if i % 2 == 0 else 0.8))
+    return reqs
+
+
+def pressure_requests(vocab: int):
+    """16 requests sharing a 256-token system prompt, each with a unique
+    tail of 16-344 tokens and 32 new tokens, all greedy."""
+    rng = np.random.RandomState(1)
+    shared = list(rng.randint(0, vocab, size=256))
+    return [Request(prompt=shared + list(rng.randint(
+        0, vocab, size=int(rng.randint(16, 345)))), max_new_tokens=32)
+        for _ in range(16)]
+
+
+#: pages of the pressure run's pool (scratch page included): small enough
+#: that the run preempts, found with the smoke model on the CPU (paging
+#: decisions depend only on token counts and prefix equality)
+PRESSURE_BLOCKS = 57
+
+
+def serve(eng, reqs, cfg, path: str, expect):
+    """Drive ``reqs`` through ``eng`` with the launch counts set to 0 just
+    before and read just after; check that every request finished with 32
+    tokens of the vocabulary and that every kernel launched exactly as
+    often as ``expect(eng.stats)`` says (a kernel absent from it must not
+    launch)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     kernel_lib.reset_launch_counts()
     t0 = time.perf_counter()
     for r in reqs:
@@ -351,25 +556,21 @@ def phase_serve():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernel_lib.launch_counts()
-
     if len(finished) != len(reqs):
-        fail(f"served {len(finished)}/{len(reqs)} requests")
+        fail(f"{path}: served {len(finished)}/{len(reqs)} requests")
     for r in reqs:
         if r.state != RequestState.FINISHED or len(r.output) != 32:
-            fail(f"request {r.request_id}: {r.state} with "
+            fail(f"{path}: request {r.request_id}: {r.state} with "
                  f"{len(r.output)} tokens")
         if not all(0 <= t < cfg.vocab_size for t in r.output):
-            fail(f"request {r.request_id}: token out of the vocabulary")
+            fail(f"{path}: request {r.request_id}: token out of the "
+                 "vocabulary")
     st = eng.stats
-    L = cfg.num_layers
-    expect = {"decode_attention": L * st.steps,
-              "flash_attention": L * st.prefill_calls,
-              "moe_gemm": L * (st.steps + st.prefill_calls)}
+    want = expect(st)
     for name, n in counts.items():
-        if n <= 0:
-            fail(f"{name} never launched during serving")
-        if n != expect[name]:
-            fail(f"{name}: {n} launches, expected {expect[name]}")
+        if n != want.get(name, 0):
+            fail(f"{path}: {name} launched {n} times, expected "
+                 f"{want.get(name, 0)}")
     tokens = sum(len(r.output) for r in reqs)
     ttft = np.array([r.ttft for r in reqs]) * 1e3
     res = dict(requests=len(finished), tokens=tokens, wall_s=wall,
@@ -380,27 +581,170 @@ def phase_serve():
                prefill_calls=st.prefill_calls,
                prefill_ms_mean=st.prefill_s / st.prefill_calls * 1e3,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-               launches=counts,
-               launches_per_decode_step={
-                   k: counts[k] / st.steps
-                   for k in ("decode_attention",)})
-    print(f"[serve] {tokens} tokens for {len(finished)} requests in "
+               launches=counts)
+    print(f"[{path}] {tokens} tokens for {len(finished)} requests in "
           f"{wall:.2f} s -> {res['tokens_per_s']:.1f} tokens/s; TTFT mean "
           f"{res['ttft_mean_ms']:.0f} ms, p90 {res['ttft_p90_ms']:.0f} ms; "
           f"{st.steps} decode steps at {res['decode_step_ms']:.2f} ms; "
           f"{st.prefill_calls} prefill calls at "
           f"{res['prefill_ms_mean']:.1f} ms; peak memory "
           f"{res['peak_mem_gb']:.2f} GB")
-    print(f"[serve] launches during serving: {counts} "
-          f"(decode_attention {L} per decode step)")
-    print("[serve] " + json.dumps(res))
-    profile_decode(eng, rng, cfg)
+    print(f"[{path}] launches: {counts}")
+    print(f"[{path}] " + json.dumps(res))
+    return counts
+
+
+def moe_expect(cfg, decode_kernel: str):
+    """Launches of the qwen2-moe serve: per layer one decode attention
+    and one expert GEMM per decode step, one flash attention and one
+    expert GEMM per prefill call."""
+    L = cfg.num_layers
+    return lambda st: {decode_kernel: L * st.steps,
+                       "flash_attention": L * st.prefill_calls,
+                       "moe_gemm": L * (st.steps + st.prefill_calls)}
+
+
+def phase_serve():
+    """The paged path with the dense footprint as its pool, then the dense
+    path (slice 1) on the same weights, whose tokens the paged run must
+    give; then paged KV under pool pressure (preemption). Paged runs
+    first so that the order of the phases does not favour it. Returns the
+    launch counts of each path's run."""
+    cfg = get_config("qwen2-moe-a2.7b")
+    t0 = time.perf_counter()
+    # paged, parity pool: the dense footprint (257 pages of 32)
+    eng = ServingEngine(cfg, num_slots=8, max_context=1024,
+                        kv_layout="paged", dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(eng.params))
+    print(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} + "
+          f"{cfg.moe.num_shared_experts} shared, vocab {cfg.vocab_size}; "
+          f"{n_params / 1e9:.2f} B params in bf16 drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    counts = {}
+    paged_reqs = mixed_requests(cfg)
+    counts["paged"] = serve(eng, paged_reqs, cfg, "paged",
+                            moe_expect(cfg, "decode_attention_paged"))
+    eng.kv.check_invariants()
+    pool = (eng.kv.pool.num_blocks, eng.kv.block_size)
+    print(f"[paged] paging_stats {json.dumps(eng.paging_stats())}")
+    profile_decode(eng, np.random.RandomState(5), cfg, "paged")
+    params = eng.params
+    del eng
+    torch.cuda.empty_cache()
+
+    eng = ServingEngine(cfg, params=params, num_slots=8, max_context=1024,
+                        dtype=torch.bfloat16, seed=0)
+    dense_reqs = mixed_requests(cfg)
+    counts["serve"] = serve(eng, dense_reqs, cfg, "serve",
+                            moe_expect(cfg, "decode_attention"))
+    print(f"[serve] (decode_attention {cfg.num_layers} per decode step)")
+    profile_decode(eng, np.random.RandomState(5), cfg, "serve")
+    del eng
+    torch.cuda.empty_cache()
+    greedy = [(a, b) for i, (a, b) in enumerate(zip(dense_reqs, paged_reqs))
+              if i % 2 == 0]
+    sampled = [(a, b) for i, (a, b) in enumerate(zip(dense_reqs, paged_reqs))
+               if i % 2 == 1]
+    bad = [i for i, (a, b) in enumerate(greedy) if a.output != b.output]
+    if bad:
+        fail(f"paged: greedy requests {bad} differ from the dense run")
+    same = sum(a.output == b.output for a, b in sampled)
+    print(f"[paged] pool {pool[0]} pages of {pool[1]}: all {len(greedy)} "
+          f"greedy requests give the dense run's tokens; {same}/"
+          f"{len(sampled)} sampled requests match too")
+    compare_decode({
+        "dense": ServingEngine(cfg, params=params, num_slots=8,
+                               max_context=1024, dtype=torch.bfloat16),
+        "paged": ServingEngine(cfg, params=params, num_slots=8,
+                               max_context=1024, kv_layout="paged",
+                               dtype=torch.bfloat16)}, cfg)
+    torch.cuda.empty_cache()
+
+    # paged, under pressure: a shared system prompt and a pool that must
+    # preempt
+    eng = ServingEngine(cfg, params=params, num_slots=8, max_context=1024,
+                        kv_layout="paged", kv_block_size=32,
+                        kv_num_blocks=PRESSURE_BLOCKS,
+                        dtype=torch.bfloat16, seed=0)
+    reqs = pressure_requests(cfg.vocab_size)
+    counts["pressure"] = serve(eng, reqs, cfg, "pressure",
+                               moe_expect(cfg, "decode_attention_paged"))
+    eng.kv.check_invariants()
+    ps = eng.paging_stats()
+    print(f"[pressure] paging_stats {json.dumps(ps)}")
+    if ps["preemptions"] < 1:
+        fail("pressure: the pool never preempted")
+    if not ps["prefix_hit_rate"] > 0:
+        fail("pressure: no prefix hits on a shared system prompt")
+    if ps["blocks_used"] != ps["blocks_reclaimable"]:
+        fail(f"pressure: {ps['blocks_used']} pages in use at the end, "
+             f"{ps['blocks_reclaimable']} reclaimable (a leak)")
+    print(f"[pressure] {ps['preemptions']} preemptions, prefix hit rate "
+          f"{ps['prefix_hit_rate']:.3f}, invariants hold, every page "
+          "free or reclaimable at the end")
+    del eng, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def compare_decode(engines, cfg, steps: int = 8, rounds: int = 2) -> None:
+    """Paired decode-step wall time of two engines on the same host: they
+    take turns A, B, B, A in each round, each turn 8 slots at 300-token
+    prompts decoding ``steps`` steps, so a drift of the host's speed
+    weighs on both alike."""
+    names = list(engines)
+    times = {name: [] for name in names}
+    for _ in range(rounds):
+        for name in names + names[::-1]:
+            eng = engines[name]
+            rng = np.random.RandomState(7)
+            for _ in range(eng.num_slots):
+                eng.submit(Request(prompt=list(rng.randint(
+                    0, cfg.vocab_size, size=300)), max_new_tokens=steps + 2))
+            eng.step()                  # admit + prefill + first decode
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.step()
+            times[name].append((time.perf_counter() - t0) * 1e3 / steps)
+            eng.run()
+    med = {name: float(np.median(t)) for name, t in times.items()}
+    print(f"[compare] decode step ms, turns {'/'.join(names)} alternating: "
+          + json.dumps({"median": med, "turns": times}))
+
+
+def phase_serve_xlstm():
+    """The xLSTM path: full xlstm-1.3b, every mLSTM layer through the
+    mLSTM scan kernel at prefill and decode."""
+    cfg = get_config("xlstm-1.3b")
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, num_slots=8, max_context=1024,
+                        dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(eng.params))
+    kinds = eng.model.kinds
+    n_m = kinds.count("mlstm")
+    print(f"[xlstm] {cfg.name}: {cfg.num_layers} layers ({n_m} mLSTM + "
+          f"{kinds.count('slstm')} sLSTM), d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads, vocab {cfg.vocab_size}; "
+          f"{n_params / 1e9:.3f} B params drawn in bf16 on the card in "
+          f"{time.perf_counter() - t0:.1f} s (ModelConfig.num_params() "
+          f"says {cfg.num_params() / 1e9:.3f} B)")
+    counts = serve(eng, mixed_requests(cfg), cfg, "xlstm",
+                   lambda st: {"mlstm_scan": n_m * (st.steps
+                                                    + st.prefill_calls)})
+    print(f"[xlstm] (mlstm_scan {n_m} per decode step and per prefill "
+          "call)")
+    profile_decode(eng, np.random.RandomState(5), cfg, "xlstm")
     del eng
     torch.cuda.empty_cache()
     return counts
 
 
-def profile_decode(eng, rng, cfg, steps: int = 3) -> None:
+def profile_decode(eng, rng, cfg, path: str, steps: int = 3) -> None:
     """Where a steady decode step's time goes: the wall time of ``steps``
     plain decode steps, then the same number under torch.profiler for the
     device time by kernel; the idle share is 1 - kernel time / plain wall
@@ -428,7 +772,8 @@ def profile_decode(eng, rng, cfg, steps: int = 3) -> None:
             us, n = per_kernel.get(e.name, (0.0, 0))
             per_kernel[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy_ms = sum(us for us, _ in per_kernel.values()) / 1e3 / steps
-    print(f"[profile] decode step, 8 slots at ~300-token contexts: wall "
+    print(f"[profile {path}] decode step, 8 slots at ~300-token contexts: "
+          f"wall "
           f"{wall_ms:.2f} ms/step, kernels {busy_ms:.2f} ms/step "
           f"({sum(n for _, n in per_kernel.values()) // steps} launches), "
           f"device idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
@@ -436,6 +781,14 @@ def profile_decode(eng, rng, cfg, steps: int = 3) -> None:
                                 key=lambda kv: -kv[1][0])[:10]:
         print(f"  {us / 1e3 / steps:8.3f} ms/step {n // steps:5d}/step  "
               f"{name[:80]}")
+    # the host side of the same window: operators and CUDA runtime calls
+    # by self CPU time (profiled, so each is inflated by the tracing)
+    host = sorted((e for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
+    for e in host:
+        print(f"  host {e.self_cpu_time_total / 1e3 / steps:8.3f} ms/step "
+              f"{e.count // steps:5d}/step  {e.key[:60]}")
 
 
 def _leaves(tree):
@@ -450,6 +803,12 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
+
+#: the serve path whose run gives each kernel's launch count in the report
+KERNEL_PATH = {"decode_attention": "serve", "moe_gemm": "serve",
+               "flash_attention": "serve", "decode_attention_paged": "paged",
+               "mlstm_scan": "xlstm"}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -468,21 +827,28 @@ def main(argv=None) -> int:
     phase_build()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    entries = [check_decode(gen), check_moe_gemm(gen), check_flash(gen)]
+    entries = [check_decode(gen), check_decode_paged(gen),
+               check_moe_gemm(gen), check_flash(gen), check_mlstm(gen)]
     torch.cuda.empty_cache()
     phase_small()
-    counts = {e["name"]: 0 for e in entries}
+    counts = {}
     if not args.no_serve:
         counts = phase_serve()
+        counts["xlstm"] = phase_serve_xlstm()
 
     report = []
     for e in entries:
-        e = dict(e, route="cuda", launches=counts[e["name"]], ok=True)
+        path = KERNEL_PATH[e["name"]]
+        launches = counts.get(path, {}).get(e["name"], 0)
+        e = dict(e, route="cuda", launches=launches, launches_path=path,
+                 ok=True)
         report.append(e)
+        lib = ("none" if e["library_ms"] is None
+               else f"{e['library_ms']:.3f}")
         print(f"[report] {e['name']}: {e['ms']:.3f} ms (plain "
-              f"{e['plain_ms']:.3f}, library {e['library_ms']:.3f}, bound "
+              f"{e['plain_ms']:.3f}, library {lib}, bound "
               f"{e['bound_ms']:.4f} by {e['bound_by']}) at {e['shape']}; "
-              f"{e['launches']} launches while serving")
+              f"{launches} launches while serving the {path} path")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -491,9 +857,9 @@ def main(argv=None) -> int:
     print(smi)
     if args.no_serve:
         return 0
+    # the run used one card, whatever the machine holds
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
 

@@ -32,12 +32,16 @@ def check_cuda_operands(name: str, *tensors, index=()) -> None:
 
 
 def _ops():
-    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_paged)
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
     from repro_torch.kernels.moe_gemm.ops import moe_gemm
     return {"decode_attention": decode_attention,
+            "decode_attention_paged": decode_attention_paged,
             "moe_gemm": moe_gemm,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "mlstm_scan": mlstm_scan}
 
 
 def launch_counts() -> Dict[str, int]:

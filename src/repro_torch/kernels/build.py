@@ -40,8 +40,13 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     # dtype, q, k, v, lengths, out, B, H, Kv, C, D, stream
     "repro_decode_attention": [_INT] + [_VOIDP] * 5 + [_INT] * 5 + [_VOIDP],
+    # dtype, q, k, v, lengths, table, out, B, H, Kv, bs, n_blocks, D, stream
+    "repro_decode_attention_paged": ([_INT] + [_VOIDP] * 6 + [_INT] * 6
+                                     + [_VOIDP]),
     # dtype, x, wg, wu, wd, act, y, E, C, M, H, stream
     "repro_moe_gemm": [_INT] + [_VOIDP] * 6 + [_INT] * 4 + [_VOIDP],
+    # q, k, v, i, log_f, C0, n0, m0, h, C, n, m, BH, S, D, stream
+    "repro_mlstm_scan": [_VOIDP] * 12 + [_INT] * 3 + [_VOIDP],
     # dtype, q, k, v, out, B, S, H, Kv, D, causal, window, stream
     "repro_flash_attention": [_INT] + [_VOIDP] * 4 + [_INT] * 7 + [_VOIDP],
 }

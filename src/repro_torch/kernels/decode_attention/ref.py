@@ -31,3 +31,21 @@ def decode_attention_ref(q, k_cache, v_cache, lengths):
     out = torch.where((lengths > 0)[:, None, None, None], out,
                       torch.zeros_like(out))
     return out.reshape(B, H, D).to(q.dtype)
+
+
+def gather_pages(pages, block_table):
+    """[P,bs,Kv,D] pages + int [B,n] table -> dense [B, n*bs, Kv, D].
+    Unallocated entries (< 0) clamp to page 0; their positions sit past
+    the row's length, so the masked attention never reads them."""
+    B, n = block_table.shape
+    bs, Kv, D = pages.shape[1], pages.shape[2], pages.shape[3]
+    tbl = torch.clamp(block_table.to(device=pages.device, dtype=torch.long),
+                      min=0)
+    return pages[tbl].reshape(B, n * bs, Kv, D)
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, lengths, block_table):
+    """Plain version of the paged kernel: gather each row's page chain
+    into a dense cache, then run the dense plain version."""
+    return decode_attention_ref(q, gather_pages(k_pages, block_table),
+                                gather_pages(v_pages, block_table), lengths)

@@ -1,0 +1,44 @@
+"""Public wrapper of the mLSTM recurrence: dispatch by the tensors'
+device. A CPU tensor takes the plain version; a CUDA tensor launches the
+hand-written kernel or raises."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import check_cuda_operands
+from repro_torch.kernels.mlstm_scan import kernel
+from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
+
+
+def mlstm_scan(q, k, v, i_gate, log_f, C0, n0, m0):
+    """q,k,v: [B,H,S,D] f32; i_gate/log_f: [B,H,S] f32; C0: [B,H,D,D];
+    n0: [B,H,D]; m0: [B,H] (f32 state) -> (h [B,H,S,D], C, n, m).
+
+    Any S >= 1 runs (S = 1 is a decode step), with no block-size
+    condition: the reference's op sends S not divisible by its block to
+    the oracle, the kernel masks instead. D is at most ``kernel.MAX_D``.
+    """
+    if q.device.type == "cpu":
+        return mlstm_scan_ref(q, k, v, i_gate, log_f, C0, n0, m0)
+    B, H, S, D = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("q, k and v differ in shape")
+    if i_gate.shape != (B, H, S) or log_f.shape != (B, H, S):
+        raise ValueError(f"gates must be [B,H,S] = {(B, H, S)}")
+    if C0.shape != (B, H, D, D) or n0.shape != (B, H, D) \
+            or m0.shape != (B, H):
+        raise ValueError("state shapes do not match q")
+    if S < 1 or D > kernel.MAX_D:
+        raise ValueError(f"unsupported S={S}, D={D} (D <= {kernel.MAX_D})")
+    if q.dtype != torch.float32:
+        raise TypeError(f"mlstm_scan runs in float32, got {q.dtype}")
+    check_cuda_operands("mlstm_scan", q, k, v, i_gate, log_f, C0, n0, m0)
+    h = torch.empty_like(q)
+    C, n, m = torch.empty_like(C0), torch.empty_like(n0), torch.empty_like(m0)
+    kernel.mlstm_scan_cuda(q, k, v, i_gate, log_f, C0, n0, m0, h, C, n, m)
+    mlstm_scan.launches += 1
+    return h, C, n, m
+
+
+#: kernel launches (plain-version calls on CPU tensors do not count)
+mlstm_scan.launches = 0

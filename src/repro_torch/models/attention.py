@@ -1,6 +1,6 @@
 """GQA attention (PyTorch counterpart of ``repro.models.attention``):
 full-sequence causal attention for prefill and single-token decode over a
-dense ragged KV cache.
+dense ragged KV cache or over page pools through a block table.
 
 KV caches are dicts ``{"k": [B,C,Kv,Dh], "v": [B,C,Kv,Dh], "index": i32}``
 with a scalar index (one sequence) or a per-slot ``[B]`` index vector
@@ -13,18 +13,19 @@ Routing differs from the reference in one deliberate place: with
 ``impl="decode_kernel"`` the reference runs prefill through ``_sdpa``
 (``repro/models/attention.py:211-218``), while the port runs it through
 the flash kernel — the same function, held against ``_sdpa`` by the
-tests. MLA, ring/sliding windows, sequence-sharded decode and the paged
-layout are not ported yet and raise.
+tests. MLA, ring/sliding windows and sequence-sharded decode are not
+ported yet and raise.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.decode_attention import ref as dec_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import apply_rope, dense_apply, dense_init
 
@@ -150,14 +151,52 @@ def _prefill_cache(cache, to_cache, S: int):
 # single-token decode
 # ---------------------------------------------------------------------------
 
+class PagedAddress(NamedTuple):
+    """One decode step's paged-KV addresses (see ``paged_address``)."""
+    table: torch.Tensor       # int32 [B, max_blocks], < 0 = unallocated
+    positions: torch.Tensor   # int32 [B, 1]: the new token's position
+    phys: torch.Tensor        # long [B]: page of the new K/V row
+    row: torch.Tensor         # long [B]: its row within that page
+    lens: torch.Tensor        # int32 [B]: positions attended
+
+
+def paged_address(block_table, index, bs: int, lengths=None) -> PagedAddress:
+    """Work out one decode step's page addresses once for every attention
+    layer: the layers hold the same per-slot ``index`` (tokens cached), and
+    one ``block_table`` (int32 [B, max_blocks]) addresses every layer's
+    page pool. The new row goes to page ``max(tbl[b, pos // bs], 0)`` at
+    row ``pos % bs``, with ``pos`` clamped to the table's capacity; dead
+    rows (no pages) land on the reserved scratch page 0, so they never
+    touch live KV. ``lengths`` (the KV ledger's, else ``index + 1``) are
+    clamped to [0, max_blocks * bs]."""
+    tbl = block_table.to(dtype=torch.int32).contiguous()
+    B = tbl.shape[0]
+    if index.dim() == 0:
+        index = index.expand(B)
+    C = tbl.shape[1] * bs
+    pos = torch.clamp(index.long(), max=C - 1)
+    batch_ix = torch.arange(B, device=tbl.device)
+    phys = torch.clamp(tbl[batch_ix, pos // bs].long(), min=0)
+    if lengths is not None:
+        lens = torch.clamp(lengths.to(torch.int32), 0, C)
+    else:
+        lens = torch.clamp(index.to(torch.int32) + 1, max=C)
+    return PagedAddress(tbl, index[:, None].to(torch.int32), phys, pos % bs,
+                        lens.contiguous())
+
+
 def attention_decode(params, cfg: ModelConfig, x, cache, impl: str = "xla",
-                     lengths=None):
+                     lengths=None, paged: Optional[PagedAddress] = None):
     """x: [B, 1, M]; cache index == number of tokens already cached.
     ``lengths`` ([B] int32, optional) is the KV ledger's per-slot context
     length — the positions THIS step attends over; without it the length
-    is recovered from the cache index. ``impl="decode_kernel"`` runs the
+    is recovered from the cache index. ``paged`` (the step's
+    ``paged_address``) switches the cache to the paged layout
+    (``repro_torch.runtime.paging``). ``impl="decode_kernel"`` runs the
     ragged decode kernel, any other impl the plain masked SDPA. Returns
     (out [B,1,M], cache with the row written in place)."""
+    if paged is not None:
+        return _attention_decode_paged(params, cfg, x, cache, impl, paged)
     _check_supported(cfg)
     B = x.shape[0]
     index = cache["index"]
@@ -187,6 +226,44 @@ def attention_decode(params, cfg: ModelConfig, x, cache, impl: str = "xla",
     else:
         mask = (torch.arange(C, device=x.device)[None, None, :]
                 < lens[:, None, None])                          # [B, 1, C]
+        out = _sdpa(q, k_all, v_all, mask)
+    out = dense_apply(params["wo"], out.reshape(B, 1, -1))
+    return out, new_cache
+
+
+def _attention_decode_paged(params, cfg: ModelConfig, x, cache, impl,
+                            paged: PagedAddress):
+    """Paged-KV decode: the cache's k/v are physical page pools
+    ``[P, bs, Kv, D]`` shared by every slot, addressed through the step's
+    ``paged`` (table, new-row page and row, lengths). The new row is
+    written IN PLACE into its tail page. ``impl="decode_kernel"`` runs the
+    paged kernel; other impls gather the page chains and run the plain
+    masked SDPA. MLA and ring/sliding windows have no paged layout and
+    raise."""
+    if cfg.mla_kv_lora_rank or cfg.attention in ("sliding", "local"):
+        raise NotImplementedError(
+            "paged KV decode requires full-attention GQA "
+            f"(attention={cfg.attention!r}, mla={cfg.mla_kv_lora_rank})")
+    B = x.shape[0]
+    q, _, _, to_cache = _project_qkv(params, cfg, x, paged.positions)
+    # Several dead rows may write the same scratch-page position: with
+    # duplicate indices index_put_ keeps one of the writes, which one is
+    # not defined. That is harmless, since no live row maps page 0.
+    for name, val in to_cache.items():
+        cache[name].index_put_((paged.phys, paged.row),
+                               val[:, 0].to(cache[name].dtype))
+    new_cache = dict(cache, index=cache["index"] + 1)
+
+    if impl == "decode_kernel":
+        out = dec_ops.decode_attention_paged(
+            q[:, 0].contiguous(), new_cache["k"], new_cache["v"],
+            paged.lens, paged.table)[:, None]
+    else:
+        k_all = dec_ref.gather_pages(new_cache["k"], paged.table).to(x.dtype)
+        v_all = dec_ref.gather_pages(new_cache["v"], paged.table).to(x.dtype)
+        C = k_all.shape[1]
+        mask = (torch.arange(C, device=x.device)[None, None, :]
+                < paged.lens[:, None, None])                    # [B, 1, C]
         out = _sdpa(q, k_all, v_all, mask)
     out = dense_apply(params["wo"], out.reshape(B, 1, -1))
     return out, new_cache

@@ -111,3 +111,31 @@ def mlp_apply(p, x):
     g = dense_apply(p["gate"], x)
     u = dense_apply(p["up"], x)
     return dense_apply(p["down"], F.silu(g) * u)
+
+
+# ---------------------------------------------------------------------------
+# causal depthwise conv1d (used by the xLSTM blocks)
+# ---------------------------------------------------------------------------
+
+def conv1d_init(gen, dim: int, width: int, dtype=torch.float32):
+    return {"kernel": normal(gen, (width, dim), 1.0 / math.sqrt(width), dtype),
+            "bias": torch.zeros((dim,), dtype=dtype, device=gen.device)}
+
+
+def conv1d_apply(p, x, state=None):
+    """Causal depthwise conv. x: [B, S, D]. ``state``: [B, width-1, D] tail
+    of the previous segment (decode); returns (y, new_state). Compute runs
+    in x.dtype; new_state keeps the incoming state's dtype."""
+    w = p["kernel"].to(x.dtype)                            # [W, D]
+    width = w.shape[0]
+    if state is None:
+        state = torch.zeros(x.shape[:-2] + (width - 1, x.shape[-1]),
+                            dtype=x.dtype, device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=-2)
+    S = x.shape[-2]
+    ys = xp[..., 0:S, :] * w[0]
+    for i in range(1, width):
+        ys = ys + xp[..., i:i + S, :] * w[i]
+    new_state = (xp[..., -(width - 1):, :].to(state.dtype)
+                 if width > 1 else state)
+    return ys + p["bias"].to(x.dtype), new_state

@@ -1,6 +1,7 @@
 """Model assembly (PyTorch counterpart of ``repro.models.transformer``) for
-the dense and moe families: a causal transformer with GQA attention and an
-MLP or MoE FFN per layer.
+the dense and moe families (a causal transformer with GQA attention and an
+MLP or MoE FFN per layer) and the ssm family (xLSTM: mLSTM and sLSTM
+blocks, whose decode cache is a recurrent state).
 
 Parameters are nested dicts of tensors with the JAX package's nesting
 (``embed.embedding``, ``layers[i].attn.wq.{kernel,bias}``,
@@ -10,7 +11,8 @@ loop, eagerly; there is no jit counterpart.
 
 Execution modes:
   prefill()      full-sequence + cache fill
-  decode_step()  one token with cache (the cache rows are written in place)
+  decode_step()  one token with cache (attention cache rows are written in
+                 place; dense or, with ``block_tables``, paged KV)
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (dense_init, embedding_apply,
                                        embedding_attend, embedding_init,
                                        mlp_apply, mlp_init, rmsnorm_apply,
@@ -57,6 +60,12 @@ class ExecutionContext:
 
 
 def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
+    if cfg.family == "ssm":
+        return ssm_lib.xlstm_layer_kinds(cfg)
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            "family 'hybrid' (RecurrentGemma) is not ported yet "
+            "(ROADMAP Queue 1 item 1)")
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1)")
@@ -66,6 +75,10 @@ def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
 
 
 def init_layer(gen, cfg: ModelConfig, kind: str, dtype=torch.float32):
+    if kind in ("mlstm", "slstm"):
+        init = ssm_lib.mlstm_init if kind == "mlstm" else ssm_lib.slstm_init
+        return {"ln1": rmsnorm_init(cfg.d_model, gen.device, dtype),
+                kind: init(gen, cfg, dtype)}
     p: Dict[str, Any] = {
         "ln1": rmsnorm_init(cfg.d_model, gen.device, dtype),
         "attn": attn.attention_init(gen, cfg, dtype),
@@ -80,6 +93,19 @@ def init_layer(gen, cfg: ModelConfig, kind: str, dtype=torch.float32):
     return p
 
 
+def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
+                     dtype=torch.bfloat16, device=None):
+    """A layer's decode cache: a KV cache for attention layers, a float32
+    recurrent state (whatever ``dtype``) for mLSTM/sLSTM layers."""
+    if kind in ("attn_mlp", "attn_moe"):
+        return attn.init_kv_cache(cfg, batch, seq_len, dtype, device)
+    if kind == "mlstm":
+        return ssm_lib.mlstm_state(cfg, batch, device=device)
+    if kind == "slstm":
+        return ssm_lib.slstm_state(cfg, batch, device=device)
+    raise ValueError(kind)
+
+
 def _apply_moe(p, cfg: ModelConfig, h, ctx: ExecutionContext):
     if ctx.moe_impl == "dense":
         return moe_lib.moe_apply_dense(p["moe"], h, cfg.moe)
@@ -87,14 +113,25 @@ def _apply_moe(p, cfg: ModelConfig, h, ctx: ExecutionContext):
 
 
 def apply_layer(p, cfg: ModelConfig, kind: str, x, positions, cache,
-                mode: str, ctx: ExecutionContext, lengths=None):
+                mode: str, ctx: ExecutionContext, lengths=None,
+                paged=None):
     """Returns (x, new_cache, aux_loss). ``lengths`` is the decode-mode
-    per-slot KV ledger vector shared by every attention layer."""
+    per-slot KV ledger vector shared by every attention layer; ``paged``
+    is the decode step's paged-KV addresses (``attn.paged_address``, also
+    shared: one table addresses every layer's page pool)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    if kind in ("mlstm", "slstm"):
+        fn = ssm_lib.mlstm_apply if kind == "mlstm" else ssm_lib.slstm_apply
+        if cache is None:
+            cache = init_layer_cache(cfg, kind, x.shape[0], 0,
+                                     device=x.device)
+        y, cache = fn(p[kind], cfg, h, cache)
+        return x + y, cache, aux
     if mode == "decode":
         a, cache = attn.attention_decode(p["attn"], cfg, h, cache,
-                                         impl=ctx.attn_impl, lengths=lengths)
+                                         impl=ctx.attn_impl, lengths=lengths,
+                                         paged=paged)
     else:
         a, cache = attn.attention_fullseq(p["attn"], cfg, h, positions,
                                           cache, impl=ctx.attn_impl)
@@ -108,7 +145,7 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, positions, cache,
 
 
 class Model:
-    """Causal LM for the dense and moe families.
+    """Causal LM for the dense, moe and ssm families.
 
     ``device=None`` means the CUDA card and raises when there is none;
     the tests pass ``device="cpu"``, where every kernel wrapper takes its
@@ -147,10 +184,13 @@ class Model:
         return params
 
     # ---- caches ------------------------------------------------------------
-    def init_cache(self, batch: int, seq_len: int) -> List[dict]:
-        return [attn.init_kv_cache(self.cfg, batch, seq_len, self.dtype,
-                                   self.device)
-                for _ in self.kinds]
+    def init_cache(self, batch: int, seq_len: int, dtype=None) -> List[dict]:
+        """One cache per layer: KV caches in ``dtype`` (default: the
+        model's) for attention layers, float32 states for recurrent ones."""
+        dtype = dtype if dtype is not None else self.dtype
+        return [init_layer_cache(self.cfg, kind, batch, seq_len, dtype,
+                                 self.device)
+                for kind in self.kinds]
 
     # ---- forward pieces -----------------------------------------------------
     def _readout(self, params, x):
@@ -186,22 +226,34 @@ class Model:
         x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
         return self._readout(params, x), caches
 
-    def decode_step(self, params, tokens, caches, lengths=None):
+    def decode_step(self, params, tokens, caches, lengths=None,
+                    block_tables=None):
         """tokens: [B, 1] -> (logits [B,1,V], caches). ``lengths`` ([B]
         int32, optional) are the per-slot context lengths from the KV
         ledger, shared by every attention layer (mask source and the
-        ragged kernel's loop bound). The caches' K/V rows are written in
-        place; the returned list holds the advanced indices."""
+        ragged kernel's loop bound). ``block_tables`` (int32 [B,
+        max_blocks], optional) is the paged-KV page map; one table serves
+        every attention layer, since page p of each layer's pool belongs
+        to the same logical block, so the step's page addresses are worked
+        out once here. None = dense. The caches' K/V rows are
+        written in place; the returned list holds the advanced indices
+        and the new recurrent states."""
         cfg = self.cfg
         x = embedding_apply(params["embed"], tokens.to(self.device),
                             self.dtype)
         if lengths is not None:
             lengths = lengths.to(device=self.device, dtype=torch.int32)
+        paged = None
+        if block_tables is not None:
+            first = next(c for c in caches if "k" in c)
+            paged = attn.paged_address(block_tables.to(self.device),
+                                       first["index"], first["k"].shape[1],
+                                       lengths)
         new_caches = []
         for i, kind in enumerate(self.kinds):
             x, nc, _ = apply_layer(params["layers"][i], cfg, kind, x, None,
                                    caches[i], "decode", self.ctx,
-                                   lengths=lengths)
+                                   lengths=lengths, paged=paged)
             new_caches.append(nc)
         x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
         return self._readout(params, x), new_caches

@@ -1,6 +1,5 @@
 """Iteration-level batch scheduling (Orca-style): admission policies +
-``StepPlan`` construction (a copy of ``repro.runtime.batching`` without the
-paged-KV branches, which come with ``runtime/paging.py``).
+``StepPlan`` construction (a copy of ``repro.runtime.batching``).
 
 Every engine iteration asks the ``BatchScheduler`` what to run:
 
@@ -10,7 +9,8 @@ The scheduler rejects oversized prompts, admits waiting requests under the
 configured admission policy (bounded by free KV slots and an optional
 per-step prefill token budget), allocates their slots from the
 ``KVCacheManager``, and groups admitted requests by padded prefill bucket
-so several requests run as ONE batched ``model.prefill`` call.
+so several requests run as ONE batched ``model.prefill`` call. Under a
+``PagedKVCacheManager`` admission also answers to the page pool.
 
 Admission policies:
   fcfs          arrival order, fill every free slot
@@ -64,31 +64,38 @@ class StepPlan:
 @runtime_checkable
 class AdmissionPolicy(Protocol):
     """Pick which waiting requests to admit this step (does not mutate
-    ``waiting``; returns a subset, at most ``free_slots`` long)."""
+    ``waiting``; returns a subset, at most ``free_slots`` long).
+    ``cost_fn`` overrides the per-request prefill cost — the paged-KV
+    scheduler passes a prefix-discounted cost so cached prompts do not
+    burn token budget they will not stream."""
 
     name: str
 
     def admit(self, waiting: Sequence[Request], free_slots: int,
-              token_budget: Optional[int] = None) -> List[Request]:
+              token_budget: Optional[int] = None,
+              cost_fn=None) -> List[Request]:
         ...
 
 
 def _prefill_cost(req: Request) -> int:
+    # resume_tokens == prompt for fresh requests; after a paged-KV
+    # preemption it includes the generated tokens whose KV must be rebuilt
     return max(len(req.resume_tokens) - 1, 0)
 
 
 class FCFSAdmission:
     name = "fcfs"
 
-    def admit(self, waiting, free_slots, token_budget=None):
+    def admit(self, waiting, free_slots, token_budget=None, cost_fn=None):
         return list(waiting[:max(free_slots, 0)])
 
 
 class ShortestPromptFirst:
     name = "spf"
 
-    def admit(self, waiting, free_slots, token_budget=None):
-        ranked = sorted(waiting, key=lambda r: (_prefill_cost(r),
+    def admit(self, waiting, free_slots, token_budget=None, cost_fn=None):
+        cost = cost_fn or _prefill_cost
+        ranked = sorted(waiting, key=lambda r: (cost(r),
                                                 r.arrival_t, r.request_id))
         return ranked[:max(free_slots, 0)]
 
@@ -101,14 +108,15 @@ class TokenBudgetAdmission:
     def __init__(self, token_budget: int = 512):
         self.token_budget = token_budget
 
-    def admit(self, waiting, free_slots, token_budget=None):
+    def admit(self, waiting, free_slots, token_budget=None, cost_fn=None):
         budget = self.token_budget if token_budget is None else token_budget
+        cost_of = cost_fn or _prefill_cost
         out: List[Request] = []
         total = 0
         for req in waiting:
             if len(out) >= free_slots:
                 break
-            cost = _prefill_cost(req)
+            cost = cost_of(req)
             if out and total + cost > budget:
                 break
             out.append(req)
@@ -147,39 +155,81 @@ class BatchScheduler:
         self.token_budget = token_budget
 
     def build_step(self, waiting: List[Request], kv: KVCacheManager, *,
-                   max_context: Optional[int] = None) -> StepPlan:
+                   max_context: Optional[int] = None,
+                   exact_length: bool = False) -> StepPlan:
         """Admit from (and pop out of) ``waiting``, allocate slots, group
-        by bucket."""
+        by bucket. ``exact_length`` disables bucket padding (recurrent
+        states would be corrupted by padded prefill tokens, so SSM prompts
+        group by exact length)."""
         max_context = max_context or kv.max_context
         plan = StepPlan()
+        # block-granular KV (PagedKVCacheManager): admission also answers
+        # to the page pool — watermark hysteresis, a per-request new-page
+        # charge discounted by the prefix cache, and a pool-capacity cap
+        paged = hasattr(kv, "admission_charge")
+
         keep = []
         for req in waiting:
-            # the full sequence — the last token is fed through decode —
-            # must fit the per-slot cache
+            # the full (resume) sequence — the last token is fed through
+            # decode — must fit the per-slot cache
             n_total = len(req.resume_tokens)
             if n_total > max_context:
                 req.error = (f"prompt of {n_total} tokens exceeds "
                              f"max_context={max_context}; refusing to "
                              "truncate")
                 plan.rejected.append(req)
+            elif paged and (kv.blocks_for_tokens(max(n_total - 1, 0))
+                            > kv.pool.usable - 1):
+                req.error = (f"prompt needs more KV pages than the pool "
+                             f"holds ({kv.pool.usable} usable blocks of "
+                             f"{kv.block_size})")
+                plan.rejected.append(req)
             else:
                 keep.append(req)
         waiting[:] = keep
 
+        if paged and kv.admission_blocked():
+            # above the high watermark: run decode-only steps until the
+            # pool drains below the low watermark
+            plan.decode_slots = kv.live_slots()
+            return plan
+
+        cost_fn = _prefill_cost
+        if paged:
+            def cost_fn(req):
+                toks = req.resume_tokens
+                Lp = max(len(toks) - 1, 0)
+                return max(Lp - kv.cached_prefix_tokens(toks[:Lp]), 0)
+
         admitted = self.admission.admit(waiting, kv.free_count(),
-                                        self.token_budget)
+                                        self.token_budget, cost_fn=cost_fn)
         if self.token_budget is not None:
             # the budget bounds every step regardless of admission policy;
             # the first request always passes so it cannot starve
             capped: List[Request] = []
             total = 0
             for req in admitted:
-                cost = _prefill_cost(req)
+                cost = cost_fn(req)
                 if capped and total + cost > self.token_budget:
                     break
                 capped.append(req)
                 total += cost
             admitted = capped
+        if paged:
+            # charge each admit its NEW pages (prefix hits are free) and
+            # stop before the pool runs out, keeping one page of decode
+            # headroom per already-live slot to delay preemption
+            avail = kv.blocks_free() - kv.live_count()
+            fitting: List[Request] = []
+            for req in admitted:
+                toks = req.resume_tokens
+                new_pages, _ = kv.admission_charge(
+                    toks[:max(len(toks) - 1, 0)])
+                if new_pages > avail:
+                    break
+                fitting.append(req)
+                avail -= new_pages
+            admitted = fitting
         groups: Dict[int, PrefillGroup] = {}
         for req in admitted:
             slot = kv.alloc()
@@ -187,7 +237,12 @@ class BatchScheduler:
                 break
             waiting.remove(req)
             cost = _prefill_cost(req)
-            bucket = 0 if cost == 0 else min(bucket_length(cost), max_context)
+            if cost == 0:
+                bucket = 0
+            elif exact_length:
+                bucket = cost
+            else:
+                bucket = min(bucket_length(cost), max_context)
             group = groups.setdefault(bucket, PrefillGroup(bucket))
             group.slots.append(slot)
             group.requests.append(req)

@@ -7,19 +7,24 @@ batch/KV runtime objects. Each iteration is
      admitted requests by padded prefill bucket;
   2. one batched ``model.prefill`` per ``PrefillGroup``, copied into the
      per-slot caches by the ``KVCacheManager``;
-  3. one ``model.decode_step`` over the full slot batch, with per-slot
+  3. under ``kv_layout="paged"``, a tail page for every live slot's next
+     KV write, preempting the cheapest-to-recompute slot when the pool is
+     exhausted;
+  4. one ``model.decode_step`` over the full slot batch, with per-slot
      temperature/top-k sampling; finished slots are evicted.
 
-The engine runs eagerly on one device with ``moe_impl="capacity"`` and
-dense KV. The planner (``PlanCache`` and policies), paging, expert
-placement, profiling and observability are ROADMAP items of later slices
-and are not accepted as arguments.
+The engine runs eagerly on one device with ``moe_impl="capacity"``, over
+dense or paged KV (``runtime/paging.py``); recurrent (ssm) models keep
+per-slot states and prefill by exact prompt length. The planner
+(``PlanCache`` and policies), expert placement, profiling and
+observability are ROADMAP items of later slices and are not accepted as
+arguments.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -29,6 +34,7 @@ from repro_torch.models import build_model
 from repro_torch.models.transformer import ExecutionContext
 from repro_torch.runtime.batching import BatchScheduler, PrefillGroup, StepPlan
 from repro_torch.runtime.kv import KVCacheManager
+from repro_torch.runtime.paging import PagedKVCacheManager
 from repro_torch.runtime.request import Request, RequestState
 from repro_torch.runtime.sampler import sample
 from repro_torch.sched.occupancy import bucket_length
@@ -48,7 +54,12 @@ class EngineStats:
 class ServingEngine:
     """``device=None`` means the CUDA card and raises without one; the
     tests pass ``device="cpu"``. ``dtype`` is the compute and KV dtype
-    (the weights are drawn in it when ``params`` is None)."""
+    (the weights are drawn in it when ``params`` is None).
+    ``kv_layout="paged"`` stores KV in pages of ``kv_block_size``
+    positions (``kv_num_blocks`` pages, default the dense footprint)
+    with prefix sharing, watermark admission (the manager's 0.90 / 0.75
+    hysteresis) and preemption by recompute; it needs a full-attention
+    GQA dense or moe model."""
 
     def __init__(self, cfg: ModelConfig, params=None, *, num_slots: int = 4,
                  max_context: int = 4096,
@@ -56,10 +67,29 @@ class ServingEngine:
                  admission: str = "fcfs",
                  token_budget: Optional[int] = None,
                  attn_impl: str = "decode_kernel",
+                 kv_layout: str = "dense",
+                 kv_block_size: int = 32,
+                 kv_num_blocks: Optional[int] = None,
                  dtype=torch.float32, seed: int = 0,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.cfg = cfg
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout={kv_layout!r}; "
+                             "choose 'dense' or 'paged'")
+        self.kv_layout = kv_layout
+        self._paged = kv_layout == "paged"
+        if self._paged:
+            # paged decode writes and streams through a block table; ring
+            # windows, MLA latent caches and recurrent states have no
+            # block-granular layout
+            if (cfg.attention != "full" or cfg.mla_kv_lora_rank
+                    or cfg.family not in ("dense", "moe")):
+                raise ValueError(
+                    "kv_layout='paged' requires a full-attention GQA "
+                    f"decoder (family={cfg.family!r}, "
+                    f"attention={cfg.attention!r}, "
+                    f"mla={cfg.mla_kv_lora_rank})")
         ctx = ExecutionContext(attn_impl=attn_impl, moe_impl="capacity")
         self.model = build_model(cfg, ctx=ctx, dtype=dtype,
                                  device=self.device)
@@ -68,7 +98,17 @@ class ServingEngine:
         self.num_slots = num_slots
         self.max_context = max_context
         self.generator = generator_for(self.device, seed + 1)
-        self.kv = KVCacheManager(num_slots, max_context, model=self.model)
+        if self._paged:
+            self.kv: KVCacheManager = PagedKVCacheManager(
+                num_slots, max_context, model=self.model,
+                dtype=self.model.dtype, block_size=kv_block_size,
+                num_blocks=kv_num_blocks)
+        else:
+            self.kv = KVCacheManager(num_slots, max_context,
+                                     model=self.model,
+                                     dtype=self.model.dtype)
+        # recurrent states must never see padded prefill tokens
+        self._exact_length = cfg.family == "ssm"
         self.scheduler = scheduler if scheduler is not None else \
             BatchScheduler(admission=admission, token_budget=token_budget)
         self.slots: List[Optional[Request]] = [None] * num_slots
@@ -114,15 +154,19 @@ class ServingEngine:
         reqs, slots = group.requests, group.slots
         toks = torch.zeros((len(reqs), group.bucket), dtype=torch.long)
         lengths = []
+        token_rows = []
         for j, req in enumerate(reqs):
-            feed = req.resume_tokens
+            feed = req.resume_tokens     # prompt (+ preempted output)
             Lp = len(feed) - 1
             toks[j, :Lp] = torch.as_tensor(feed[:Lp], dtype=torch.long)
             lengths.append(Lp)
+            token_rows.append(feed[:Lp])
         t0 = time.perf_counter()
         _, prefilled = self.model.prefill(self.params, toks.to(self.device),
                                           seq_budget=self.max_context)
-        self.kv.merge_prefill(slots, prefilled, lengths)
+        # under paged KV the token ids key the prefix cache: shared full
+        # blocks map to already-resident pages and skip the copy
+        self.kv.merge_prefill(slots, prefilled, lengths, tokens=token_rows)
         self._sync()
         self.stats.prefill_s += time.perf_counter() - t0
         self.stats.prefill_calls += 1
@@ -150,12 +194,18 @@ class ServingEngine:
                 f"max_context={self.max_context}")
         self.kv.take(slot)
         Lp = max(len(req.resume_tokens) - 1, 0)
-        bucket = 0 if Lp == 0 else min(bucket_length(Lp), self.max_context)
+        if Lp == 0:
+            bucket = 0
+        elif self._exact_length:
+            bucket = Lp
+        else:
+            bucket = min(bucket_length(Lp), self.max_context)
         self._prefill_group(PrefillGroup(bucket, [slot], [req]))
 
     def _admit(self) -> StepPlan:
-        step_plan = self.scheduler.build_step(self.waiting, self.kv,
-                                              max_context=self.max_context)
+        step_plan = self.scheduler.build_step(
+            self.waiting, self.kv, max_context=self.max_context,
+            exact_length=self._exact_length)
         now = time.perf_counter()
         for req in step_plan.rejected:
             self._finish(req, RequestState.REJECTED, now)
@@ -164,11 +214,69 @@ class ServingEngine:
         return step_plan
 
     def _decode_step(self, lengths, use_topk: bool):
+        tables = self.kv.table_array() if self._paged else None
         logits, caches = self.model.decode_step(
-            self.params, self.last_tokens, self.kv.caches, lengths=lengths)
+            self.params, self.last_tokens, self.kv.caches, lengths=lengths,
+            block_tables=tables)
         nxt = sample(self.generator, logits[:, -1], self.temps,
                      self.top_ks if use_topk else 0)
         return nxt[:, None], caches
+
+    # ------------------------------------------------------------------
+    # paged-KV capacity management
+    # ------------------------------------------------------------------
+    def _ensure_decode_capacity(self, live: List[int]) -> List[int]:
+        """Grow each live slot's tail KV page before the decode write.
+        On pool exhaustion, preempt the victim with the cheapest
+        recompute (fewest accumulated tokens; youngest arrival breaks
+        ties) — its pages are freed and the request re-queued at the HEAD
+        of waiting for re-prefill from ``resume_tokens``. When no other
+        slot is left to evict, the needy request ends LENGTH_CAPPED.
+        Returns the slots that can decode this step."""
+        ready: List[int] = []
+        pending = list(live)
+        while pending:
+            i = pending.pop(0)
+            ok = True
+            while not self.kv.ensure_decode_page(i):
+                candidates = [s for s in ready + pending if s != i]
+                if not candidates:
+                    self._finish(self.slots[i], RequestState.LENGTH_CAPPED,
+                                 time.perf_counter())
+                    self.slots[i] = None
+                    self.kv.free(i)
+                    ok = False
+                    break
+                victim = min(candidates,
+                             key=lambda s: (self.kv.length(s),
+                                            -self.slots[s].arrival_t))
+                self._preempt(victim)
+                if victim in ready:
+                    ready.remove(victim)
+                if victim in pending:
+                    pending.remove(victim)
+            if ok:
+                ready.append(i)
+        return ready
+
+    def _preempt(self, slot: int) -> None:
+        """Evict a running request to recompute: free its pages (shared
+        prefix pages stay cached) and re-queue it at the head of the
+        waiting line so it re-prefills — prompt AND generated tokens —
+        as soon as the pool allows."""
+        req = self.slots[slot]
+        req.state = RequestState.WAITING
+        req.preemptions += 1
+        self.kv.paging.preemptions += 1
+        self.slots[slot] = None
+        self.kv.free(slot)
+        self.last_tokens[slot, 0] = 0
+        self.waiting.insert(0, req)
+
+    def paging_stats(self) -> Optional[Dict[str, float]]:
+        """Block occupancy / prefix hit-rate / preemption counters
+        (None under the dense layout)."""
+        return self.kv.paging_summary() if self._paged else None
 
     def step(self) -> bool:
         """One engine iteration; returns False when idle."""
@@ -176,6 +284,13 @@ class ServingEngine:
         live = [i for i, r in enumerate(self.slots) if r is not None]
         if not live:
             return False
+        if self._paged:
+            # every live slot needs a page for this step's KV write;
+            # exhaustion preempts the cheapest-to-recompute victim
+            live = self._ensure_decode_capacity(live)
+            if not live:
+                # capacity actions (preempt/cap) happened; not idle
+                return True
         use_topk = any(r is not None and r.top_k > 0 for r in self.slots)
         # the ledger's per-slot context lengths drive the attention mask
         # AND the ragged kernel's loop bound (dead slots decode as len 0)

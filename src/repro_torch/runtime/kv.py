@@ -2,13 +2,16 @@
 allocation, the per-slot context-length ledger, and the engine's layer-cache
 surgery (init / batched-prefill merge / reset).
 
-Cache layout: one dict per layer, ``{"k": [slots,C,Kv,D], "v": ...,
-"index": int32 [slots]}`` — the per-slot index is each slot's
-continuous-batching position. Unlike the JAX package, which builds new
-arrays with ``.at[].set``, this manager writes rows IN PLACE with
-``index_copy_``: the [slots, C] caches are allocated once and never copied.
-Eviction is ledger-only: stale rows are masked by the lengths and
-overwritten by the next prefill.
+Cache layout, one entry per layer (mirroring ``Model.init_cache``):
+  * attention caches are dicts ``{"k": [slots,C,Kv,D], "v": ...,
+    "index": int32 [slots]}`` — the per-slot index is each slot's
+    continuous-batching position;
+  * recurrent (mLSTM/sLSTM) states are dicts of per-slot float32 state
+    rows, with no index.
+Unlike the JAX package, which builds new arrays with ``.at[].set``, this
+manager writes rows IN PLACE with ``index_copy_``: the per-slot caches are
+allocated once and never copied. Eviction is ledger-only: stale rows are
+masked by the lengths (attention) or overwritten by the next prefill.
 """
 from __future__ import annotations
 
@@ -28,10 +31,14 @@ class KVStats:
 
 
 class KVCacheManager:
-    def __init__(self, num_slots: int, max_context: int, model=None):
+    def __init__(self, num_slots: int, max_context: int, model=None,
+                 dtype=None):
         self.num_slots = num_slots
         self.max_context = max_context
         self.model = model
+        # KV dtype; recurrent states stay float32 whatever this is
+        self.dtype = dtype if dtype is not None else getattr(model, "dtype",
+                                                             None)
         self.caches: Optional[List[Any]] = None
         self._live = [False] * num_slots
         # context length per live slot: prompt tokens + generated tokens,
@@ -107,22 +114,27 @@ class KVCacheManager:
         if self.model is None:
             raise ValueError("ledger-only KVCacheManager (model=None) "
                              "holds no caches")
-        caches = self.model.init_cache(self.num_slots, self.max_context)
+        caches = self.model.init_cache(self.num_slots, self.max_context,
+                                       dtype=self.dtype)
         # scalar prefill index -> per-slot index vector
         self.caches = [
             dict(c, index=torch.zeros((self.num_slots,), dtype=torch.int32,
                                       device=c["index"].device))
+            if "index" in c else c
             for c in caches]
 
     def merge_prefill(self, slots: Sequence[int], prefilled: List[Any],
-                      lengths: Sequence[int]) -> None:
+                      lengths: Sequence[int], tokens=None) -> None:
         """Copy a batched-prefill cache (row j of ``prefilled``) into slot
         row ``slots[j]`` in place; ``lengths[j]`` is the number of real
         (unpadded) prompt tokens row j holds, which becomes the slot's
-        cache index. The ledger records lengths[j] + 1: the last prompt
-        token is fed through the next decode step."""
+        cache index. Recurrent states copy their rows the same way (they
+        have no index). The ledger records lengths[j] + 1: the last prompt
+        token is fed through the next decode step. ``tokens`` (the rows'
+        token ids) key the paged layout's prefix cache; the dense layout
+        has none and ignores them."""
         self.ensure_caches()
-        dev = self.caches[0]["index"].device
+        dev = self.model.device
         ix = torch.as_tensor(list(slots), dtype=torch.long, device=dev)
         lens = torch.as_tensor(list(lengths), dtype=torch.int32, device=dev)
         for c_all, c_new in zip(self.caches, prefilled):
@@ -136,10 +148,13 @@ class KVCacheManager:
 
     def reset_slot(self, slot: int) -> None:
         """Zero-prefill path (empty / single-token prompt): reset the
-        slot's cache index so decode starts writing at position 0."""
+        slot's cache index so decode starts writing at position 0.
+        Recurrent states are left as they are, as the reference does: a
+        one-token prompt decodes from the slot's previous state."""
         self.ensure_caches()
         for c in self.caches:
-            c["index"][slot] = 0
+            if "index" in c:
+                c["index"][slot] = 0
         self.set_length(slot, 1)
 
     def __repr__(self) -> str:
