@@ -11,6 +11,7 @@ _ARCH_MODULES = {
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "qwen2-1.5b": "qwen2_1_5b",
     "xlstm-1.3b": "xlstm_1_3b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 ALL_ARCHS = tuple(_ARCH_MODULES)

@@ -37,11 +37,13 @@ def _ops():
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
     from repro_torch.kernels.moe_gemm.ops import moe_gemm
+    from repro_torch.kernels.rg_lru.ops import rg_lru_scan
     return {"decode_attention": decode_attention,
             "decode_attention_paged": decode_attention_paged,
             "moe_gemm": moe_gemm,
             "flash_attention": flash_attention,
-            "mlstm_scan": mlstm_scan}
+            "mlstm_scan": mlstm_scan,
+            "rg_lru_scan": rg_lru_scan}
 
 
 def launch_counts() -> Dict[str, int]:

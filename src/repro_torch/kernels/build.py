@@ -49,6 +49,8 @@ _SIGNATURES = {
     "repro_mlstm_scan": [_VOIDP] * 12 + [_INT] * 3 + [_VOIDP],
     # dtype, q, k, v, out, B, S, H, Kv, D, causal, window, stream
     "repro_flash_attention": [_INT] + [_VOIDP] * 4 + [_INT] * 7 + [_VOIDP],
+    # dtype, a, b, h0, h, h_last, B, S, W, stream
+    "repro_rg_lru_scan": [_INT] + [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
 }
 
 _lock = threading.Lock()

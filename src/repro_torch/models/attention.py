@@ -9,11 +9,19 @@ row into the cache tensors IN PLACE (one row per slot instead of a new
 cache per step); the returned dict holds the same k/v tensors and the
 advanced index.
 
+Local and sliding attention (``cfg.attention`` "local"/"sliding") keep a
+ring cache capped at the window (``cache_capacity``): the token at
+absolute position p lives in slot p % C. Prefill masks by the window and
+rolls the kept segment into that layout; ring decode writes slot
+``index % C`` and masks from absolute positions, ignoring the ledger's
+lengths (which pass C), and always runs the plain masked SDPA, as the
+reference does.
+
 Routing differs from the reference in one deliberate place: with
 ``impl="decode_kernel"`` the reference runs prefill through ``_sdpa``
 (``repro/models/attention.py:211-218``), while the port runs it through
-the flash kernel — the same function, held against ``_sdpa`` by the
-tests. MLA, ring/sliding windows and sequence-sharded decode are not
+the flash kernel (with the window, if any) — the same function, held
+against ``_sdpa`` by the tests. MLA and sequence-sharded decode are not
 ported yet and raise.
 """
 from __future__ import annotations
@@ -37,11 +45,15 @@ ATTN_IMPLS = ("xla", "flash", "decode_kernel")
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.mla_kv_lora_rank:
         raise NotImplementedError(
-            "MLA attention is not ported yet (ROADMAP Queue 1 item 10)")
-    if cfg.attention != "full":
+            "MLA attention is not ported yet (ROADMAP Queue 1 item 7)")
+    if cfg.attention not in ("full", "sliding", "local"):
         raise NotImplementedError(
-            f"attention={cfg.attention!r} (ring/sliding windows) is not "
-            "ported yet (ROADMAP Queue 1 item 3)")
+            f"attention={cfg.attention!r} is not ported (ROADMAP Queue 1)")
+
+
+def is_ring(cfg: ModelConfig) -> bool:
+    """Local and sliding attention keep a ring cache of the window."""
+    return cfg.attention in ("sliding", "local")
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +74,13 @@ def attention_init(gen, cfg: ModelConfig, dtype=torch.float32):
     }
 
 
+def cache_capacity(cfg: ModelConfig, seq_len: int) -> int:
+    """Ring caches (sliding/local attention) cap capacity at the window."""
+    if is_ring(cfg):
+        return min(seq_len, cfg.sliding_window)
+    return seq_len
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int,
                   dtype=torch.bfloat16, device=None):
     hd = cfg.head_dim
@@ -75,9 +94,12 @@ def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int,
 # attention cores
 # ---------------------------------------------------------------------------
 
-def _causal_mask(q_pos, k_pos):
+def _causal_mask(q_pos, k_pos, window: Optional[int] = None):
     """q_pos: [S_q], k_pos: [S_k] (absolute). True == attend."""
-    return q_pos[:, None] >= k_pos[None, :]
+    m = q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        m &= (q_pos[:, None] - k_pos[None, :]) < window
+    return m
 
 
 def _sdpa(q, k, v, mask):
@@ -114,19 +136,21 @@ def _project_qkv(params, cfg: ModelConfig, x, positions):
 
 def attention_fullseq(params, cfg: ModelConfig, x, positions,
                       cache: Optional[dict] = None, impl: str = "xla"):
-    """Prefill attention over the whole sequence. ``impl`` "flash" or
-    "decode_kernel" runs the flash kernel, "xla" the plain masked SDPA.
-    If ``cache`` is given it is filled with this segment's K/V; returns
+    """Prefill attention over the whole sequence, masked by the window
+    under local/sliding attention. ``impl`` "flash" or "decode_kernel"
+    runs the flash kernel, "xla" the plain masked SDPA. If ``cache`` is
+    given it is filled with this segment's K/V; returns
     (out, cache_or_None)."""
     _check_supported(cfg)
     if impl not in ATTN_IMPLS:
         raise ValueError(f"attn impl {impl!r} not in {ATTN_IMPLS}")
     B, S, _ = x.shape
+    window = cfg.sliding_window if is_ring(cfg) else None
     q, k, v, to_cache = _project_qkv(params, cfg, x, positions)
     if impl in ("flash", "decode_kernel"):
-        out = flash_ops.flash_attention(q, k, v, causal=True)
+        out = flash_ops.flash_attention(q, k, v, causal=True, window=window)
     else:
-        mask = _causal_mask(positions[0], positions[0])
+        mask = _causal_mask(positions[0], positions[0], window)
         out = _sdpa(q, k, v, mask)
     out = dense_apply(params["wo"], out.reshape(B, S, -1))
     new_cache = None
@@ -136,13 +160,18 @@ def attention_fullseq(params, cfg: ModelConfig, x, positions,
 
 
 def _prefill_cache(cache, to_cache, S: int):
-    """Write the segment's K/V into positions [0, min(S, C)) of the cache
-    (full attention: no ring roll) and set the index to S."""
+    """Write the segment's last min(S, C) K/V rows into slots [0, keep) of
+    the cache, in place, and set the index to S. When the segment fills
+    the cache and S % C != 0 the rows are rolled by S % C, which keeps the
+    ring invariant: slot s holds the absolute position that is s mod C."""
     C = cache["k"].shape[1]
     keep = min(S, C)
     new = dict(cache)
     for name, val in to_cache.items():
-        new[name][:, :keep].copy_(val[:, S - keep:S])
+        seg = val[:, S - keep:S]
+        if keep == C and S % C:
+            seg = torch.roll(seg, S % C, dims=1)
+        new[name][:, :keep].copy_(seg)
     new["index"] = torch.full_like(cache["index"], S)
     return new
 
@@ -190,11 +219,14 @@ def attention_decode(params, cfg: ModelConfig, x, cache, impl: str = "xla",
     """x: [B, 1, M]; cache index == number of tokens already cached.
     ``lengths`` ([B] int32, optional) is the KV ledger's per-slot context
     length — the positions THIS step attends over; without it the length
-    is recovered from the cache index. ``paged`` (the step's
-    ``paged_address``) switches the cache to the paged layout
+    is recovered from the cache index. A ring cache (local/sliding
+    attention) ignores ``lengths``: it writes slot ``index % C`` and masks
+    from absolute positions. ``paged`` (the step's ``paged_address``)
+    switches the cache to the paged layout
     (``repro_torch.runtime.paging``). ``impl="decode_kernel"`` runs the
-    ragged decode kernel, any other impl the plain masked SDPA. Returns
-    (out [B,1,M], cache with the row written in place)."""
+    ragged decode kernel on a full-attention cache; a ring cache and any
+    other impl run the plain masked SDPA. Returns (out [B,1,M], cache
+    with the row written in place)."""
     if paged is not None:
         return _attention_decode_paged(params, cfg, x, cache, impl, paged)
     _check_supported(cfg)
@@ -204,22 +236,38 @@ def attention_decode(params, cfg: ModelConfig, x, cache, impl: str = "xla",
                  else index[:, None]).to(torch.int32)
     q, _, _, to_cache = _project_qkv(params, cfg, x, positions)
     C = cache["k"].shape[1]
+    ring = is_ring(cfg)
 
-    # per-slot scatter of the new row at min(index, C-1), in place
-    slot = torch.clamp(positions[:, 0].long(), max=C - 1)
+    # per-slot scatter of the new row, in place: at index % C in a ring,
+    # else at min(index, C-1)
+    pos = positions[:, 0].long()
+    slot = pos % C if ring else torch.clamp(pos, max=C - 1)
     batch_ix = torch.arange(B, device=x.device)
     for name, val in to_cache.items():
         cache[name].index_put_((batch_ix, slot),
                                val[:, 0].to(cache[name].dtype))
     new_cache = dict(cache, index=index + 1)
+    k_all = new_cache["k"].to(x.dtype)
+    v_all = new_cache["v"].to(x.dtype)
+
+    if ring:
+        # slot s holds the latest absolute position p <= index with
+        # p = s (mod C); it is attended when 0 <= p and index - p < C
+        idx = pos[:, None]                                      # [B, 1]
+        slots = torch.arange(C, device=x.device)[None, :]
+        base = torch.div(idx - slots, C, rounding_mode="floor") * C + slots
+        k_pos = torch.where(base > idx, base - C, base)
+        mask = ((k_pos >= 0) & (k_pos <= idx)
+                & (idx - k_pos < C))[:, None, :]                # [B, 1, C]
+        out = _sdpa(q, k_all, v_all, mask)
+        out = dense_apply(params["wo"], out.reshape(B, 1, -1))
+        return out, new_cache
 
     if lengths is not None:
         lens = torch.clamp(lengths.to(torch.int32), 0, C)
     else:
         lens = torch.clamp(positions[:, 0] + 1, max=C)
 
-    k_all = new_cache["k"].to(x.dtype)
-    v_all = new_cache["v"].to(x.dtype)
     if impl == "decode_kernel":
         out = dec_ops.decode_attention(q[:, 0].contiguous(), k_all, v_all,
                                        lens.contiguous())[:, None]
@@ -240,7 +288,7 @@ def _attention_decode_paged(params, cfg: ModelConfig, x, cache, impl,
     paged kernel; other impls gather the page chains and run the plain
     masked SDPA. MLA and ring/sliding windows have no paged layout and
     raise."""
-    if cfg.mla_kv_lora_rank or cfg.attention in ("sliding", "local"):
+    if cfg.mla_kv_lora_rank or is_ring(cfg):
         raise NotImplementedError(
             "paged KV decode requires full-attention GQA "
             f"(attention={cfg.attention!r}, mla={cfg.mla_kv_lora_rank})")

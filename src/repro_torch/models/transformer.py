@@ -1,7 +1,9 @@
 """Model assembly (PyTorch counterpart of ``repro.models.transformer``) for
 the dense and moe families (a causal transformer with GQA attention and an
-MLP or MoE FFN per layer) and the ssm family (xLSTM: mLSTM and sLSTM
-blocks, whose decode cache is a recurrent state).
+MLP or MoE FFN per layer), the ssm family (xLSTM: mLSTM and sLSTM
+blocks, whose decode cache is a recurrent state) and the hybrid family
+(RecurrentGemma: RG-LRU blocks and local attention over a ring KV cache,
+each followed by an MLP).
 
 Parameters are nested dicts of tensors with the JAX package's nesting
 (``embed.embedding``, ``layers[i].attn.wq.{kernel,bias}``,
@@ -16,6 +18,7 @@ Execution modes:
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -25,6 +28,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (dense_init, embedding_apply,
                                        embedding_attend, embedding_init,
@@ -53,7 +57,7 @@ class ExecutionContext:
         if self.moe_impl == "dep":
             raise NotImplementedError(
                 "moe_impl='dep' (the DEP executor, repro/core/dep.py) is not "
-                "ported yet: ROADMAP Queue 1 item 6")
+                "ported yet: ROADMAP Queue 1 item 3")
         if self.moe_impl not in MOE_IMPLS:
             raise ValueError(f"moe_impl {self.moe_impl!r} not in "
                              f"{MOE_IMPLS}")
@@ -63,9 +67,7 @@ def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
     if cfg.family == "ssm":
         return ssm_lib.xlstm_layer_kinds(cfg)
     if cfg.family == "hybrid":
-        raise NotImplementedError(
-            "family 'hybrid' (RecurrentGemma) is not ported yet "
-            "(ROADMAP Queue 1 item 1)")
+        return rglru_lib.rglru_block_pattern(cfg)
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1)")
@@ -79,12 +81,14 @@ def init_layer(gen, cfg: ModelConfig, kind: str, dtype=torch.float32):
         init = ssm_lib.mlstm_init if kind == "mlstm" else ssm_lib.slstm_init
         return {"ln1": rmsnorm_init(cfg.d_model, gen.device, dtype),
                 kind: init(gen, cfg, dtype)}
-    p: Dict[str, Any] = {
-        "ln1": rmsnorm_init(cfg.d_model, gen.device, dtype),
-        "attn": attn.attention_init(gen, cfg, dtype),
-        "ln2": rmsnorm_init(cfg.d_model, gen.device, dtype),
-    }
-    if kind == "attn_mlp":
+    p: Dict[str, Any] = {"ln1": rmsnorm_init(cfg.d_model, gen.device, dtype)}
+    # "rec" is the hybrid family's RG-LRU block, "attn" its local attention
+    if kind == "rec":
+        p["rglru"] = rglru_lib.rglru_init(gen, cfg, dtype)
+    else:
+        p["attn"] = attn.attention_init(gen, cfg, dtype)
+    p["ln2"] = rmsnorm_init(cfg.d_model, gen.device, dtype)
+    if kind in ("attn_mlp", "attn", "rec"):
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.ffn_dim, dtype)
     elif kind == "attn_moe":
         p["moe"] = moe_lib.moe_init(gen, cfg.d_model, cfg.moe, dtype=dtype)
@@ -95,10 +99,15 @@ def init_layer(gen, cfg: ModelConfig, kind: str, dtype=torch.float32):
 
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
                      dtype=torch.bfloat16, device=None):
-    """A layer's decode cache: a KV cache for attention layers, a float32
-    recurrent state (whatever ``dtype``) for mLSTM/sLSTM layers."""
-    if kind in ("attn_mlp", "attn_moe"):
-        return attn.init_kv_cache(cfg, batch, seq_len, dtype, device)
+    """A layer's decode cache: a KV cache for attention layers (a ring of
+    the window under local/sliding attention), a float32 recurrent state
+    (whatever ``dtype``) for mLSTM, sLSTM and RG-LRU layers."""
+    if kind in ("attn_mlp", "attn_moe", "attn"):
+        return attn.init_kv_cache(cfg, batch,
+                                  attn.cache_capacity(cfg, seq_len), dtype,
+                                  device)
+    if kind == "rec":
+        return rglru_lib.rglru_state(cfg, batch, device=device)
     if kind == "mlstm":
         return ssm_lib.mlstm_state(cfg, batch, device=device)
     if kind == "slstm":
@@ -128,12 +137,24 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, positions, cache,
                                      device=x.device)
         y, cache = fn(p[kind], cfg, h, cache)
         return x + y, cache, aux
+    if kind == "rec":
+        if cache is None:
+            cache = rglru_lib.rglru_state(cfg, x.shape[0], device=x.device)
+        fn = rglru_lib.rglru_step if mode == "decode" else \
+            rglru_lib.rglru_apply
+        y, cache = fn(p["rglru"], cfg, h, cache)
+        x = x + y
+        h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+        return x + mlp_apply(p["mlp"], h), cache, aux
+    # the hybrid family's attention blocks are local, whatever the config
+    acfg = (dataclasses.replace(cfg, attention="local")
+            if kind == "attn" and cfg.family == "hybrid" else cfg)
     if mode == "decode":
-        a, cache = attn.attention_decode(p["attn"], cfg, h, cache,
+        a, cache = attn.attention_decode(p["attn"], acfg, h, cache,
                                          impl=ctx.attn_impl, lengths=lengths,
                                          paged=paged)
     else:
-        a, cache = attn.attention_fullseq(p["attn"], cfg, h, positions,
+        a, cache = attn.attention_fullseq(p["attn"], acfg, h, positions,
                                           cache, impl=ctx.attn_impl)
     x = x + a
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
@@ -145,7 +166,7 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, positions, cache,
 
 
 class Model:
-    """Causal LM for the dense, moe and ssm families.
+    """Causal LM for the dense, moe, ssm and hybrid families.
 
     ``device=None`` means the CUDA card and raises when there is none;
     the tests pass ``device="cpu"``, where every kernel wrapper takes its

@@ -14,8 +14,8 @@ batch/KV runtime objects. Each iteration is
      temperature/top-k sampling; finished slots are evicted.
 
 The engine runs eagerly on one device with ``moe_impl="capacity"``, over
-dense or paged KV (``runtime/paging.py``); recurrent (ssm) models keep
-per-slot states and prefill by exact prompt length. The planner
+dense or paged KV (``runtime/paging.py``); recurrent (ssm and hybrid)
+models keep per-slot states and prefill by exact prompt length. The planner
 (``PlanCache`` and policies), expert placement, profiling and
 observability are ROADMAP items of later slices and are not accepted as
 arguments.
@@ -108,7 +108,7 @@ class ServingEngine:
                                      model=self.model,
                                      dtype=self.model.dtype)
         # recurrent states must never see padded prefill tokens
-        self._exact_length = cfg.family == "ssm"
+        self._exact_length = cfg.family in ("ssm", "hybrid")
         self.scheduler = scheduler if scheduler is not None else \
             BatchScheduler(admission=admission, token_budget=token_budget)
         self.slots: List[Optional[Request]] = [None] * num_slots

@@ -93,6 +93,7 @@ def test_attention_impls_agree(impl):
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ExecutionContext(moe_impl="dep")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_smoke_config("qwen2-1.5b").reduced(
-            attention="sliding"), device="cpu").init(torch.Generator())
+            attention="mla", mla_kv_lora_rank=32),
+            device="cpu").init(torch.Generator())

@@ -177,7 +177,7 @@ def test_layer_kinds_and_states():
     # recurrent states stay f32 whatever the model dtype
     assert all(t.dtype == torch.float32 for c in caches for t in c.values())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_smoke_config("qwen2-1.5b").reduced(family="hybrid"),
+        build_model(get_smoke_config("qwen2-1.5b").reduced(family="vlm"),
                     device="cpu")
 
 
