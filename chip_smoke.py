@@ -2,11 +2,18 @@
 """Drive the PyTorch port on one NVIDIA card and check it, in phases.
 
   1. build    compile the CUDA kernels from src/repro_torch/csrc (nvcc,
-              sm_90a) and print the seconds taken;
+              sm_90a), print the seconds taken per source and ptxas's
+              registers and spills per kernel, and count the HGMMA
+              (wgmma) instructions in the SASS of each tensor-core kernel
+              (none fails the run);
   2. kernels  hold each hand-written kernel against its plain PyTorch
               version at the serving path's shapes, in bf16 and f32, and
               time the kernel, the plain version, one PyTorch library call
-              of the same function, and the card's bound for the work;
+              of the same function (CUDA events, and for the redesigned
+              kernels also the profiler's device time), and the card's
+              bound for the work; time the bf16 expert GEMM at each
+              decode-sized C; hold bf16 flash to a limit that a window
+              or diagonal off by one fails (shown by controls);
   3. small    a smoke-size model on the card (kernels) against the same
               model on the CPU (plain versions): prefill and decode logits
               and greedy tokens;
@@ -17,7 +24,9 @@
               layers, bf16 weights drawn from a seed on the card): 16
               requests, 8 slots, max_context 1024, on three paths, each
               run with the launch counts set to 0 just before it and read
-              just after: paged KV with the dense footprint as its pool
+              just after, each profiled over 3 decode steps, the dense
+              path also over one batched prefill call of 8 x 300 tokens:
+              paged KV with the dense footprint as its pool
               ("paged"); dense KV ("serve"), whose greedy tokens the paged
               run must equal; a paired dense/paged decode-step timing;
               paged KV under a pool that must preempt, with a shared
@@ -30,7 +39,8 @@
               attention through the flash kernel at prefill and over a
               ring KV cache at decode): 16 requests, 8 slots,
               max_context 4096, one prompt whose ring wraps in decode and
-              one whose prefill rolls;
+              one whose prefill rolls; profiled over 3 decode steps and
+              one 3000-token prefill call;
   7. report   one JSON line with every kernel's numbers, the card's name and
               power limit, and as the last line {"ok": true, "device": ...}.
 
@@ -46,8 +56,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib.util
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -91,6 +104,15 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # (tests/test_kernels.py:19-20)
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=5e-2)}
+# bf16 flash: a typical output is 0.04-0.3 in size, so the reference's
+# atol of 5e-2 would pass a mask off by one key. The kernel rounds P to
+# bf16 as the reference does (flash_attention/kernel.py:76) and the plain
+# version does not; on rows that see a few keys that moves a small output
+# by a few 1e-3, so atol is 5e-3 (the worst ratio each check prints is
+# the margin). check_flash_controls shows that an off-by-one mask fails
+# this limit.
+FLASH_TOL = {torch.float32: TOL[torch.float32],
+             torch.bfloat16: dict(rtol=2e-2, atol=5e-3)}
 
 
 def fail(msg: str):
@@ -114,10 +136,11 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-def device_ms(fn, kernel: str, iters: int = 10) -> float:
+def device_ms(fn, kernel=None, iters: int = 10) -> float:
     """Mean device time per call of ``fn`` of the kernels whose name
-    contains ``kernel``, from torch.profiler: unlike ``time_ms`` it holds
-    no host time, which dominates a kernel of a few microseconds."""
+    contains ``kernel`` (every device kernel of the call when ``kernel``
+    is None), from torch.profiler: unlike ``time_ms`` it holds no host
+    time, which dominates a kernel of a few microseconds."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -128,10 +151,16 @@ def device_ms(fn, kernel: str, iters: int = 10) -> float:
         torch.cuda.synchronize()
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name)
+             and (kernel is None or kernel in e.name))
     if us <= 0:
-        fail(f"device_ms: the profiler recorded no {kernel} on the card")
+        fail(f"device_ms: the profiler recorded no {kernel or 'kernel'} on "
+             "the card")
     return us / 1e3 / iters
+
+
+def timed(fn, kernel=None, iters: int = 10) -> tuple:
+    """(CUDA-event ms, profiler device ms) of ``fn``."""
+    return time_ms(fn, iters=iters), device_ms(fn, kernel, iters=iters)
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -140,7 +169,14 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name: str, got, want, dtype) -> float:
+def _worst(g, w, tol) -> float:
+    """The largest |g - w| over its limit atol + rtol |w|: above 1 fails."""
+    return float(((g - w).abs() / (tol["atol"] + tol["rtol"] * w.abs()))
+                 .max())
+
+
+def compare(name: str, got, want, dtype, tol=None) -> float:
+    tol = tol or TOL[dtype]
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{name}: kernel gave {tuple(got.shape)} {got.dtype}, plain "
@@ -149,9 +185,10 @@ def compare(name: str, got, want, dtype) -> float:
     if not torch.isfinite(g).all():
         fail(f"{name}: non-finite kernel output")
     err = float((g - w).abs().max())
-    ok = torch.allclose(g, w, **TOL[dtype])
-    print(f"  {name}: max_abs_err={err:.3e} "
-          f"(rtol={TOL[dtype]['rtol']}, atol={TOL[dtype]['atol']}) "
+    worst = _worst(g, w, tol)
+    ok = torch.allclose(g, w, **tol)
+    print(f"  {name}: max_abs_err={err:.3e} (rtol={tol['rtol']}, "
+          f"atol={tol['atol']}; worst {worst:.2f} of the limit) "
           f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"{name}: kernel disagrees with its plain version")
@@ -167,17 +204,103 @@ def randn(gen, shape, dtype, scale=1.0):
 # phase 1: build
 # ---------------------------------------------------------------------------
 
+#: the tensor-core kernels, by the name their SASS functions carry
+WGMMA_KERNELS = ("moe_gemm_wgmma_kernel", "flash_attention_wgmma_kernel")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     build.load_library()
     dt = time.perf_counter() - t0
     info = build.last_build
+    nvcc = subprocess.run([build.nvcc_path(), "--version"],
+                          capture_output=True, text=True).stdout
     print(f"[build] {'compiled' if info.get('compiled') else 'cached'} "
           f"{len(build.sources())} sources into {build.library_path().name}"
-          f" in {dt:.1f} s")
-    for line in str(info.get("report", "")).splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print("  " + line.strip())
+          f" in {dt:.1f} s ({nvcc.strip().splitlines()[-1]})")
+    for name, secs in info.get("per_source", {}).items():
+        print(f"  {name}: {secs:.1f} s")
+    for line in ptxas_summary(str(info.get("report", ""))):
+        print("  " + line)
+    sass_hgmma()
+
+
+def _demangle(names):
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return list(names)
+    res = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True)
+    out = res.stdout.splitlines()
+    return out if len(out) == len(names) else list(names)
+
+
+def ptxas_summary(report: str):
+    """One line per compiled kernel from ptxas -v: registers, spills,
+    shared memory; and every ptxas warning (e.g. a serialised wgmma)."""
+    rows, cur, lines = [], None, []
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = [m.group(1), "", ""]
+            rows.append(cur)
+        elif cur is not None and "spill stores" in line:
+            cur[1] = line.strip()
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur[2] = line.split(":", 1)[-1].strip()
+        if "warning" in line.lower():
+            lines.append("ptxas " + line.strip())
+    for (_, spill, used), name in zip(rows, _demangle([r[0] for r in rows])):
+        lines.append(f"{_short(name)}: {used}; {spill}")
+    return lines
+
+
+def _short(name: str) -> str:
+    """A demangled kernel name without namespace, return type or
+    parameter list: ``moe_gemm_wgmma_kernel<true>``."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = re.sub(r"^void ", "", name)
+    return name.split("(")[0][:70]
+
+
+def _cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    beside = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if os.path.exists(beside):
+        return beside
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.origin:
+        path = os.path.join(os.path.dirname(spec.origin), "backends",
+                            "nvidia", "bin", "cuobjdump")
+        if os.path.exists(path):
+            return path
+    fail("cuobjdump not found (CUDA toolkit or triton/backends/nvidia/bin)")
+
+
+def sass_hgmma() -> None:
+    """Count the HGMMA (wgmma) instructions in the SASS of each tensor-core
+    kernel of the built library; fail if one has none."""
+    sass = subprocess.run([_cuobjdump(), "--dump-sass",
+                           str(build.library_path())], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur is not None and "HGMMA" in line:
+            counts[cur] += 1
+    names = [n for n in counts if any(k in n for k in WGMMA_KERNELS)]
+    for kernel in WGMMA_KERNELS:
+        if not any(kernel in n for n in names):
+            fail(f"sass: no function named {kernel} in the library")
+    for name, short in zip(names, map(_short, _demangle(names))):
+        print(f"  SASS {short}: {counts[name]} HGMMA")
+        if counts[name] == 0:
+            fail(f"sass: {short} has no HGMMA instruction")
 
 
 # ---------------------------------------------------------------------------
@@ -374,40 +497,94 @@ def check_mlstm(gen):
 
 
 def check_moe_gemm(gen):
+    """Every capacity through the wrapper in f32 and bf16 against the plain
+    version; the bf16 kernel's device time at each decode-sized C (where
+    it should stay at the weights' bytes bound), and the serving path's
+    two regimes timed: C=683 (8192 prefill tokens) and C=1 (decode)."""
     print("[kernels] moe_gemm")
     E, M, H = 60, 2048, 1408
-    errs = {}
-    timing = None
-    for C in (1, 683):
+    errs, timing, small = {}, {}, {}
+    for C in (1, 2, 4, 8, 37, 683):
         for dtype in (torch.float32, torch.bfloat16):
             x = randn(gen, (E, C, M), dtype)
             wg = randn(gen, (E, M, H), dtype, M ** -0.5)
             wu = randn(gen, (E, M, H), dtype, M ** -0.5)
             wd = randn(gen, (E, H, M), dtype, H ** -0.5)
-            err = compare(f"E={E} C={C} M={M} H={H} {dtype}",
-                          moe_gemm(x, wg, wu, wd),
-                          moe_gemm_ref(x, wg, wu, wd), dtype)
-            errs[(C, dtype)] = err
-            if dtype == torch.bfloat16:
-                ms = time_ms(lambda: moe_gemm(x, wg, wu, wd))
-                plain = time_ms(lambda: moe_gemm_ref(x, wg, wu, wd), iters=5)
-                lib = time_ms(lambda: torch.bmm(
+            want = moe_gemm_ref(x, wg, wu, wd)
+            errs[(C, dtype)] = compare(f"E={E} C={C} M={M} H={H} {dtype}",
+                                       moe_gemm(x, wg, wu, wd), want, dtype)
+            if dtype == torch.bfloat16 and C <= 8:
+                small[C] = device_ms(lambda: moe_gemm(x, wg, wu, wd),
+                                     "moe_gemm_")
+                print(f"  C={C} bf16: {small[C]:.4f} ms on the device")
+            if dtype == torch.bfloat16 and C in (1, 683):
+                ms, dev = timed(lambda: moe_gemm(x, wg, wu, wd), "moe_gemm_")
+                plain, plain_dev = timed(
+                    lambda: moe_gemm_ref(x, wg, wu, wd), iters=5)
+                lib, lib_dev = timed(lambda: torch.bmm(
                     F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd))
                 flops = 6.0 * E * C * M * H
                 nbytes = (2 * E * C * M + 3 * E * M * H) * 2
                 b, by = bound_ms(nbytes, flops, dtype)
-                print(f"  C={C} bf16: kernel {ms:.3f} ms, plain {plain:.3f} "
-                      f"ms, torch.bmm x3 {lib:.3f} ms, bound {b:.3f} ms "
-                      f"({by})")
-                if C == 683:
-                    timing = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                  bound_ms=b, bound_by=by)
-            del x, wg, wu, wd
+                timing[C] = dict(
+                    ms=ms, device_ms=dev, plain_ms=plain,
+                    plain_device_ms=plain_dev, library_ms=lib,
+                    library_device_ms=lib_dev, bound_ms=b, bound_by=by,
+                    tflops=flops / dev / 1e9, tbps=nbytes / dev / 1e9)
+                print(f"  C={C} bf16: kernel {ms:.3f} ms events, "
+                      f"{dev:.4f} ms device ({flops / dev / 1e9:.1f} TFLOP/s"
+                      f", {nbytes / dev / 1e9:.3f} TB/s); plain {plain:.3f} /"
+                      f" {plain_dev:.3f} ms; torch.bmm x3 {lib:.3f} / "
+                      f"{lib_dev:.4f} ms; bound {b:.3f} ms ({by})")
+            del x, wg, wu, wd, want
             torch.cuda.empty_cache()
     return dict(name="moe_gemm", source=gemm_kernel.SOURCE,
                 replaces=gemm_kernel.REPLACES,
-                max_abs_err=errs[(683, torch.bfloat16)], **timing,
-                shape=f"E={E} C=683 M={M} H={H} bf16")
+                max_abs_err=errs[(683, torch.bfloat16)], **timing[683],
+                shape=f"E={E} C=683 M={M} H={H} bf16",
+                decode=dict(timing[1], shape=f"E={E} C=1 M={M} H={H} bf16"),
+                small_c_device_ms={f"C={c}": v for c, v in small.items()})
+
+
+def check_flash_controls(name: str, got, q, k, v, window=None) -> float:
+    """Hold the kernel's bf16 output against plain versions whose mask is
+    off by one: every query one position later (the causal diagonal and
+    the window's start shifted), and the window one key shorter and
+    longer. Each must fail FLASH_TOL, or the check could not see such a
+    fault. Returns the least of their worst ratios."""
+    tol = FLASH_TOL[torch.bfloat16]
+    g = got.float()
+    shifted = flash_attention_ref(torch.roll(q, 1, dims=1), k, v,
+                                  window=window)
+    wrongs = {"position+1": (g[:, :-1], shifted[:, 1:])}
+    if window is not None:
+        for d in (-1, 1):
+            wrongs[f"window{d:+d}"] = (
+                g, flash_attention_ref(q, k, v, window=window + d))
+    ratios = {label: _worst(a, b.float(), tol)
+              for label, (a, b) in wrongs.items()}
+    print(f"  {name} controls: " + ", ".join(
+        f"{label} {r:.1f}x the limit" for label, r in ratios.items()))
+    for label, r in ratios.items():
+        if r <= 1:
+            fail(f"{name}: the control {label} passes FLASH_TOL: the check "
+                 "cannot see a mask off by one")
+    return min(ratios.values())
+
+
+def check_flash_head_dims(gen, window=None):
+    """Every head dim the kernel takes, in bf16, at a small S and at a
+    ragged S (GQA, then MQA), with or without a window."""
+    for D in flash_kernel.HEAD_DIMS:
+        for B, S, H, Kv in ((2, 128, 4, 2), (1, 333, 6, 1)):
+            q = randn(gen, (B, S, H, D), torch.bfloat16)
+            k = randn(gen, (B, S, Kv, D), torch.bfloat16)
+            v = randn(gen, (B, S, Kv, D), torch.bfloat16)
+            name = f"B={B} S={S} H={H} Kv={Kv} D={D} window={window} bf16"
+            got = flash_attention(q, k, v, window=window)
+            compare(name, got, flash_attention_ref(q, k, v, window=window),
+                    torch.bfloat16, FLASH_TOL[torch.bfloat16])
+            check_flash_controls(name, got, q, k, v, window)
 
 
 def check_flash(gen):
@@ -420,30 +597,43 @@ def check_flash(gen):
             q = randn(gen, (B, S, H, D), dtype)
             k = randn(gen, (B, S, Kv, D), dtype)
             v = randn(gen, (B, S, Kv, D), dtype)
-            errs[(S, dtype)] = compare(
-                f"B={B} S={S} H={H} Kv={Kv} D={D} {dtype}",
-                flash_attention(q, k, v), flash_attention_ref(q, k, v),
-                dtype)
+            name = f"B={B} S={S} H={H} Kv={Kv} D={D} {dtype}"
+            got = flash_attention(q, k, v)
+            errs[(S, dtype)] = compare(name, got,
+                                       flash_attention_ref(q, k, v), dtype,
+                                       FLASH_TOL[dtype])
+            if dtype == torch.bfloat16:
+                check_flash_controls(name, got, q, k, v)
             if S == 1024 and dtype == torch.bfloat16:
                 qt, kt, vt = (t.transpose(1, 2).contiguous()
                               for t in (q, k, v))
-                ms = time_ms(lambda: flash_attention(q, k, v))
-                plain = time_ms(lambda: flash_attention_ref(q, k, v))
-                lib = time_ms(lambda: F.scaled_dot_product_attention(
+                ms, dev = timed(lambda: flash_attention(q, k, v),
+                                "flash_attention_")
+                plain, plain_dev = timed(lambda: flash_attention_ref(q, k, v))
+                lib, lib_dev = timed(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True))
                 flops = 4.0 * B * H * D * S * (S + 1) / 2
                 nbytes = (2 * B * S * H * D + 2 * B * S * Kv * D) * 2
                 b, by = bound_ms(nbytes, flops, dtype)
-                timing = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                              bound_ms=b, bound_by=by)
+                timing = dict(ms=ms, device_ms=dev, plain_ms=plain,
+                              plain_device_ms=plain_dev, library_ms=lib,
+                              library_device_ms=lib_dev, bound_ms=b,
+                              bound_by=by, tflops=flops / dev / 1e9)
+                print(f"  B={B} S={S} bf16: kernel {ms:.4f} ms events, "
+                      f"{dev:.4f} ms device ({flops / dev / 1e9:.1f} "
+                      f"TFLOP/s); plain {plain:.3f} / {plain_dev:.3f} ms; "
+                      f"F.scaled_dot_product_attention {lib:.4f} / "
+                      f"{lib_dev:.4f} ms; bound {b:.4f} ms ({by})")
     # GQA with a sliding window (the kernel's window bound), ragged S
     q = randn(gen, (1, 600, 12, 128), torch.float32)
     k = randn(gen, (1, 600, 2, 128), torch.float32)
     v = randn(gen, (1, 600, 2, 128), torch.float32)
     compare("GQA g=6 S=600 window=128 f32",
             flash_attention(q, k, v, window=128),
-            flash_attention_ref(q, k, v, window=128), torch.float32)
+            flash_attention_ref(q, k, v, window=128), torch.float32,
+            FLASH_TOL[torch.float32])
     del q, k, v
+    check_flash_head_dims(gen)
     hybrid = check_flash_local(gen)
     return dict(name="flash_attention", source=flash_kernel.SOURCE,
                 replaces=flash_kernel.REPLACES,
@@ -454,7 +644,8 @@ def check_flash(gen):
 
 def check_flash_local(gen):
     """The hybrid path's local-attention prefill: MQA at D=256 with a
-    2048-key window, at a prompt longer than the window."""
+    2048-key window, at a prompt longer than the window; then every head
+    dim with a window that the small and ragged S exceed."""
     B, S, H, Kv, D, win = 1, 3000, 16, 1, 256, 2048
     shape = f"B={B} S={S} H={H} Kv={Kv} D={D} window={win}"
     errs = {}
@@ -462,12 +653,16 @@ def check_flash_local(gen):
         q = randn(gen, (B, S, H, D), dtype)
         k = randn(gen, (B, S, Kv, D), dtype)
         v = randn(gen, (B, S, Kv, D), dtype)
-        errs[dtype] = compare(f"{shape} {dtype}",
-                              flash_attention(q, k, v, window=win),
+        got = flash_attention(q, k, v, window=win)
+        errs[dtype] = compare(f"{shape} {dtype}", got,
                               flash_attention_ref(q, k, v, window=win),
-                              dtype)
-        del q, k, v
+                              dtype, FLASH_TOL[dtype])
+        if dtype == torch.bfloat16:
+            control = check_flash_controls(f"{shape} {dtype}", got, q, k, v,
+                                           win)
+        del q, k, v, got
         torch.cuda.empty_cache()
+    check_flash_head_dims(gen, window=100)
     dtype = torch.bfloat16
     q = randn(gen, (B, S, H, D), dtype)
     k = randn(gen, (B, S, Kv, D), dtype)
@@ -478,21 +673,26 @@ def check_flash_local(gen):
     pos = torch.arange(S, device="cuda")
     diff = pos[:, None] - pos[None, :]
     mask = (diff >= 0) & (diff < win)
-    ms = time_ms(lambda: flash_attention(q, k, v, window=win))
-    plain = time_ms(lambda: flash_attention_ref(q, k, v, window=win),
-                    iters=3, warmup=1)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
+    ms, dev = timed(lambda: flash_attention(q, k, v, window=win),
+                    "flash_attention_")
+    plain, plain_dev = timed(
+        lambda: flash_attention_ref(q, k, v, window=win), iters=3)
+    lib, lib_dev = timed(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask))
     pairs = int(mask.sum())
     flops = 4.0 * B * H * D * pairs
     nbytes = (2 * B * S * H * D + 2 * B * S * Kv * D) * 2
     b, by = bound_ms(nbytes, flops, dtype)
-    print(f"  {shape} bf16: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-          f"F.scaled_dot_product_attention (window mask) {lib:.3f} ms, "
-          f"bound {b:.4f} ms ({by})")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                bound_by=by, max_abs_err=errs[dtype],
-                max_abs_err_f32=errs[torch.float32], shape=f"{shape} bf16")
+    print(f"  {shape} bf16: kernel {ms:.3f} ms events, {dev:.4f} ms device "
+          f"({flops / dev / 1e9:.1f} TFLOP/s); plain {plain:.3f} / "
+          f"{plain_dev:.3f} ms; F.scaled_dot_product_attention (window "
+          f"mask) {lib:.3f} / {lib_dev:.4f} ms; bound {b:.4f} ms ({by})")
+    return dict(ms=ms, device_ms=dev, plain_ms=plain,
+                plain_device_ms=plain_dev, library_ms=lib,
+                library_device_ms=lib_dev, bound_ms=b, bound_by=by,
+                tflops=flops / dev / 1e9, max_abs_err=errs[dtype],
+                max_abs_err_f32=errs[torch.float32],
+                control_worst_ratio=control, shape=f"{shape} bf16")
 
 
 # RG-LRU: the kernel's step rounds as the plain version's separate
@@ -841,6 +1041,8 @@ def phase_serve():
                             moe_expect(cfg, "decode_attention"))
     print(f"[serve] (decode_attention {cfg.num_layers} per decode step)")
     profile_decode(eng, np.random.RandomState(5), cfg, "serve")
+    profile_prefill(eng, np.random.RandomState(8).randint(
+        0, cfg.vocab_size, size=(8, 300)), "serve")
     del eng
     torch.cuda.empty_cache()
     greedy = [(a, b) for i, (a, b) in enumerate(zip(dense_reqs, paged_reqs))
@@ -981,14 +1183,16 @@ def phase_serve_hybrid():
     print(f"[hybrid] (rg_lru_scan {n_rec} per decode step and per prefill "
           f"call, flash_attention {n_attn} per prefill call)")
     profile_decode(eng, np.random.RandomState(5), cfg, "hybrid")
+    profile_prefill(eng, np.random.RandomState(8).randint(
+        0, cfg.vocab_size, size=(1, 3000)), "hybrid")
     del eng
     torch.cuda.empty_cache()
     return counts
 
 
 #: the device-side names of the repo's CUDA kernels (src/repro_torch/csrc)
-OWN_KERNELS = ("decode_attention_kernel", "grouped_gemm_kernel",
-               "flash_attention_kernel", "mlstm_scan_kernel",
+OWN_KERNELS = ("decode_attention_kernel", "moe_gemm_",
+               "flash_attention_", "mlstm_scan_kernel",
                "rg_lru_scan_kernel")
 
 
@@ -1039,6 +1243,60 @@ def profile_decode(eng, rng, cfg, path: str, steps: int = 3) -> None:
     for e in host:
         print(f"  host {e.self_cpu_time_total / 1e3 / steps:8.3f} ms/step "
               f"{e.count // steps:5d}/step  {e.key[:60]}")
+
+
+def profile_prefill(eng, prompts, path: str) -> None:
+    """Where one batched prefill call's time goes: ``prompts`` (of one
+    length, so one bucket and one call) admitted together, three times
+    (each drained by one decode step): a warm-up, one timed by the
+    engine's prefill clock, one under torch.profiler for the device time
+    by kernel. Idle share = 1 - kernel time / the call's wall time."""
+    def admit(prof=None) -> float:
+        for p in prompts:
+            eng.submit(Request(prompt=list(p), max_new_tokens=1))
+        torch.cuda.synchronize()
+        s0, n0 = eng.stats.prefill_s, eng.stats.prefill_calls
+        if prof is None:
+            eng._admit()
+        else:
+            with prof:
+                eng._admit()
+                torch.cuda.synchronize()
+        if eng.stats.prefill_calls != n0 + 1:
+            fail(f"prefill {path}: {eng.stats.prefill_calls - n0} prefill "
+                 "calls, expected one")
+        ms = (eng.stats.prefill_s - s0) * 1e3
+        eng.run()
+        return ms
+
+    admit()
+    wall_ms = admit()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    admit(prof)
+    per_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us, n = per_kernel.get(e.name, (0.0, 0))
+            per_kernel[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy_ms = sum(us for us, _ in per_kernel.values()) / 1e3
+    if busy_ms <= 0:
+        fail(f"prefill {path}: the profiler recorded no kernel on the card")
+    flash_ms = sum(us for name, (us, _) in per_kernel.items()
+                   if "flash_attention_" in name) / 1e3
+    gemm_ms = sum(us for name, (us, _) in per_kernel.items()
+                  if "moe_gemm_" in name) / 1e3
+    print(f"[prefill {path}] one prefill call of {len(prompts)} x "
+          f"{len(prompts[0])} tokens: wall {wall_ms:.2f} ms, kernels "
+          f"{busy_ms:.2f} ms ({sum(n for _, n in per_kernel.values())} "
+          f"launches), device idle share {max(0.0, 1 - busy_ms / wall_ms):.3f};"
+          f" flash {flash_ms:.3f} ms ({flash_ms / busy_ms:.1%} of kernel "
+          f"time), expert GEMM {gemm_ms:.3f} ms")
+    ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
+    for i, (name, (us, n)) in enumerate(ranked):
+        if i < 10 or any(k in name for k in OWN_KERNELS):
+            print(f"  {us / 1e3:8.3f} ms/call {n:5d}/call  {name[:80]}")
 
 
 def _leaves(tree):
@@ -1098,7 +1356,9 @@ def main(argv=None) -> int:
         report.append(e)
         lib = ("none" if e["library_ms"] is None
                else f"{e['library_ms']:.3f}")
-        print(f"[report] {e['name']}: {e['ms']:.3f} ms (plain "
+        dev = (f", {e['device_ms']:.4f} on the device"
+               if "device_ms" in e else "")
+        print(f"[report] {e['name']}: {e['ms']:.3f} ms{dev} (plain "
               f"{e['plain_ms']:.3f}, library {lib}, bound "
               f"{e['bound_ms']:.4f} by {e['bound_by']}) at {e['shape']}; "
               f"{launches} launches while serving the {path} path")

@@ -44,6 +44,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 }  // namespace repro

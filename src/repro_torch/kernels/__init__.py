@@ -31,6 +31,20 @@ def check_cuda_operands(name: str, *tensors, index=()) -> None:
             raise TypeError(f"{name}: mixed dtypes {t.dtype} and {dtype}")
 
 
+def check_tma_operands(name: str, *tensors) -> None:
+    """Raise unless every operand can be read by TMA: its data pointer
+    16-byte aligned, and its inner dimension a multiple of 8 bf16 values
+    (16 bytes), so every row stride is too."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operand of shape {tuple(t.shape)} "
+                             f"starts at {t.data_ptr():#x}, not 16-byte "
+                             "aligned")
+        if t.shape[-1] * t.element_size() % 16:
+            raise ValueError(f"{name}: inner dimension {t.shape[-1]} of "
+                             f"{t.dtype} is not a multiple of 16 bytes")
+
+
 def _ops():
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, decode_attention_paged)

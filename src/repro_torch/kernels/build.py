@@ -1,7 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 Every ``repro_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
-``sm_90a`` (one ``nvcc`` per source, all started together) and linked
+``sm_90a`` (one ``nvcc`` per source, all started together; the
+tensor-core kernels use inline PTX from ``csrc/hopper.cuh``, no CUTLASS,
+and find ``cuTensorMapEncodeTiled`` through the runtime, so nothing is
+linked beyond the CUDA runtime) and linked
 into one shared library with a plain C interface, which is loaded with
 ``ctypes``. The library lands in ``.kernel-build/`` at the repository root
 (listed in ``.gitignore``), named by a digest of the sources and flags, so
@@ -19,6 +22,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -98,23 +102,25 @@ def build() -> Path:
     obj_dir = BUILD_DIR / f"obj-{lib.stem}"
     obj_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    procs = []
-    for src in sources():
+
+    def compile_one(src: Path):
         obj = obj_dir / (src.stem + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-        procs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    report, failed = [], []
-    for src, _, proc in procs:
-        out, _ = proc.communicate()
-        report.append(f"== {src.name}\n{out}")
-        if proc.returncode != 0:
-            failed.append(src.name)
+        start = time.perf_counter()
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+                              str(obj)], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        return src, obj, res, time.perf_counter() - start
+
+    srcs = sources()
+    with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+        done = list(pool.map(compile_one, srcs))
+    report = [f"== {src.name} ({secs:.1f} s)\n{res.stdout}"
+              for src, _, res, secs in done]
+    failed = [src.name for src, _, res, _ in done if res.returncode != 0]
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(report))
     tmp = BUILD_DIR / f"{lib.stem}.{os.getpid()}.tmp.so"
-    link = [nvcc, "-shared", "-o", str(tmp)] + [str(o) for _, o, _ in procs]
+    link = [nvcc, "-shared", "-o", str(tmp)] + [str(o) for _, o, _, _ in done]
     res = subprocess.run(link, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
@@ -122,7 +128,8 @@ def build() -> Path:
     text = "\n".join(report)
     (BUILD_DIR / f"{lib.stem}.log").write_text(text)
     last_build.update(seconds=time.perf_counter() - t0, compiled=True,
-                      report=text)
+                      report=text,
+                      per_source={src.name: secs for src, _, _, secs in done})
     return lib
 
 

@@ -5,14 +5,15 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check_cuda_operands
+from repro_torch.kernels import check_cuda_operands, check_tma_operands
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 
 def flash_attention(q, k, v, causal: bool = True, window=None):
     """q: [B,S,H,D]; k/v: [B,S,Kv,D] -> [B,S,H,D]. Any S runs: the
-    kernel masks the ragged last tiles."""
+    kernel masks the ragged last tiles. bf16 runs the tensor-core kernel
+    (operands 16-byte aligned), f32 the SIMT kernel."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     B, S, H, D = q.shape
@@ -27,6 +28,8 @@ def flash_attention(q, k, v, causal: bool = True, window=None):
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     check_cuda_operands("flash_attention", q, k, v)
+    if q.dtype == torch.bfloat16:   # the TMA-fed tensor-core kernel
+        check_tma_operands("flash_attention", q, k, v)
     out = torch.empty_like(q)
     kernel.flash_attention_cuda(q, k, v, out, causal, window)
     flash_attention.launches += 1

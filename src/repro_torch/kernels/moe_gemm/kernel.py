@@ -11,9 +11,10 @@ REPLACES = "src/repro/kernels/moe_gemm/kernel.py:45"
 
 def moe_gemm_cuda(x, w_gate, w_up, w_down, act, out) -> None:
     """Two launches on the current stream: ``act = silu(x Wg) * (x Wu)``
-    (stored in x's dtype), then ``out = act Wd``. x [E,C,M]; Wg/Wu
-    [E,M,H]; Wd [E,H,M]; act [E,C,H]; out [E,C,M] — contiguous CUDA
-    tensors, checked by the caller."""
+    (stored in x's dtype), then ``out = act Wd``; bf16 runs the TMA +
+    wgmma kernel, f32 the SIMT kernel. x [E,C,M]; Wg/Wu [E,M,H]; Wd
+    [E,H,M]; act [E,C,H]; out [E,C,M] — contiguous CUDA tensors, checked
+    by the caller."""
     E, C, M = x.shape
     H = w_gate.shape[-1]
     build.call("repro_moe_gemm", build.DTYPE_CODES[x.dtype], x.data_ptr(),

@@ -5,15 +5,17 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check_cuda_operands
+from repro_torch.kernels import check_cuda_operands, check_tma_operands
 from repro_torch.kernels.moe_gemm import kernel
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 
 
 def moe_gemm(x, w_gate, w_up, w_down):
     """Grouped expert SwiGLU FFN. x: [E, C, M]; w_gate/w_up: [E, M, H];
-    w_down: [E, H, M] -> [E, C, M] in x's dtype. Any C and H run: the
-    kernel masks the ragged tiles (C=683 is what 8192 tokens give)."""
+    w_down: [E, H, M] -> [E, C, M] in x's dtype. Any C runs: the kernels
+    mask the ragged tiles (C=683 is what 8192 tokens give). bf16 runs the
+    tensor-core kernel at every C (M and H multiples of 8, the operands
+    16-byte aligned: TMA), f32 the SIMT kernel."""
     if x.device.type == "cpu":
         return moe_gemm_ref(x, w_gate, w_up, w_down)
     E, C, M = x.shape
@@ -24,6 +26,8 @@ def moe_gemm(x, w_gate, w_up, w_down):
             f"expert weights {tuple(w_gate.shape)}/{tuple(w_up.shape)}/"
             f"{tuple(w_down.shape)} do not match x {tuple(x.shape)}")
     check_cuda_operands("moe_gemm", x, w_gate, w_up, w_down)
+    if x.dtype == torch.bfloat16:   # the TMA-fed tensor-core kernel
+        check_tma_operands("moe_gemm", x, w_gate, w_up, w_down)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out

@@ -25,6 +25,21 @@ from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E40
 from repro_torch.kernels.moe_gemm.ops import moe_gemm  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+# the reference's bf16 kernel tolerance (tests/test_kernels.py:19-20)
+BF16_TOL = dict(rtol=2e-2, atol=5e-2)
+
+
+def _close_bf16(port, ref):
+    assert port.dtype == torch.bfloat16
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(ref, np.float32), **BF16_TOL)
+
+
+def _bf16_pair(a):
+    """The same bf16 values for both frameworks (both round to nearest
+    even from the float32 array)."""
+    return torch.from_numpy(a).to(torch.bfloat16), jnp.asarray(
+        a).astype(jnp.bfloat16)
 
 
 def _close(port, ref):
@@ -88,6 +103,21 @@ def test_moe_gemm_plain_matches_oracle_at_ragged_capacity(C):
     _close(port, moe_gemm_ref(*(jnp.asarray(a) for a in arrs)))
 
 
+@pytest.mark.parametrize("C", [1, 2, 4, 8, 37])
+def test_moe_gemm_plain_matches_pallas_bf16(C):
+    """bf16 at the capacities the card's checks cover: decode (C=1, 2),
+    small prefills (C=4, 8) and a ragged prefill tile (C=37)."""
+    rng = np.random.RandomState(5)
+    E, M, H = 2, 32, 64
+    pairs = [_bf16_pair(a) for a in (
+        _randn(rng, E, C, M), _randn(rng, E, M, H, scale=0.2),
+        _randn(rng, E, M, H, scale=0.2), _randn(rng, E, H, M, scale=0.2))]
+    port = moe_gemm(*(t for t, _ in pairs))
+    jx = [j for _, j in pairs]
+    _close_bf16(port, moe_gemm_pallas(*jx, bc=C, bh=32, interpret=True))
+    _close_bf16(port, moe_gemm_ref(*jx))
+
+
 # ---------------------------------------------------------------------------
 # flash attention
 # ---------------------------------------------------------------------------
@@ -105,6 +135,25 @@ def test_flash_attention_plain_matches_pallas(B, S, H, Kv, D, window):
     _close(port, flash_attention_pallas(jq, jk, jv, window=window, bq=32,
                                         bk=32, interpret=True))
     _close(port, flash_attention_ref(jq, jk, jv, window=window))
+
+
+@pytest.mark.parametrize("B,S,H,Kv,D,window", [
+    (1, 64, 4, 1, 256, 16),      # the hybrid path's MQA at D=256, windowed
+    (2, 64, 4, 2, 128, None),
+    (2, 64, 4, 2, 128, 24),
+    (1, 96, 4, 2, 256, None),
+    (2, 96, 6, 1, 32, 9),
+    (1, 64, 4, 4, 64, None),
+])
+def test_flash_attention_plain_matches_pallas_bf16(B, S, H, Kv, D, window):
+    rng = np.random.RandomState(6)
+    (tq, jq), (tk, jk), (tv, jv) = (_bf16_pair(a) for a in (
+        _randn(rng, B, S, H, D), _randn(rng, B, S, Kv, D),
+        _randn(rng, B, S, Kv, D)))
+    port = flash_attention(tq, tk, tv, window=window)
+    _close_bf16(port, flash_attention_pallas(jq, jk, jv, window=window,
+                                             bq=32, bk=32, interpret=True))
+    _close_bf16(port, flash_attention_ref(jq, jk, jv, window=window))
 
 
 def test_flash_attention_plain_matches_oracle_at_ragged_length():
@@ -154,3 +203,31 @@ def test_wrapper_dispatch_by_device(name):
     with pytest.raises(ValueError):
         fn(*meta)
     assert tk.launch_counts()[name] == 0
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernels' operand checks
+# ---------------------------------------------------------------------------
+
+def test_tma_check_refuses_unaligned_pointer():
+    """TMA and 16-byte loads need 16-byte-aligned operands: a view that
+    starts one bf16 element into its storage is refused."""
+    base = torch.zeros(64, 16, dtype=torch.bfloat16)
+    tk.check_tma_operands("op", base)
+    view = base.view(-1)[1:1 + 48 * 16].view(48, 16)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tk.check_tma_operands("op", base, view)
+
+
+@pytest.mark.parametrize("inner,ok", [(8, True), (1408, True), (12, False),
+                                      (4, False)])
+def test_tma_check_needs_inner_dim_multiple_of_8(inner, ok):
+    """Row strides must be multiples of 16 bytes: M, H and D multiples
+    of 8 bf16 values."""
+    t = torch.zeros(3, inner, dtype=torch.bfloat16)
+    if ok:
+        tk.check_tma_operands("op", t)
+    else:
+        with pytest.raises(ValueError, match="multiple of 16 bytes"):
+            tk.check_tma_operands("op", t)
