@@ -13,7 +13,8 @@
               kernels also the profiler's device time), and the card's
               bound for the work; time the bf16 expert GEMM at each
               decode-sized C; hold bf16 flash to a limit that a window
-              or diagonal off by one fails (shown by controls);
+              or diagonal off by one fails, and bf16 decode attention to
+              one that a length off by one fails (shown by controls);
   3. small    a smoke-size model on the card (kernels) against the same
               model on the CPU (plain versions): prefill and decode logits
               and greedy tokens;
@@ -113,6 +114,15 @@ TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
 # this limit.
 FLASH_TOL = {torch.float32: TOL[torch.float32],
              torch.bfloat16: dict(rtol=2e-2, atol=5e-3)}
+# bf16 decode attention: an output row over 300-1024 positions is 0.05-0.1
+# in size, so the reference's atol of 5e-2 would pass a row that drops or
+# adds a position (~3e-3 of change in its typical entry). Kernel and plain
+# version both round an f32 result to bf16, so a sound output differs by
+# at most one bf16 step (2^-7 relative), which rtol covers; atol 2e-3
+# only has to cover entries near zero. check_decode_controls shows that a
+# length off by one, or a chunk read one position late, fails this limit.
+DECODE_TOL = {torch.float32: TOL[torch.float32],
+              torch.bfloat16: dict(rtol=2e-2, atol=2e-3)}
 
 
 def fail(msg: str):
@@ -145,17 +155,18 @@ def device_ms(fn, kernel=None, iters: int = 10) -> float:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and (kernel is None or kernel in e.name))
-    if us <= 0:
-        fail(f"device_ms: the profiler recorded no {kernel or 'kernel'} on "
-             "the card")
-    return us / 1e3 / iters
+    for _ in range(2):  # a trace now and then comes back empty: once more
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and (kernel is None or kernel in e.name))
+        if us > 0:
+            return us / 1e3 / iters
+    fail(f"device_ms: the profiler recorded no {kernel or 'kernel'} on the "
+         "card")
 
 
 def timed(fn, kernel=None, iters: int = 10) -> tuple:
@@ -307,51 +318,199 @@ def sass_hgmma() -> None:
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def _decode_inputs(gen, B, H, Kv, D, C, dtype):
+    return (randn(gen, (B, H, D), dtype), randn(gen, (B, C, Kv, D), dtype),
+            randn(gen, (B, C, Kv, D), dtype))
+
+
+def check_repeat(name: str, fn) -> None:
+    """Two identical calls give the same bits (no atomics, a fixed
+    combine order)."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        fail(f"{name}: two identical calls differ")
+    print(f"  {name}: two identical calls bitwise equal")
+
+
+def check_decode_controls(name: str, got, q, k, v, lengths) -> float:
+    """Hold the kernels' bf16 output against plain versions that are off
+    by one: every length one shorter and one longer (clamped to [0, C]),
+    and chunk 1 (positions P..2P-1) read one position late. Every row
+    that a control changes must fail DECODE_TOL in it, or the check could
+    not see such a fault in that row. Returns the least of the rows'
+    worst ratios."""
+    tol = DECODE_TOL[torch.bfloat16]
+    C = k.shape[1]
+    P = dec_kernel.CHUNK
+    lens = lengths.clamp(0, C)
+    g = got.float()
+    controls = {}
+    for d in (-1, 1):
+        lc = (lens + d).clamp(0, C)
+        controls[f"length{d:+d}"] = (lc, k, v, lc != lens)
+    ks, vs = k.clone(), v.clone()
+    ks[:, P:2 * P] = k[:, P + 1:2 * P + 1]
+    vs[:, P:2 * P] = v[:, P + 1:2 * P + 1]
+    controls["chunk 1 one position late"] = (lens, ks, vs, lens > P)
+    ratios = {}
+    for label, (lc, kc, vc, rows) in controls.items():
+        if not bool(rows.any()):
+            continue
+        w = decode_attention_ref(q, kc, vc, lc).float()
+        per_row = ((g - w).abs() / (tol["atol"] + tol["rtol"] * w.abs())) \
+            .flatten(1).amax(1)
+        ratios[label] = float(per_row[rows].min())
+    print(f"  {name} controls (least over the rows each changes): " +
+          ", ".join(f"{label} {r:.1f}x the limit"
+                    for label, r in ratios.items()))
+    for label, r in ratios.items():
+        if r <= 1:
+            fail(f"{name}: the control {label} passes DECODE_TOL in a row: "
+                 "the check cannot see that fault there")
+    return min(ratios.values())
+
+
+def decode_bound(lengths, B, H, Kv, D, C, dtype, pages: int = 0):
+    """The card's least time for the call: q and out once, each live
+    position's K and V row once, the lengths (and the table entries of
+    the live pages)."""
+    tokens = int(lengths.clamp(0, C).sum())
+    es = torch.finfo(dtype).bits // 8
+    nbytes = (2 * B * H * D + 2 * tokens * Kv * D) * es + 4 * B + 4 * pages
+    return bound_ms(nbytes, 4.0 * tokens * H * D, dtype)
+
+
+def time_decode(label, q, k, v, lengths):
+    """Events and device time of the kernels (split and combine apart),
+    of the plain version and of F.scaled_dot_product_attention with the
+    length mask (it reads all C positions of every row), the kernels' and
+    SDPA's device time with a cold L2, and the device time of one sum
+    over as many bytes as the live K/V rows, what this card reads in one
+    kernel at this size."""
+    B, H, D = q.shape
+    C, Kv = k.shape[1], k.shape[2]
+    kt = k.transpose(1, 2).repeat_interleave(H // Kv, dim=1).contiguous()
+    vt = v.transpose(1, 2).repeat_interleave(H // Kv, dim=1).contiguous()
+    mask = (torch.arange(C, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    def run():
+        return decode_attention(q, k, v, lengths)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q[:, :, None, :], kt, vt,
+                                              attn_mask=mask)
+
+    ms, dev = timed(run, "decode_attention_")
+    split = device_ms(run, "decode_attention_split")
+    combine = device_ms(run, "decode_attention_combine")
+    plain, plain_dev = timed(lambda: decode_attention_ref(q, k, v, lengths))
+    lib, lib_dev = timed(sdpa)
+    # repeated calls find their K/V in the 50 MB L2; a decode step reads
+    # each layer's cache once, so also time each call after a 64 MB write
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    flush_ms = device_ms(flush.zero_)
+    cold = device_ms(lambda: (flush.zero_(), run()), "decode_attention_")
+    lib_cold = device_ms(lambda: (flush.zero_(), sdpa())) - flush_ms
+    b, by = decode_bound(lengths, B, H, Kv, D, C, q.dtype)
+    # what the card reads at this size: one sum over the live K/V bytes
+    live = torch.ones(int(lengths.clamp(0, C).sum()) * Kv * D * 2,
+                      dtype=q.dtype, device="cuda")
+    read = device_ms(lambda: live.sum(dtype=torch.float32))
+    print(f"  {label}: kernels {ms:.4f} ms events, {dev:.4f} ms device "
+          f"(split {split:.4f}, combine {combine:.4f}), {cold:.4f} ms device "
+          f"with a cold L2; plain {plain:.3f} / {plain_dev:.4f} ms; "
+          f"F.scaled_dot_product_attention {lib:.4f} / {lib_dev:.4f} ms, "
+          f"{lib_cold:.4f} ms with a cold L2; bound {b:.4f} ms ({by}), the "
+          f"kernels at {b / dev:.1%} of it ({b / cold:.1%} cold); a sum over "
+          f"the live K/V bytes {read:.4f} ms device")
+    return dict(ms=ms, device_ms=dev, split_device_ms=split,
+                combine_device_ms=combine, cold_device_ms=cold,
+                plain_ms=plain, plain_device_ms=plain_dev, library_ms=lib,
+                library_device_ms=lib_dev, library_cold_device_ms=lib_cold,
+                bound_ms=b, bound_by=by, live_sum_device_ms=read)
+
+
 def check_decode(gen):
+    """Both dtypes against the plain version at the timed shape (exact
+    zeros for length 0, the same bits twice), rows at the chunk's edges,
+    GQA g=6 at a C that is no chunk multiple, what the wrapper refuses,
+    and the serve paths' shapes: 8 rows at ~300 positions (the decode
+    profile's) and B=1 at 1024. Times at the timed and serve shapes."""
     print("[kernels] decode_attention")
     B, H, Kv, D, C = 8, 16, 16, 128, 1024
+    P = dec_kernel.CHUNK
     lengths = torch.tensor([0, 1, C, 37, 500, 1000, 33, 613],
                            dtype=torch.int32, device="cuda")
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        q = randn(gen, (B, H, D), dtype)
-        k = randn(gen, (B, C, Kv, D), dtype)
-        v = randn(gen, (B, C, Kv, D), dtype)
+        q, k, v = _decode_inputs(gen, B, H, Kv, D, C, dtype)
         out = decode_attention(q, k, v, lengths)
         zero_rows = out[lengths == 0].float().abs().max()
         if float(zero_rows) != 0.0:
             fail("decode_attention: a length-0 row is not exactly zero")
-        errs[dtype] = compare(f"B={B} H={H} Kv={Kv} D={D} C={C} {dtype}",
-                              out, decode_attention_ref(q, k, v, lengths),
-                              dtype)
-    # GQA (qwen2-1.5b heads) and a cache length that is not a tile multiple
+        name = f"B={B} H={H} Kv={Kv} D={D} C={C} {dtype}"
+        errs[dtype] = compare(name, out,
+                              decode_attention_ref(q, k, v, lengths), dtype,
+                              DECODE_TOL[dtype])
+        if dtype == torch.bfloat16:
+            check_decode_controls(name, out, q, k, v, lengths)
+        check_repeat(f"B={B} C={C} {dtype}",
+                     lambda: decode_attention(q, k, v, lengths))
+    # the chunk's edges: P - 1, P, P + 1 (a chunk with one live position),
+    # 2P + 1, C; g=4, C no multiple of P
+    edge = torch.tensor([0, 1, P - 1, P, P + 1, 2 * P + 1, 1000],
+                        dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _decode_inputs(gen, 7, 16, 4, D, 1000, dtype)
+        name = f"lengths {edge.tolist()} g=4 C=1000 {dtype}"
+        out = decode_attention(q, k, v, edge)
+        compare(name, out, decode_attention_ref(q, k, v, edge), dtype,
+                DECODE_TOL[dtype])
+        if dtype == torch.bfloat16:
+            check_decode_controls(name, out, q, k, v, edge)
+    # GQA (qwen2-1.5b heads) and a cache length that is no chunk multiple
     lg = torch.tensor([600, 0, 17, 333], dtype=torch.int32, device="cuda")
-    q = randn(gen, (4, 12, 128), torch.float32)
-    k = randn(gen, (4, 600, 2, 128), torch.float32)
-    v = randn(gen, (4, 600, 2, 128), torch.float32)
+    q, k, v = _decode_inputs(gen, 4, 12, 2, 128, 600, torch.float32)
     compare("GQA g=6 C=600 f32", decode_attention(q, k, v, lg),
-            decode_attention_ref(q, k, v, lg), torch.float32)
+            decode_attention_ref(q, k, v, lg), torch.float32,
+            DECODE_TOL[torch.float32])
+    # what the wrapper refuses: the 16-byte copies need D * elem % 16 == 0
+    # and 16-byte-aligned K and V
+    q, k, v = _decode_inputs(gen, 2, 4, 2, 12, 64, torch.bfloat16)
+    kv_off = torch.empty(2 * 64 * 2 * 16 + 1, dtype=torch.bfloat16,
+                         device="cuda")[1:].view(2, 64, 2, 16)
+    q16 = randn(gen, (2, 4, 16), torch.bfloat16)
+    for label, args in (("D=12 bf16", (q, k, v)),
+                        ("K/V 2 bytes past an aligned address",
+                         (q16, kv_off, kv_off))):
+        try:
+            decode_attention(*args, lg[:2].contiguous())
+        except ValueError as e:
+            print(f"  refuses {label}: {e}")
+        else:
+            fail(f"decode_attention: accepted {label}")
 
     dtype = torch.bfloat16
-    q = randn(gen, (B, H, D), dtype)
-    k = randn(gen, (B, C, Kv, D), dtype)
-    v = randn(gen, (B, C, Kv, D), dtype)
-    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-    mask = (torch.arange(C, device="cuda")[None, :]
-            < lengths[:, None])[:, None, None, :]
-    ms = time_ms(lambda: decode_attention(q, k, v, lengths))
-    plain = time_ms(lambda: decode_attention_ref(q, k, v, lengths))
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], kt, vt, attn_mask=mask))
-    tokens = int(lengths.clamp(0, C).sum())
-    es = 2
-    nbytes = (2 * B * H * D + 2 * tokens * Kv * D) * es + 4 * B
-    flops = 4.0 * tokens * H * D
-    b, by = bound_ms(nbytes, flops, dtype)
+    q, k, v = _decode_inputs(gen, B, H, Kv, D, C, dtype)
+    timing = time_decode(f"B={B} C={C} lengths {lengths.tolist()} bf16",
+                         q, k, v, lengths)
+    serve = {}
+    rng = np.random.RandomState(5)
+    for label, lens in (
+            ("B=8 ~300 positions", rng.randint(290, 311, size=8)),
+            ("B=1 1024 positions", np.array([1024]))):
+        lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q, k, v = _decode_inputs(gen, len(lens), H, Kv, D, C, dtype)
+        out = decode_attention(q, k, v, lt)
+        compare(f"{label} C={C} bf16", out, decode_attention_ref(q, k, v, lt),
+                dtype, DECODE_TOL[dtype])
+        check_decode_controls(f"{label} C={C} bf16", out, q, k, v, lt)
+        serve[label] = dict(time_decode(f"{label} C={C} bf16", q, k, v, lt),
+                            lengths=lens.tolist())
     return dict(name="decode_attention", source=dec_kernel.SOURCE,
                 replaces=dec_kernel.REPLACES, max_abs_err=errs[dtype],
-                ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                library_ms=lib,
+                **timing, serve_shapes=serve,
                 shape=f"B={B} H={H} Kv={Kv} D={D} C={C} lengths="
                       f"{lengths.tolist()} bf16")
 
@@ -369,9 +528,39 @@ def paged_layout(lengths, n_blocks: int, bs: int, pool: int, seed: int):
     return torch.from_numpy(tbl).cuda()
 
 
+def check_paged_equals_dense(label, q, kp, vp, lengths, tbl) -> float:
+    """The paged kernels against their plain version (exact zeros for
+    length 0), then bitwise against the dense kernels over the gathered
+    contents. Returns the largest error."""
+    out = decode_attention_paged(q, kp, vp, lengths, tbl)
+    if float(out[lengths == 0].float().abs().max()) != 0.0:
+        fail("decode_attention_paged: a length-0 row is not exactly zero")
+    err = compare(label, out,
+                  paged_decode_attention_ref(q, kp, vp, lengths, tbl),
+                  q.dtype, DECODE_TOL[q.dtype])
+    kd = gather_pages(kp, tbl).contiguous()
+    vd = gather_pages(vp, tbl).contiguous()
+    if q.dtype == torch.bfloat16:
+        check_decode_controls(label, out, q, kd, vd, lengths)
+    dense = decode_attention(q, kd, vd, lengths)
+    torch.cuda.synchronize()
+    if not torch.equal(out, dense):
+        fail(f"decode_attention_paged {label}: not bitwise equal to the "
+             "dense kernel on the gathered contents")
+    print(f"  {label}: bitwise equal to the dense kernel on the gathered "
+          "contents")
+    return err
+
+
 def check_decode_paged(gen):
+    """Both dtypes against the plain version and bitwise against the
+    dense kernels on the gathered contents and against themselves; page
+    sizes below, at and above the chunk (one that does not divide it);
+    GQA g=6 at bs=16; then the times beside the dense kernels' on the
+    same contents."""
     print("[kernels] decode_attention_paged")
     B, H, Kv, D, bs, n_blocks, pool = 8, 16, 16, 128, 32, 32, 257
+    P = dec_kernel.CHUNK
     lens_list = [0, 1, 1024, 37, 500, 1000, 33, 613]
     lengths = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
     tbl = paged_layout(lens_list, n_blocks, bs, pool, seed=3)
@@ -380,31 +569,32 @@ def check_decode_paged(gen):
         q = randn(gen, (B, H, D), dtype)
         kp = randn(gen, (pool, bs, Kv, D), dtype)
         vp = randn(gen, (pool, bs, Kv, D), dtype)
-        out = decode_attention_paged(q, kp, vp, lengths, tbl)
-        if float(out[lengths == 0].float().abs().max()) != 0.0:
-            fail("decode_attention_paged: a length-0 row is not exactly zero")
-        errs[dtype] = compare(
+        errs[dtype] = check_paged_equals_dense(
             f"B={B} H={H} Kv={Kv} D={D} bs={bs} blocks={n_blocks} {dtype}",
-            out, paged_decode_attention_ref(q, kp, vp, lengths, tbl), dtype)
-        # the dense kernel over the gathered contents: bitwise equal
-        kd = gather_pages(kp, tbl).contiguous()
-        vd = gather_pages(vp, tbl).contiguous()
-        dense = decode_attention(q, kd, vd, lengths)
-        torch.cuda.synchronize()
-        if not torch.equal(out, dense):
-            fail(f"decode_attention_paged {dtype}: not bitwise equal to the "
-                 "dense kernel on the gathered contents")
-        print(f"  bitwise equal to the dense kernel on the gathered "
-              f"contents ({dtype})")
-    # GQA g=6 at a page size that is not the kernel's tile
+            q, kp, vp, lengths, tbl)
+        check_repeat(f"paged bs={bs} {dtype}",
+                     lambda: decode_attention_paged(q, kp, vp, lengths, tbl))
+    # page sizes against the chunk: below and dividing it, below and not
+    # dividing it, equal, above; lengths at the chunk's edges
+    edge = [0, 1, P - 1, P, P + 1, 2 * P + 1, 300]
+    et = torch.tensor(edge, dtype=torch.int32, device="cuda")
+    for pbs in (16, 48, P, 80):
+        nb = -(-300 // pbs)
+        pool_e = len(edge) * nb + 1
+        tg = paged_layout(edge, nb, pbs, pool_e, seed=pbs)
+        q = randn(gen, (len(edge), 8, D), torch.float32)
+        kp = randn(gen, (pool_e, pbs, 2, D), torch.float32)
+        vp = randn(gen, (pool_e, pbs, 2, D), torch.float32)
+        check_paged_equals_dense(f"g=4 bs={pbs} lengths {edge} f32",
+                                 q, kp, vp, et, tg)
+    # GQA g=6 at a page size that is not the chunk
     lg = [600, 0, 17, 333]
     tg = paged_layout(lg, 38, 16, 65, seed=4)
     q = randn(gen, (4, 12, 128), torch.float32)
     kp = randn(gen, (65, 16, 2, 128), torch.float32)
     vp = randn(gen, (65, 16, 2, 128), torch.float32)
     lgt = torch.tensor(lg, dtype=torch.int32, device="cuda")
-    compare("GQA g=6 bs=16 f32", decode_attention_paged(q, kp, vp, lgt, tg),
-            paged_decode_attention_ref(q, kp, vp, lgt, tg), torch.float32)
+    check_paged_equals_dense("GQA g=6 bs=16 f32", q, kp, vp, lgt, tg)
 
     dtype = torch.bfloat16
     q = randn(gen, (B, H, D), dtype)
@@ -412,21 +602,35 @@ def check_decode_paged(gen):
     vp = randn(gen, (pool, bs, Kv, D), dtype)
     kd = gather_pages(kp, tbl).contiguous()
     vd = gather_pages(vp, tbl).contiguous()
-    ms = time_ms(lambda: decode_attention_paged(q, kp, vp, lengths, tbl))
-    dense_ms = time_ms(lambda: decode_attention(q, kd, vd, lengths))
-    plain = time_ms(lambda: paged_decode_attention_ref(q, kp, vp, lengths,
-                                                       tbl))
-    tokens = sum(lens_list)
+    def paged():
+        return decode_attention_paged(q, kp, vp, lengths, tbl)
+
+    def dense():
+        return decode_attention(q, kd, vd, lengths)
+
+    ms, dev = timed(paged, "decode_attention_")
+    dense_ms, dense_dev = timed(dense, "decode_attention_")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    cold = device_ms(lambda: (flush.zero_(), paged()), "decode_attention_")
+    dense_cold = device_ms(lambda: (flush.zero_(), dense()),
+                           "decode_attention_")
+    plain, plain_dev = timed(
+        lambda: paged_decode_attention_ref(q, kp, vp, lengths, tbl))
     pages = sum(-(-n // bs) for n in lens_list)
-    nbytes = (2 * B * H * D + 2 * tokens * Kv * D) * 2 + 4 * B + 4 * pages
-    flops = 4.0 * tokens * H * D
-    b, by = bound_ms(nbytes, flops, dtype)
-    print(f"  bf16: kernel {ms:.3f} ms, dense kernel on the same contents "
-          f"{dense_ms:.3f} ms, plain {plain:.3f} ms, bound {b:.4f} ms ({by})")
+    b, by = decode_bound(lengths, B, H, Kv, D, n_blocks * bs, dtype, pages)
+    print(f"  bf16: kernels {ms:.4f} ms events, {dev:.4f} ms device, "
+          f"{cold:.4f} ms with a cold L2; the dense kernels on the same "
+          f"contents {dense_ms:.4f} / {dense_dev:.4f} / {dense_cold:.4f} ms "
+          f"(paged / dense device {dev / dense_dev:.3f}, cold "
+          f"{cold / dense_cold:.3f}); plain {plain:.3f} / {plain_dev:.4f} "
+          f"ms; bound {b:.4f} ms ({by})")
     return dict(name="decode_attention_paged", source=dec_kernel.SOURCE,
                 replaces=dec_kernel.PAGED_REPLACES, max_abs_err=errs[dtype],
-                ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                ms=ms, device_ms=dev, cold_device_ms=cold, plain_ms=plain,
+                plain_device_ms=plain_dev, bound_ms=b, bound_by=by,
                 library_ms=None, dense_kernel_ms=dense_ms,
+                dense_kernel_device_ms=dense_dev,
+                dense_kernel_cold_device_ms=dense_cold,
                 shape=f"B={B} H={H} Kv={Kv} D={D} bs={bs} blocks={n_blocks} "
                       f"pool={pool} lengths={lens_list} bf16")
 
@@ -1191,7 +1395,8 @@ def phase_serve_hybrid():
 
 
 #: the device-side names of the repo's CUDA kernels (src/repro_torch/csrc)
-OWN_KERNELS = ("decode_attention_kernel", "moe_gemm_",
+OWN_KERNELS = ("decode_attention_split_kernel",
+               "decode_attention_combine_kernel", "moe_gemm_",
                "flash_attention_", "mlstm_scan_kernel",
                "rg_lru_scan_kernel")
 

@@ -32,9 +32,9 @@ def check_cuda_operands(name: str, *tensors, index=()) -> None:
 
 
 def check_tma_operands(name: str, *tensors) -> None:
-    """Raise unless every operand can be read by TMA: its data pointer
-    16-byte aligned, and its inner dimension a multiple of 8 bf16 values
-    (16 bytes), so every row stride is too."""
+    """Raise unless every operand can be read by TMA or 16-byte copies:
+    its data pointer 16-byte aligned, and its inner dimension a multiple
+    of 16 bytes (8 bf16 or 4 f32 values), so every row stride is too."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: operand of shape {tuple(t.shape)} "

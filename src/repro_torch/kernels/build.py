@@ -42,10 +42,11 @@ _INT = ctypes.c_int
 
 #: argtypes of every exported entry point
 _SIGNATURES = {
-    # dtype, q, k, v, lengths, out, B, H, Kv, C, D, stream
-    "repro_decode_attention": [_INT] + [_VOIDP] * 5 + [_INT] * 5 + [_VOIDP],
-    # dtype, q, k, v, lengths, table, out, B, H, Kv, bs, n_blocks, D, stream
-    "repro_decode_attention_paged": ([_INT] + [_VOIDP] * 6 + [_INT] * 6
+    # dtype, q, k, v, lengths, scratch, out, B, H, Kv, C, D, stream
+    "repro_decode_attention": [_INT] + [_VOIDP] * 6 + [_INT] * 5 + [_VOIDP],
+    # dtype, q, k, v, lengths, table, scratch, out, B, H, Kv, bs, n_blocks,
+    # D, stream
+    "repro_decode_attention_paged": ([_INT] + [_VOIDP] * 7 + [_INT] * 6
                                      + [_VOIDP]),
     # dtype, x, wg, wu, wd, act, y, E, C, M, H, stream
     "repro_moe_gemm": [_INT] + [_VOIDP] * 6 + [_INT] * 4 + [_VOIDP],

@@ -1,11 +1,13 @@
 """Public wrappers of ragged decode attention over a dense cache and over
 page pools: dispatch by the tensors' device. A CPU tensor takes the plain
-version; a CUDA tensor launches the hand-written kernel or raises."""
+version; a CUDA tensor launches the hand-written kernels or raises. A
+call launches two kernels (split-KV, then the combine) and counts once;
+it reads no length on the host, so it never waits for the card."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check_cuda_operands
+from repro_torch.kernels import check_cuda_operands, check_tma_operands
 from repro_torch.kernels.decode_attention import kernel
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref)
@@ -17,12 +19,29 @@ def _check_group(H: int, Kv: int, D: int) -> None:
         raise ValueError(f"unsupported GQA group: H={H}, Kv={Kv}, D={D}")
 
 
+def _check_rows(name: str, kv) -> None:
+    """The kernels index the cache's [Kv, D] rows (dense [B, C], paged
+    [P, bs]) in 32 bits."""
+    if kv.shape[0] * kv.shape[1] > 2 ** 31 - 1:
+        raise ValueError(f"{name}: {kv.shape[0] * kv.shape[1]} cache rows "
+                         "do not fit the kernels' 32-bit row index")
+
+
+def _scratch(q, Kv: int, C: int):
+    """The split kernel's f32 partials for a cache of C positions."""
+    B, H, D = q.shape
+    return torch.empty(kernel.scratch_numel(B, H, Kv, C, D),
+                       dtype=torch.float32, device=q.device)
+
+
 def decode_attention(q, k_cache, v_cache, lengths):
     """q: [B,H,D]; k/v_cache: [B,C,Kv,D]; lengths: int [B] -> [B,H,D].
 
     ``lengths[b]`` is the number of leading cache positions row b attends
     over (the KV ledger's context length, clamped to [0, C]); 0 yields a
-    zero output row. Any C runs: the kernel masks the ragged last tile.
+    zero output row. Any C runs: the kernel masks the ragged last chunk.
+    K and V are read with 16-byte copies: 16-byte aligned, D a multiple
+    of 8 in bf16 and of 4 in f32.
     """
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lengths)
@@ -37,13 +56,17 @@ def decode_attention(q, k_cache, v_cache, lengths):
         raise ValueError("lengths must be int32 [B]")
     check_cuda_operands("decode_attention", q, k_cache, v_cache,
                         index=(lengths,))
+    check_tma_operands("decode_attention", k_cache, v_cache)
+    _check_rows("decode_attention", k_cache)
     out = torch.empty_like(q)
-    kernel.decode_attention_cuda(q, k_cache, v_cache, lengths, out)
+    scratch = _scratch(q, k_cache.shape[2], k_cache.shape[1])
+    kernel.decode_attention_cuda(q, k_cache, v_cache, lengths, scratch, out)
     decode_attention.launches += 1
     return out
 
 
-#: kernel launches (plain-version calls on CPU tensors do not count)
+#: calls that launched the kernels (plain-version calls on CPU tensors do
+#: not count)
 decode_attention.launches = 0
 
 
@@ -54,9 +77,9 @@ def decode_attention_paged(q, k_pages, v_pages, lengths, block_table):
     Logical block l of row b is page ``block_table[b, l]``; entries < 0
     are unallocated and read the reserved scratch page 0 (they lie past
     the row's length). ``lengths[b]`` is clamped to [0, n_blocks * bs];
-    0 yields a zero row. Any page size runs: the kernel's tile does not
+    0 yields a zero row. Any page size runs: the kernels' chunks do not
     depend on it, so at any bs the result is bitwise the dense kernel's
-    over the gathered contents.
+    over the gathered contents. Pages are read as the dense cache is.
     """
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, lengths,
@@ -75,12 +98,17 @@ def decode_attention_paged(q, k_pages, v_pages, lengths, block_table):
         raise ValueError("block_table must be int32 [B, n_blocks >= 1]")
     check_cuda_operands("decode_attention_paged", q, k_pages, v_pages,
                         index=(lengths, block_table))
+    check_tma_operands("decode_attention_paged", k_pages, v_pages)
+    _check_rows("decode_attention_paged", k_pages)
     out = torch.empty_like(q)
+    scratch = _scratch(q, k_pages.shape[2],
+                       block_table.shape[1] * k_pages.shape[1])
     kernel.decode_attention_paged_cuda(q, k_pages, v_pages, lengths,
-                                       block_table, out)
+                                       block_table, scratch, out)
     decode_attention_paged.launches += 1
     return out
 
 
-#: kernel launches (plain-version calls on CPU tensors do not count)
+#: calls that launched the kernels (plain-version calls on CPU tensors do
+#: not count)
 decode_attention_paged.launches = 0
