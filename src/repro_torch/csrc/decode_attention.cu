@@ -90,6 +90,9 @@
 
 namespace {
 
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 using repro::from_f32;
 using repro::to_f32;
 using repro::warp_max;
@@ -102,22 +105,6 @@ constexpr int kStages = 2;         // ring depth
 constexpr int kStageBytes = 8192;  // one K or V sub-tile
 constexpr int kMaxGroup = 128;         // kernel.py MAX_GROUP
 constexpr int kMaxGroupWidth = 4096;   // kernel.py MAX_GROUP_WIDTH
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Where the chunk's positions live: fills row_s[p] (p < n) with the index
 // of the [Kv, D] row of cache position p0 + p of row b (positions are rows

@@ -79,6 +79,24 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// Bulk copy of ``bytes`` contiguous bytes global -> shared by the TMA unit
+// (no tensor map), completion counted in bytes on `bar`. Addresses and size
+// are multiples of 16 bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Order this thread's generic-proxy shared-memory writes before later
+// async-proxy (TMA) accesses to the same memory.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // TMA tile loads: global (through the tensor map) -> shared, completion
 // counted in bytes on `bar`. Coordinates are innermost first; boxes that
 // run past the tensor's edge are zero-filled.

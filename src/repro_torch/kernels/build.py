@@ -52,6 +52,8 @@ _SIGNATURES = {
     "repro_moe_gemm": [_INT] + [_VOIDP] * 6 + [_INT] * 4 + [_VOIDP],
     # q, k, v, i, log_f, C0, n0, m0, h, C, n, m, BH, S, D, stream
     "repro_mlstm_scan": [_VOIDP] * 12 + [_INT] * 3 + [_VOIDP],
+    # q, k, v, i, log_f, C0, n0, m0, rec, h, C, n, m, BH, S, D, stream
+    "repro_mlstm_scan_chunkwise": [_VOIDP] * 13 + [_INT] * 3 + [_VOIDP],
     # dtype, q, k, v, out, B, S, H, Kv, D, causal, window, stream
     "repro_flash_attention": [_INT] + [_VOIDP] * 4 + [_INT] * 7 + [_VOIDP],
     # dtype, a, b, h0, h, h_last, B, S, W, stream

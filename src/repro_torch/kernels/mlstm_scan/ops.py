@@ -1,13 +1,27 @@
 """Public wrapper of the mLSTM recurrence: dispatch by the tensors'
-device. A CPU tensor takes the plain version; a CUDA tensor launches the
-hand-written kernel or raises."""
+device. A CPU tensor takes the plain version; a CUDA tensor launches one
+of the two hand-written routes or raises."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check_cuda_operands
+from repro_torch.kernels import check_cuda_operands, check_tma_operands
 from repro_torch.kernels.mlstm_scan import kernel
 from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
+
+#: the least S that takes the chunkwise route; shorter calls (a decode step
+#: is S = 1) take the recurrent kernel, which reads and writes the state
+#: once and is bound by those bytes there. tools/sweep_scans.py times both
+#: at H = 4, D = 1024 (NVIDIA H100 80GB HBM3, 700 W): at S = 8 they tie at
+#: B = 1 (0.0238 / 0.0237 ms) and the chunkwise pair wins at B = 8 (0.217 /
+#: 0.169 ms); at S = 6 the recurrent kernel wins at B = 1 (0.019 / 0.023)
+CHUNKWISE_MIN_S = 8
+
+
+def route(S: int) -> str:
+    """The CUDA route for a call of ``S`` steps, by S alone (no host read
+    of any tensor, so a captured decode step stays capturable)."""
+    return "chunkwise" if S >= CHUNKWISE_MIN_S else "recurrent"
 
 
 def mlstm_scan(q, k, v, i_gate, log_f, C0, n0, m0):
@@ -16,7 +30,9 @@ def mlstm_scan(q, k, v, i_gate, log_f, C0, n0, m0):
 
     Any S >= 1 runs (S = 1 is a decode step), with no block-size
     condition: the reference's op sends S not divisible by its block to
-    the oracle, the kernel masks instead. D is at most ``kernel.MAX_D``.
+    the oracle, the kernels mask instead. D is at most ``kernel.MAX_D``;
+    the chunkwise route (S >= ``CHUNKWISE_MIN_S``) also needs 16-byte
+    aligned operands and D % 4 == 0.
     """
     if q.device.type == "cpu":
         return mlstm_scan_ref(q, k, v, i_gate, log_f, C0, n0, m0)
@@ -35,10 +51,19 @@ def mlstm_scan(q, k, v, i_gate, log_f, C0, n0, m0):
     check_cuda_operands("mlstm_scan", q, k, v, i_gate, log_f, C0, n0, m0)
     h = torch.empty_like(q)
     C, n, m = torch.empty_like(C0), torch.empty_like(n0), torch.empty_like(m0)
-    kernel.mlstm_scan_cuda(q, k, v, i_gate, log_f, C0, n0, m0, h, C, n, m)
+    if route(S) == "chunkwise":
+        rec = torch.empty(kernel.record_numel(B * H, S), dtype=torch.float32,
+                          device=q.device)
+        check_tma_operands("mlstm_scan", q, k, v, C0, n0, h, C, n, rec)
+        kernel.mlstm_scan_chunkwise_cuda(q, k, v, i_gate, log_f, C0, n0, m0,
+                                         rec, h, C, n, m)
+    else:
+        kernel.mlstm_scan_cuda(q, k, v, i_gate, log_f, C0, n0, m0, h, C, n,
+                               m)
     mlstm_scan.launches += 1
     return h, C, n, m
 
 
-#: kernel launches (plain-version calls on CPU tensors do not count)
+#: calls that launched a kernel route (plain-version calls on CPU tensors do
+#: not count)
 mlstm_scan.launches = 0

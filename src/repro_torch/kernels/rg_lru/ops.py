@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check_cuda_operands
+from repro_torch.kernels import check_cuda_operands, check_tma_operands
 from repro_torch.kernels.rg_lru import kernel
 from repro_torch.kernels.rg_lru.ref import rg_lru_scan_ref
 
@@ -14,9 +14,11 @@ def rg_lru_scan(a, b, h0):
     """a, b: [B,S,W] in f32 or bf16 (read as f32); h0: [B,W] f32 ->
     (h [B,S,W] f32, h_last [B,W] f32).
 
-    Any S >= 1 (S = 1 is a decode step) and any W run: the reference's op
-    sends shapes that do not tile its blocks to the oracle, the kernel
-    masks its last block of channels instead."""
+    Any S >= 1 (S = 1 is a decode step) runs: the reference's op sends
+    shapes that do not tile its blocks to the oracle, the kernel masks its
+    last block of channels instead. On the card a and b are copied in
+    16-byte pieces, so they must be 16-byte aligned with W a multiple of
+    16 bytes of their type (4 f32 or 8 bf16 values)."""
     if a.device.type == "cpu":
         return rg_lru_scan_ref(a, b, h0)
     if a.dim() != 3 or b.shape != a.shape:
@@ -30,6 +32,7 @@ def rg_lru_scan(a, b, h0):
     if h0.dtype != torch.float32:
         raise TypeError(f"rg_lru_scan: h0 must be float32, got {h0.dtype}")
     check_cuda_operands("rg_lru_scan", a, b)
+    check_tma_operands("rg_lru_scan", a, b)
     check_cuda_operands("rg_lru_scan", h0)
     if h0.device != a.device:
         raise ValueError(f"rg_lru_scan: operands on {h0.device} and "

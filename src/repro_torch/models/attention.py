@@ -45,7 +45,7 @@ ATTN_IMPLS = ("xla", "flash", "decode_kernel")
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.mla_kv_lora_rank:
         raise NotImplementedError(
-            "MLA attention is not ported yet (ROADMAP Queue 1 item 10)")
+            "MLA attention is not ported yet (ROADMAP Queue 1 item 8)")
     if cfg.attention not in ("full", "sliding", "local"):
         raise NotImplementedError(
             f"attention={cfg.attention!r} is not ported (ROADMAP Queue 1)")

@@ -57,7 +57,7 @@ class ExecutionContext:
         if self.moe_impl == "dep":
             raise NotImplementedError(
                 "moe_impl='dep' (the DEP executor, repro/core/dep.py) is not "
-                "ported yet: ROADMAP Queue 1 item 6")
+                "ported yet: ROADMAP Queue 1 item 4")
         if self.moe_impl not in MOE_IMPLS:
             raise ValueError(f"moe_impl {self.moe_impl!r} not in "
                              f"{MOE_IMPLS}")
