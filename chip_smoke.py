@@ -30,25 +30,38 @@
   4. serve    ServingEngine with the full qwen2-moe-a2.7b config (24
               layers, bf16 weights drawn from a seed on the card): 16
               requests, 8 slots, max_context 1024, on three paths, each
-              run with the launch counts set to 0 just before it and read
-              just after, each profiled over 3 decode steps, the dense
-              path also over one batched prefill call of 8 x 300 tokens:
-              paged KV with the dense footprint as its pool
-              ("paged"); dense KV ("serve"), whose greedy tokens the paged
-              run must equal; a paired dense/paged decode-step timing;
-              paged KV under a pool that must preempt, with a shared
-              system prompt ("pressure");
+              run with the decode step as a CUDA graph and with the
+              launch counts set to 0 just before it and read just after
+              (a graph engine must replay once per decode step and
+              capture no key twice): paged KV with the dense footprint as
+              its pool ("paged"); dense KV ("serve"), whose greedy tokens
+              the paged run must equal; paged KV under a pool that must
+              preempt, with a shared system prompt ("pressure"). Each
+              path is held against an eager engine (decode_graph=False)
+              on the same weights: the eager engine serves the same
+              requests (greedy tokens must be equal) and both take 11
+              teacher-forced decode steps over 8 prompts of mixed lengths
+              (logits must be bitwise equal at every step; on the paged
+              paths a step must follow a table change). Paged and serve
+              are profiled over 3 decode steps, graph and eager (serve
+              also over one batched prefill call of 8 x 300 tokens); a
+              paired decode-step timing takes turns between the dense
+              graph, dense eager and paged graph engines;
   5. xlstm    ServingEngine with the full xlstm-1.3b config (48 layers,
               42 mLSTM through the mLSTM scan kernels, 6 sLSTM): 16
-              requests, 8 slots, max_context 1024; profiled over 3
-              decode steps and one 600-token prefill call;
+              requests, 8 slots, max_context 1024, with the graph; held
+              against an eager engine as in phase 4 and timed beside it;
+              profiled over 3 decode steps (graph and eager) and one
+              600-token prefill call;
   6. hybrid   ServingEngine with the full recurrentgemma-9b config (38
               layers: 26 RG-LRU through the RG-LRU scan kernel, 12 local
               attention through the flash kernel at prefill and over a
               ring KV cache at decode): 16 requests, 8 slots,
               max_context 4096, one prompt whose ring wraps in decode and
-              one whose prefill rolls; profiled over 3 decode steps and
-              one 3000-token prefill call;
+              one whose prefill rolls, with the graph; held against an
+              eager engine (a teacher-forced ring wraps) and timed beside
+              it; profiled over 3 decode steps (graph and eager) and one
+              3000-token prefill call;
   7. report   one JSON line with every kernel's numbers, the card's name and
               power limit, and as the last line {"ok": true, "device": ...}.
 
@@ -57,8 +70,8 @@ CUDA device it exits non-zero and prints no result.
 
 Run from the repository root:  python3 chip_smoke.py
 (``--no-serve`` stops after phase 3 and the ring check: a quick check of
-new kernels.) Each serve path is profiled over 3 decode steps after its
-run.
+new kernels.) ``python3 tools/rehearse_chip_smoke.py`` runs phases 4-6
+on the CPU at smoke size, with a stand-in for the CUDA graph.
 """
 from __future__ import annotations
 
@@ -105,6 +118,7 @@ from repro_torch.kernels.rg_lru.ops import rg_lru_scan  # noqa: E402
 from repro_torch.kernels.rg_lru.ref import rg_lru_scan_ref  # noqa: E402
 from repro_torch.models import ExecutionContext, build_model  # noqa: E402
 from repro_torch.runtime import Request, RequestState, ServingEngine  # noqa: E402
+from repro_torch.runtime.decode_graph import GRAPH_KEYS  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -1383,9 +1397,12 @@ def serve(eng, reqs, cfg, path: str, expect):
     before and read just after; check that every request finished with 32
     tokens of the vocabulary and that every kernel launched exactly as
     often as ``expect(eng.stats)`` says (a kernel absent from it must not
-    launch)."""
+    launch). An engine with the decode graph must replay it at every
+    decode step and capture no key twice (at most one graph per key of
+    ``GRAPH_KEYS``); an eager one must capture nothing."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 1e9
     kernel_lib.reset_launch_counts()
     t0 = time.perf_counter()
     for r in reqs:
@@ -1409,6 +1426,15 @@ def serve(eng, reqs, cfg, path: str, expect):
         if n != want.get(name, 0):
             fail(f"{path}: {name} launched {n} times, expected "
                  f"{want.get(name, 0)}")
+    if eng.decode_graph:
+        if st.graph_captures > len(GRAPH_KEYS):
+            fail(f"{path}: {st.graph_captures} graph captures for "
+                 f"{len(GRAPH_KEYS)} keys")
+        if st.graph_replays != st.steps:
+            fail(f"{path}: {st.graph_replays} graph replays for {st.steps} "
+                 "decode steps")
+    elif st.graph_captures or st.graph_replays:
+        fail(f"{path}: an eager engine captured or replayed a graph")
     tokens = sum(len(r.output) for r in reqs)
     ttft = np.array([r.ttft for r in reqs]) * 1e3
     res = dict(requests=len(finished), tokens=tokens, wall_s=wall,
@@ -1418,7 +1444,12 @@ def serve(eng, reqs, cfg, path: str, expect):
                decode_step_ms=st.decode_s / st.steps * 1e3,
                prefill_calls=st.prefill_calls,
                prefill_ms_mean=st.prefill_s / st.prefill_calls * 1e3,
+               decode_graph=eng.decode_graph,
+               graph_captures=st.graph_captures,
+               graph_replays=st.graph_replays, graph_s=st.graph_s,
+               allocated_at_start_gb=start_gb,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
                launches=counts)
     print(f"[{path}] {tokens} tokens for {len(finished)} requests in "
           f"{wall:.2f} s -> {res['tokens_per_s']:.1f} tokens/s; TTFT mean "
@@ -1426,7 +1457,12 @@ def serve(eng, reqs, cfg, path: str, expect):
           f"{st.steps} decode steps at {res['decode_step_ms']:.2f} ms; "
           f"{st.prefill_calls} prefill calls at "
           f"{res['prefill_ms_mean']:.1f} ms; peak memory "
-          f"{res['peak_mem_gb']:.2f} GB")
+          f"{res['peak_mem_gb']:.2f} GB allocated ({start_gb:.2f} at the "
+          f"start), {res['peak_reserved_gb']:.2f} GB reserved")
+    print(f"[{path}] decode graph "
+          + (f"on: {st.graph_captures} captures, {st.graph_replays} replays "
+             f"for {st.steps} decode steps, warm-up and captures "
+             f"{st.graph_s:.2f} s" if eng.decode_graph else "off (eager)"))
     print(f"[{path}] launches: {counts}")
     print(f"[{path}] " + json.dumps(res))
     return counts
@@ -1442,12 +1478,98 @@ def moe_expect(cfg, decode_kernel: str):
                        "moe_gemm": L * (st.steps + st.prefill_calls)}
 
 
+#: prompt lengths of the teacher-forced graph-against-eager phases: mixed,
+#: and the first (Lp = 59, pages of 32 up to position 63) writes position
+#: 64 at its sixth decode step, so a paged run opens a page mid-window
+FORCED_LENGTHS = (60, 16, 137, 250, 301, 404, 517, 600)
+
+
+def teacher_forced(path, graph_eng, eager_eng, cfg, prompts,
+                   steps: int = 10) -> None:
+    """The graph engine against the eager engine on the same weights: both
+    admit the same prompts (even ones greedy, odd ones at T=0.8) and
+    decode ``steps`` + 1 steps, every step after the first fed the same
+    tokens, drawn from a seed rather than sampled. The logits of every
+    step must be bitwise equal (every row, dead ones included); under
+    paged KV at least one step must decode after a table change."""
+    engines = (graph_eng, eager_eng)
+    for eng in engines:
+        for i, p in enumerate(prompts):
+            eng.submit(Request(prompt=list(p), max_new_tokens=steps + 4,
+                               temperature=0.0 if i % 2 == 0 else 0.8))
+    paged = graph_eng.kv_layout == "paged"
+    rng = np.random.RandomState(10)
+    after_change = 0
+    for k in range(steps + 1):
+        before = graph_eng.kv._tables.copy() if paged else None
+        if k:
+            forced = torch.from_numpy(rng.randint(
+                0, cfg.vocab_size, size=(graph_eng.num_slots, 1)))
+            for eng in engines:
+                eng.last_tokens.copy_(forced)
+        for eng in engines:
+            eng.step()
+        got, want = graph_eng.last_logits, eager_eng.last_logits
+        if not torch.equal(got, want):
+            diff = (got.float() - want.float()).abs()
+            rows = sorted({int(r) for r in (diff > 0).nonzero()[:, 0]})
+            fail(f"{path}: graph and eager logits differ at decode step {k} "
+                 f"in {int((diff > 0).sum())} entries of rows {rows}, by "
+                 f"up to {float(diff.max()):.3e}")
+        if paged and not np.array_equal(before, graph_eng.kv._tables):
+            after_change += 1
+    if paged and not after_change:
+        fail(f"{path}: no teacher-forced step followed a table change")
+    live = sorted(graph_eng.kv.length(s) for s in graph_eng.kv.live_slots())
+    for eng in engines:
+        eng.run()
+    print(f"[{path}] graph vs eager, teacher-forced: logits bitwise equal "
+          f"at all {steps + 1} decode steps (live slots at lengths {live} "
+          f"after them" + (f"; {after_change} steps after a table change"
+                           if paged else "") + ")")
+
+
+def against_eager(path, graph_eng, eager_eng, cfg, graph_reqs, make_reqs,
+                  expect, prompts) -> None:
+    """The eager engine serves ``make_reqs()``, the requests the graph
+    engine served as ``graph_reqs``: every greedy request must give the
+    graph run's tokens (sampled ones match where the graph's generator
+    draws as the eager one's). Then ``teacher_forced`` on ``prompts``."""
+    reqs = make_reqs()
+    serve(eager_eng, reqs, cfg, f"{path} eager", expect)
+    pairs = list(zip(graph_reqs, reqs))
+    greedy = [(a, b) for a, b in pairs if a.temperature == 0]
+    sampled = [(a, b) for a, b in pairs if a.temperature > 0]
+    bad = [i for i, (a, b) in enumerate(pairs)
+           if a.temperature == 0 and a.output != b.output]
+    if bad:
+        fail(f"{path}: greedy requests {bad} differ between the graph and "
+             "the eager run")
+    same = sum(a.output == b.output for a, b in sampled)
+    print(f"[{path}] graph vs eager serve: all {len(greedy)} greedy "
+          f"requests give the same tokens; {same}/{len(sampled)} sampled "
+          "requests too")
+    teacher_forced(path, graph_eng, eager_eng, cfg, prompts)
+
+
+def forced_prompts(vocab: int, shared=()):
+    """Prompts of ``shared`` and then ``FORCED_LENGTHS`` random tokens,
+    from a seed (a shared prefix of whole pages keeps the page crossing
+    of ``FORCED_LENGTHS[0]``)."""
+    rng = np.random.RandomState(12)
+    return [list(shared) + list(rng.randint(0, vocab, size=n))
+            for n in FORCED_LENGTHS]
+
+
 def phase_serve():
     """The paged path with the dense footprint as its pool, then the dense
     path (slice 1) on the same weights, whose tokens the paged run must
     give; then paged KV under pool pressure (preemption). Paged runs
-    first so that the order of the phases does not favour it. Returns the
-    launch counts of each path's run."""
+    first so that the order of the phases does not favour it. Each path
+    runs with the decode graph and is held against an eager engine on
+    the same weights; a paired timing takes turns between the dense graph,
+    the dense eager and the paged graph engines. Returns the launch counts
+    of each path's graph run."""
     cfg = get_config("qwen2-moe-a2.7b")
     t0 = time.perf_counter()
     # paged, parity pool: the dense footprint (257 pages of 32)
@@ -1463,27 +1585,40 @@ def phase_serve():
           f"{time.perf_counter() - t0:.1f} s")
     counts = {}
     paged_reqs = mixed_requests(cfg)
-    counts["paged"] = serve(eng, paged_reqs, cfg, "paged",
-                            moe_expect(cfg, "decode_attention_paged"))
+    expect = moe_expect(cfg, "decode_attention_paged")
+    counts["paged"] = serve(eng, paged_reqs, cfg, "paged", expect)
     eng.kv.check_invariants()
     pool = (eng.kv.pool.num_blocks, eng.kv.block_size)
     print(f"[paged] paging_stats {json.dumps(eng.paging_stats())}")
     profile_decode(eng, np.random.RandomState(5), cfg, "paged")
     params = eng.params
-    del eng
+    eager = ServingEngine(cfg, params=params, num_slots=8, max_context=1024,
+                          kv_layout="paged", dtype=torch.bfloat16, seed=0,
+                          decode_graph=False)
+    against_eager("paged", eng, eager, cfg, paged_reqs,
+                  lambda: mixed_requests(cfg), expect,
+                  forced_prompts(cfg.vocab_size))
+    eager.kv.check_invariants()
+    profile_decode(eager, np.random.RandomState(5), cfg, "paged eager")
+    paged_eng = eng
+    del eager
     torch.cuda.empty_cache()
 
     eng = ServingEngine(cfg, params=params, num_slots=8, max_context=1024,
                         dtype=torch.bfloat16, seed=0)
     dense_reqs = mixed_requests(cfg)
-    counts["serve"] = serve(eng, dense_reqs, cfg, "serve",
-                            moe_expect(cfg, "decode_attention"))
+    expect = moe_expect(cfg, "decode_attention")
+    counts["serve"] = serve(eng, dense_reqs, cfg, "serve", expect)
     print(f"[serve] (decode_attention {cfg.num_layers} per decode step)")
     profile_decode(eng, np.random.RandomState(5), cfg, "serve")
     profile_prefill(eng, np.random.RandomState(8).randint(
         0, cfg.vocab_size, size=(8, 300)), "serve")
-    del eng
-    torch.cuda.empty_cache()
+    eager = ServingEngine(cfg, params=params, num_slots=8, max_context=1024,
+                          dtype=torch.bfloat16, seed=0, decode_graph=False)
+    against_eager("serve", eng, eager, cfg, dense_reqs,
+                  lambda: mixed_requests(cfg), expect,
+                  forced_prompts(cfg.vocab_size))
+    profile_decode(eager, np.random.RandomState(5), cfg, "serve eager")
     greedy = [(a, b) for i, (a, b) in enumerate(zip(dense_reqs, paged_reqs))
               if i % 2 == 0]
     sampled = [(a, b) for i, (a, b) in enumerate(zip(dense_reqs, paged_reqs))
@@ -1495,23 +1630,22 @@ def phase_serve():
     print(f"[paged] pool {pool[0]} pages of {pool[1]}: all {len(greedy)} "
           f"greedy requests give the dense run's tokens; {same}/"
           f"{len(sampled)} sampled requests match too")
-    compare_decode({
-        "dense": ServingEngine(cfg, params=params, num_slots=8,
-                               max_context=1024, dtype=torch.bfloat16),
-        "paged": ServingEngine(cfg, params=params, num_slots=8,
-                               max_context=1024, kv_layout="paged",
-                               dtype=torch.bfloat16)}, cfg)
+    compare_decode({"graph": eng, "eager": eager, "paged": paged_eng}, cfg)
+    del eng, eager, paged_eng
     torch.cuda.empty_cache()
 
     # paged, under pressure: a shared system prompt and a pool that must
     # preempt
-    eng = ServingEngine(cfg, params=params, num_slots=8, max_context=1024,
-                        kv_layout="paged", kv_block_size=32,
-                        kv_num_blocks=PRESSURE_BLOCKS,
-                        dtype=torch.bfloat16, seed=0)
+    def pressure_engine(**kw):
+        return ServingEngine(cfg, params=params, num_slots=8,
+                             max_context=1024, kv_layout="paged",
+                             kv_block_size=32, kv_num_blocks=PRESSURE_BLOCKS,
+                             dtype=torch.bfloat16, seed=0, **kw)
+
+    eng = pressure_engine()
     reqs = pressure_requests(cfg.vocab_size)
-    counts["pressure"] = serve(eng, reqs, cfg, "pressure",
-                               moe_expect(cfg, "decode_attention_paged"))
+    expect = moe_expect(cfg, "decode_attention_paged")
+    counts["pressure"] = serve(eng, reqs, cfg, "pressure", expect)
     eng.kv.check_invariants()
     ps = eng.paging_stats()
     print(f"[pressure] paging_stats {json.dumps(ps)}")
@@ -1525,16 +1659,31 @@ def phase_serve():
     print(f"[pressure] {ps['preemptions']} preemptions, prefix hit rate "
           f"{ps['prefix_hit_rate']:.3f}, invariants hold, every page "
           "free or reclaimable at the end")
-    del eng, params
+    eager = pressure_engine(decode_graph=False)
+    # a new shared prefix: admission counts parked prefix pages both as
+    # free and as hits, so prompts on the parked one can over-commit the
+    # pool (ROADMAP Queue 3)
+    against_eager("pressure", eng, eager, cfg, reqs,
+                  lambda: pressure_requests(cfg.vocab_size), expect,
+                  forced_prompts(cfg.vocab_size, shared=np.random.RandomState(
+                      14).randint(0, cfg.vocab_size, size=256)))
+    if eager.paging_stats() != eng.paging_stats():
+        fail(f"pressure: eager paging_stats {eager.paging_stats()} differ "
+             f"from the graph run's {eng.paging_stats()}")
+    print("[pressure] the eager engine's paging counters equal the graph "
+          "engine's")
+    for e in (eng, eager):
+        e.kv.check_invariants()
+    del eng, eager, params
     torch.cuda.empty_cache()
     return counts
 
 
 def compare_decode(engines, cfg, steps: int = 8, rounds: int = 2) -> None:
-    """Paired decode-step wall time of two engines on the same host: they
-    take turns A, B, B, A in each round, each turn 8 slots at 300-token
-    prompts decoding ``steps`` steps, so a drift of the host's speed
-    weighs on both alike."""
+    """Paired decode-step wall time of engines on the same host: they take
+    turns A, B, ..., ..., B, A in each round, each turn 8 slots at
+    300-token prompts decoding ``steps`` steps, so a drift of the host's
+    speed weighs on all alike."""
     names = list(engines)
     times = {name: [] for name in names}
     for _ in range(rounds):
@@ -1552,13 +1701,14 @@ def compare_decode(engines, cfg, steps: int = 8, rounds: int = 2) -> None:
             times[name].append((time.perf_counter() - t0) * 1e3 / steps)
             eng.run()
     med = {name: float(np.median(t)) for name, t in times.items()}
-    print(f"[compare] decode step ms, turns {'/'.join(names)} alternating: "
-          + json.dumps({"median": med, "turns": times}))
+    print(f"[compare {cfg.name}] decode step ms, turns {'/'.join(names)} "
+          "alternating: " + json.dumps({"median": med, "turns": times}))
 
 
 def phase_serve_xlstm():
     """The xLSTM path: full xlstm-1.3b, every mLSTM layer through the
-    mLSTM scan kernel at prefill and decode."""
+    mLSTM scan kernel at prefill and decode, with the decode graph; held
+    against an eager engine on the same weights and timed beside it."""
     cfg = get_config("xlstm-1.3b")
     t0 = time.perf_counter()
     eng = ServingEngine(cfg, num_slots=8, max_context=1024,
@@ -1573,15 +1723,26 @@ def phase_serve_xlstm():
           f"{n_params / 1e9:.3f} B params drawn in bf16 on the card in "
           f"{time.perf_counter() - t0:.1f} s (ModelConfig.num_params() "
           f"says {cfg.num_params() / 1e9:.3f} B)")
-    counts = serve(eng, mixed_requests(cfg), cfg, "xlstm",
-                   lambda st: {"mlstm_scan": n_m * (st.steps
-                                                    + st.prefill_calls)})
+    reqs = mixed_requests(cfg)
+
+    def expect(st):
+        return {"mlstm_scan": n_m * (st.steps + st.prefill_calls)}
+
+    counts = serve(eng, reqs, cfg, "xlstm", expect)
     print(f"[xlstm] (mlstm_scan {n_m} per decode step and per prefill "
           "call)")
     profile_decode(eng, np.random.RandomState(5), cfg, "xlstm")
     profile_prefill(eng, np.random.RandomState(8).randint(
         0, cfg.vocab_size, size=(1, 600)), "xlstm")
-    del eng
+    eager = ServingEngine(cfg, params=eng.params, num_slots=8,
+                          max_context=1024, dtype=torch.bfloat16, seed=0,
+                          decode_graph=False)
+    against_eager("xlstm", eng, eager, cfg, reqs,
+                  lambda: mixed_requests(cfg), expect,
+                  forced_prompts(cfg.vocab_size))
+    profile_decode(eager, np.random.RandomState(5), cfg, "xlstm eager")
+    compare_decode({"graph": eng, "eager": eager}, cfg)
+    del eng, eager
     torch.cuda.empty_cache()
     return counts
 
@@ -1601,7 +1762,9 @@ def phase_serve_hybrid():
     """The hybrid path: full recurrentgemma-9b, every RG-LRU layer through
     the RG-LRU scan kernel at prefill and decode, every local-attention
     layer through the flash kernel at prefill and the plain ring SDPA at
-    decode."""
+    decode, with the decode graph; held against an eager engine on the
+    same weights (the teacher-forced prompts include one whose ring wraps
+    during the steps) and timed beside it."""
     cfg = get_config("recurrentgemma-9b")
     t0 = time.perf_counter()
     eng = ServingEngine(cfg, num_slots=8, max_context=4096,
@@ -1617,16 +1780,31 @@ def phase_serve_hybrid():
           f"{cfg.vocab_size}; {n_params / 1e9:.3f} B params drawn in bf16 on "
           f"the card in {time.perf_counter() - t0:.1f} s "
           f"(ModelConfig.num_params() says {cfg.num_params() / 1e9:.3f} B)")
-    counts = serve(eng, hybrid_requests(cfg), cfg, "hybrid",
-                   lambda st: {"rg_lru_scan": n_rec * (st.steps
-                                                       + st.prefill_calls),
-                               "flash_attention": n_attn * st.prefill_calls})
+    reqs = hybrid_requests(cfg)
+
+    def expect(st):
+        return {"rg_lru_scan": n_rec * (st.steps + st.prefill_calls),
+                "flash_attention": n_attn * st.prefill_calls}
+
+    counts = serve(eng, reqs, cfg, "hybrid", expect)
     print(f"[hybrid] (rg_lru_scan {n_rec} per decode step and per prefill "
           f"call, flash_attention {n_attn} per prefill call)")
     profile_decode(eng, np.random.RandomState(5), cfg, "hybrid")
     profile_prefill(eng, np.random.RandomState(8).randint(
         0, cfg.vocab_size, size=(1, 3000)), "hybrid")
-    del eng
+    eager = ServingEngine(cfg, params=eng.params, num_slots=8,
+                          max_context=4096, dtype=torch.bfloat16, seed=0,
+                          decode_graph=False)
+    prompts = forced_prompts(cfg.vocab_size)
+    # positions 2043.. of a 2044-token prompt: its 2048-slot ring wraps at
+    # the sixth teacher-forced step
+    prompts[-1] = list(np.random.RandomState(13).randint(
+        0, cfg.vocab_size, size=2044))
+    against_eager("hybrid", eng, eager, cfg, reqs,
+                  lambda: hybrid_requests(cfg), expect, prompts)
+    profile_decode(eager, np.random.RandomState(5), cfg, "hybrid eager")
+    compare_decode({"graph": eng, "eager": eager}, cfg)
+    del eng, eager
     torch.cuda.empty_cache()
     return counts
 
@@ -1642,8 +1820,10 @@ OWN_KERNELS = ("decode_attention_split_kernel",
 def profile_decode(eng, rng, cfg, path: str, steps: int = 3) -> None:
     """Where a steady decode step's time goes: the wall time of ``steps``
     plain decode steps, then the same number under torch.profiler for the
-    device time by kernel; the idle share is 1 - kernel time / plain wall
-    time (one stream, so kernels do not overlap)."""
+    device time by kernel (the profiler's device events include the
+    kernels a graph replay launches); the idle share is 1 - kernel time /
+    plain wall time (one stream, so kernels do not overlap). Also counts
+    the host's ``cudaGraphLaunch`` and ``cudaLaunchKernel`` calls."""
     for _ in range(eng.num_slots):
         eng.submit(Request(prompt=list(rng.randint(0, cfg.vocab_size,
                                                    size=300)),
@@ -1667,11 +1847,32 @@ def profile_decode(eng, rng, cfg, path: str, steps: int = 3) -> None:
             us, n = per_kernel.get(e.name, (0.0, 0))
             per_kernel[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy_ms = sum(us for us, _ in per_kernel.values()) / 1e3 / steps
-    print(f"[profile {path}] decode step, 8 slots at ~300-token contexts: "
-          f"wall "
+    if busy_ms <= 0:
+        fail(f"profile {path}: the profiler recorded no kernel on the card")
+    host_calls = {name: sum(e.name == name for e in prof.events()) / steps
+                  for name in ("cudaGraphLaunch", "cudaLaunchKernel")}
+    # the card's idle time inside the window: short gaps between device
+    # ops (launch latency) apart from long ones (the host between steps)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    gaps = [b[0] - a[1] for a, b in zip(spans, spans[1:])]
+    row = dict(wall_ms=wall_ms, kernel_ms=busy_ms,
+               device_ops=sum(n for _, n in per_kernel.values()) // steps,
+               idle=max(0.0, 1 - busy_ms / wall_ms), **host_calls,
+               gaps_under_50us_ms=sum(g for g in gaps if 0 < g < 50)
+               / 1e3 / steps,
+               gaps_over_50us_ms=sum(g for g in gaps if g >= 50)
+               / 1e3 / steps)
+    print(f"[profile {path}] decode step, 8 slots at ~300-token contexts, "
+          f"graph {'on' if eng.decode_graph else 'off'}: wall "
           f"{wall_ms:.2f} ms/step, kernels {busy_ms:.2f} ms/step "
-          f"({sum(n for _, n in per_kernel.values()) // steps} launches), "
-          f"device idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
+          f"({row['device_ops']} device ops), device idle share "
+          f"{row['idle']:.3f}; per step {host_calls['cudaGraphLaunch']:g} "
+          f"cudaGraphLaunch, {host_calls['cudaLaunchKernel']:g} "
+          f"cudaLaunchKernel; gaps between device ops "
+          f"{row['gaps_under_50us_ms']:.2f} ms/step under 50 us, "
+          f"{row['gaps_over_50us_ms']:.2f} over " + json.dumps(row))
     # the ten largest, then the repo's own kernels that fall below them
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
     for i, (name, (us, n)) in enumerate(ranked):

@@ -91,10 +91,10 @@ __global__ void __launch_bounds__(kThreads)
                       const float* __restrict__ v,
                       const float* __restrict__ ig,
                       const float* __restrict__ lf,
-                      const float* __restrict__ C0,
+                      const float* C0,  // may be C1: see repro_mlstm_scan
                       const float* __restrict__ n0,
                       const float* __restrict__ m0, float* __restrict__ h,
-                      float* __restrict__ C1, float* __restrict__ n1,
+                      float* C1, float* __restrict__ n1,
                       float* __restrict__ m1, int S, int D, int row_blocks) {
   extern __shared__ float smem[];
   float* qs = smem;                            // [kSteps][D]
@@ -722,8 +722,11 @@ cudaError_t launch_chunkwise(const float* q, const float* k, const float* v,
 }  // namespace
 
 // f32, contiguous: q/k/v [BH,S,D]; ig/lf [BH,S]; C0 [BH,D,D]; n0 [BH,D];
-// m0 [BH]; outputs h [BH,S,D], C1 [BH,D,D], n1 [BH,D], m1 [BH], none of
-// them aliasing an input.
+// m0 [BH]; outputs h [BH,S,D], C1 [BH,D,D], n1 [BH,D], m1 [BH]. C1 may be
+// C0 (the decode step updates its state in place): each thread reads its
+// entries of C0 into registers before it writes them, and no other thread
+// touches them. No other output aliases an input (every block reads n0 and
+// m0, one writes n1 and m1).
 extern "C" int repro_mlstm_scan(const void* q, const void* k, const void* v,
                                 const void* ig, const void* lf,
                                 const void* C0, const void* n0,

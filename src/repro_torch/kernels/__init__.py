@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, one package each:
 ``kernel.py`` launches the CUDA source in ``repro_torch/csrc``, ``ref.py``
 is the plain PyTorch version of the same function, and ``ops.py`` is the
-public wrapper that dispatches by the tensor's device and counts launches.
+public wrapper that dispatches by the tensor's device and counts launches
+(a CUDA graph's replays are added by ``runtime/decode_graph.py``).
 """
 from __future__ import annotations
 
@@ -68,3 +69,11 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _ops().values():
         fn.launches = 0
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` to the wrappers' launch counts: a CUDA graph's replay
+    launches the kernels it captured without passing through them."""
+    ops = _ops()
+    for name, n in counts.items():
+        ops[name].launches += n

@@ -26,8 +26,8 @@ def record_numel(BH: int, S: int) -> int:
 
 def mlstm_scan_cuda(q, k, v, i_gate, log_f, C0, n0, m0, h, C, n, m) -> None:
     """The recurrent kernel, on the current stream. q/k/v/h [B,H,S,D];
-    i_gate/log_f [B,H,S]; C0/C [B,H,D,D]; n0/n [B,H,D]; m0/m [B,H] —
-    contiguous f32 CUDA tensors, checked by the caller."""
+    i_gate/log_f [B,H,S]; C0/C [B,H,D,D] (C may be C0); n0/n [B,H,D];
+    m0/m [B,H] — contiguous f32 CUDA tensors, checked by the caller."""
     B, H, S, D = q.shape
     build.call("repro_mlstm_scan", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                i_gate.data_ptr(), log_f.data_ptr(), C0.data_ptr(),

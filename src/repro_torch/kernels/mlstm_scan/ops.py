@@ -24,7 +24,7 @@ def route(S: int) -> str:
     return "chunkwise" if S >= CHUNKWISE_MIN_S else "recurrent"
 
 
-def mlstm_scan(q, k, v, i_gate, log_f, C0, n0, m0):
+def mlstm_scan(q, k, v, i_gate, log_f, C0, n0, m0, c_in_place=False):
     """q,k,v: [B,H,S,D] f32; i_gate/log_f: [B,H,S] f32; C0: [B,H,D,D];
     n0: [B,H,D]; m0: [B,H] (f32 state) -> (h [B,H,S,D], C, n, m).
 
@@ -33,9 +33,17 @@ def mlstm_scan(q, k, v, i_gate, log_f, C0, n0, m0):
     the oracle, the kernels mask instead. D is at most ``kernel.MAX_D``;
     the chunkwise route (S >= ``CHUNKWISE_MIN_S``) also needs 16-byte
     aligned operands and D % 4 == 0.
+
+    ``c_in_place`` writes the final C over C0 and returns C0 itself (the
+    decode step's state stays in its tensor, with no copy of C's D^2
+    values per head). Only the recurrent route takes it: each of its
+    threads reads its entries of C0 before it writes them.
     """
     if q.device.type == "cpu":
-        return mlstm_scan_ref(q, k, v, i_gate, log_f, C0, n0, m0)
+        h, C, n, m = mlstm_scan_ref(q, k, v, i_gate, log_f, C0, n0, m0)
+        if c_in_place:
+            C = C0.copy_(C)
+        return h, C, n, m
     B, H, S, D = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("q, k and v differ in shape")
@@ -49,8 +57,12 @@ def mlstm_scan(q, k, v, i_gate, log_f, C0, n0, m0):
     if q.dtype != torch.float32:
         raise TypeError(f"mlstm_scan runs in float32, got {q.dtype}")
     check_cuda_operands("mlstm_scan", q, k, v, i_gate, log_f, C0, n0, m0)
+    if c_in_place and route(S) != "recurrent":
+        raise ValueError(f"c_in_place needs the recurrent route (S < "
+                         f"{CHUNKWISE_MIN_S}), got S={S}")
     h = torch.empty_like(q)
-    C, n, m = torch.empty_like(C0), torch.empty_like(n0), torch.empty_like(m0)
+    C = C0 if c_in_place else torch.empty_like(C0)
+    n, m = torch.empty_like(n0), torch.empty_like(m0)
     if route(S) == "chunkwise":
         rec = torch.empty(kernel.record_numel(B * H, S), dtype=torch.float32,
                           device=q.device)

@@ -82,9 +82,12 @@ def _heads_first(x):
     return x.transpose(1, 2).float().contiguous()
 
 
-def mlstm_apply(params, cfg: ModelConfig, x, state=None):
+def mlstm_apply(params, cfg: ModelConfig, x, state=None,
+                c_in_place: bool = False):
     """Full-sequence (or, with S = 1, decode) mLSTM block through the
-    ``mlstm_scan`` op. x: [B,S,M] -> (y, final_state)."""
+    ``mlstm_scan`` op. x: [B,S,M] -> (y, final_state). ``c_in_place``
+    writes the final matrix state over ``state["C"]`` (S below the scan's
+    ``CHUNKWISE_MIN_S``), which the returned state then holds."""
     B, S, M = x.shape
     u, z = dense_apply(params["up"], x).chunk(2, dim=-1)
     if state is None:
@@ -97,7 +100,7 @@ def mlstm_apply(params, cfg: ModelConfig, x, state=None):
         _heads_first(q), _heads_first(k), _heads_first(v),
         _heads_first(it), _heads_first(log_f),
         state["C"].contiguous(), state["n"].contiguous(),
-        state["m"].contiguous())
+        state["m"].contiguous(), c_in_place=c_in_place)
     final = {"C": C, "n": n, "m": m, "conv": conv_state}
     h = h4.transpose(1, 2).reshape(B, S, -1).to(x.dtype)   # [B,S,d_inner]
     h = rmsnorm_apply(params["out_norm"], h, cfg.norm_eps)
@@ -107,8 +110,11 @@ def mlstm_apply(params, cfg: ModelConfig, x, state=None):
 
 
 def mlstm_step(params, cfg: ModelConfig, x, state):
-    """Single-token decode. x: [B,1,M]."""
-    return mlstm_apply(params, cfg, x, state)
+    """Single-token decode, x: [B,1,M]. C is updated in place (8 slots of
+    xlstm-1.3b hold 128 MiB of it per layer, which a captured decode step
+    would otherwise copy back every step); n, m and the conv tail come
+    back new."""
+    return mlstm_apply(params, cfg, x, state, c_in_place=True)
 
 
 # ---------------------------------------------------------------------------

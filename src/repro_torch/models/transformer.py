@@ -9,7 +9,8 @@ Parameters are nested dicts of tensors with the JAX package's nesting
 (``embed.embedding``, ``layers[i].attn.wq.{kernel,bias}``,
 ``layers[i].moe.{router,experts,shared}``, ...), so the JAX ``Model.init``
 tree converts one to one (``repro_torch.bridge``). Layers run as a Python
-loop, eagerly; there is no jit counterpart.
+loop; the serving engine captures its whole decode step as a CUDA graph
+(``runtime/decode_graph.py``), the counterpart of the reference's jit.
 
 Execution modes:
   prefill()      full-sequence + cache fill
@@ -131,7 +132,11 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, positions, cache,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     if kind in ("mlstm", "slstm"):
-        fn = ssm_lib.mlstm_apply if kind == "mlstm" else ssm_lib.slstm_apply
+        if kind == "slstm":
+            fn = ssm_lib.slstm_apply
+        else:   # decode updates C in place
+            fn = ssm_lib.mlstm_step if mode == "decode" else \
+                ssm_lib.mlstm_apply
         if cache is None:
             cache = init_layer_cache(cfg, kind, x.shape[0], 0,
                                      device=x.device)
@@ -256,9 +261,9 @@ class Model:
         max_blocks], optional) is the paged-KV page map; one table serves
         every attention layer, since page p of each layer's pool belongs
         to the same logical block, so the step's page addresses are worked
-        out once here. None = dense. The caches' K/V rows are
-        written in place; the returned list holds the advanced indices
-        and the new recurrent states."""
+        out once here. None = dense. The caches' K/V rows and the mLSTM
+        matrix states are written in place; the returned list holds the
+        advanced indices and the other new recurrent states."""
         cfg = self.cfg
         x = embedding_apply(params["embed"], tokens.to(self.device),
                             self.dtype)

@@ -1,0 +1,229 @@
+"""The engine's decode step, run eagerly or replayed as a CUDA graph: the
+port's counterpart of the reference's jitted decode
+(``self._decode_jit = jax.jit(self._decode_step, static_argnames=...)``,
+``repro/runtime/engine.py:339``).
+
+``decode_step`` is the step: ``Model.decode_step`` over every slot, the
+commit of the new states into the KV manager's own tensors, sampling, and
+the next tokens written back into the token buffer. It reads its inputs
+from static buffers and rebinds nothing, so every address it touches
+stays fixed and a CUDA graph captures it as it is. The engine runs the
+same function eagerly when the graph is off and on the CPU, so the CPU
+tests cover what the card captures.
+
+``DecodeGraphs`` keeps one captured graph per ``GraphKey``. A replay does
+not pass through the kernels' Python wrappers, so it adds the launches its
+capture made to their counts (``kernels.add_launch_counts``); the warm-up
+and capture calls themselves are taken back out of the counts.
+"""
+from __future__ import annotations
+
+import time
+from contextlib import contextmanager
+from functools import partial
+from typing import Any, Callable, Dict, Iterable, NamedTuple, Tuple
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.runtime.sampler import sample
+
+
+class GraphKey(NamedTuple):
+    """The static key of one captured decode step, laid out like the
+    reference's ``static_argnames`` ("plan", "use_topk", "placement",
+    "cap_scale", "collect_stats"). The port has no planner, placement or
+    MoE statistics yet (ROADMAP Queue 1 items 3, 4 and 7), so it mirrors
+    ``use_topk`` only; those items add their fields here."""
+
+    use_topk: bool
+
+
+#: every key the port's engine asks for
+GRAPH_KEYS = (GraphKey(use_topk=False), GraphKey(use_topk=True))
+
+
+class StagedBuffer:
+    """A device tensor at a fixed address, filled from a host mirror that
+    is pinned on a CUDA device, so that the copy does not wait. The next
+    ``load`` waits for the previous copy before it rewrites the mirror."""
+
+    def __init__(self, shape, dtype, device: torch.device):
+        cuda = device.type == "cuda"
+        self.tensor = torch.zeros(shape, dtype=dtype, device=device)
+        self._host = torch.zeros(shape, dtype=dtype, pin_memory=cuda)
+        self._host_np = self._host.numpy()
+        self._copied = torch.cuda.Event() if cuda else None
+
+    def load(self, values) -> torch.Tensor:
+        """Copy ``values`` (a list, an array or a CPU tensor of the
+        buffer's shape) into the device tensor, which it returns."""
+        if isinstance(values, torch.Tensor):
+            values = values.numpy()
+        if self._copied is not None:
+            self._copied.synchronize()
+        self._host_np[...] = values
+        self.tensor.copy_(self._host, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()
+        return self.tensor
+
+
+def commit_states(caches, new_caches) -> None:
+    """End a step in the KV manager's own tensors: copy each tensor the
+    step returned anew (attention indices, sLSTM and RG-LRU states, conv
+    tails, the mLSTM n and m) into the one it replaces. K/V rows and the
+    mLSTM matrix state C are written in place, so they are the same
+    tensors and are not copied."""
+    for old, new in zip(caches, new_caches):
+        for name, t in old.items():
+            if new[name] is not t:
+                t.copy_(new[name])
+
+
+def decode_step(model, params, caches, tokens, lengths, table, temps,
+                top_ks, generator, use_topk: bool):
+    """One engine decode step over every slot. ``tokens`` ([N, 1] int64),
+    ``lengths`` ([N] int32), ``table`` (int32 [N, max_blocks] under paged
+    KV, else None), ``temps`` and ``top_ks`` are the engine's static
+    buffers; the step reads no value on the host and ends with the states
+    in ``caches``' own tensors and the sampled tokens in ``tokens``.
+    Returns (next tokens int64 [N], logits [N, 1, V])."""
+    logits, new_caches = model.decode_step(params, tokens, caches,
+                                           lengths=lengths,
+                                           block_tables=table)
+    commit_states(caches, new_caches)
+    nxt = sample(generator, logits[:, -1], temps,
+                 top_ks if use_topk else 0)
+    tokens.copy_(nxt[:, None])
+    return nxt, logits
+
+
+def bind_step(model, params, kv, tokens, lengths, temps, top_ks,
+              generator, paged: bool) -> Callable[["GraphKey"], Tuple]:
+    """``decode_step`` bound to one engine's model, KV manager and static
+    buffers, as a function of the key: what a graph captures and what the
+    eager path runs. It holds no reference to the engine, so an engine
+    with graphs is freed as soon as it is dropped (through a reference
+    cycle its weights and caches would stay on the card until the garbage
+    collector ran)."""
+    def step(key: GraphKey):
+        table = kv.table_array() if paged else None
+        return decode_step(model, params, kv.caches, tokens, lengths, table,
+                           temps, top_ks, generator, key.use_topk)
+    return step
+
+
+class CudaGraph:
+    """One CUDA graph of an engine's decode step. An engine's graphs share
+    one memory pool and one capture stream, and the sampling generator is
+    registered with each, so that a replay draws as the eager step
+    would."""
+
+    def __init__(self, pool, stream: torch.cuda.Stream,
+                 generator: torch.Generator):
+        self._graph = torch.cuda.CUDAGraph()
+        self._pool = pool
+        self._stream = stream
+        self._generator = generator
+
+    def capture(self, fn: Callable[[], Any]) -> Any:
+        self._graph.register_generator_state(self._generator)
+        with torch.cuda.graph(self._graph, pool=self._pool,
+                              stream=self._stream):
+            out = fn()
+        return out
+
+    def replay(self) -> None:
+        self._graph.replay()
+
+
+class _Captured(NamedTuple):
+    graph: Any
+    outputs: Tuple
+    launches: Dict[str, int]     # kernel launches of one replay
+
+
+@contextmanager
+def _uncounted():
+    """Take the kernel launches made in the block back out of the
+    wrappers' counts; the dict it yields holds them after the block."""
+    before = kernels.launch_counts()
+    made: Dict[str, int] = {}
+    try:
+        yield made
+    finally:
+        after = kernels.launch_counts()
+        made.update({name: after[name] - before[name] for name in after})
+        kernels.add_launch_counts({name: -n for name, n in made.items()})
+
+
+class DecodeGraphs:
+    """The captured decode steps of one engine, one per key. ``step(key)``
+    runs the step and returns its outputs; ``new_graph()`` makes an object
+    with ``capture(fn)`` (records ``fn`` and returns its outputs) and
+    ``replay()``: ``CudaGraph`` on the card. ``stream`` is the capture
+    stream, where the warm-up runs too. ``stats`` (the engine's
+    ``EngineStats``) counts captures, replays and their set-up time.
+
+    A key is captured at its first call and replayed from then on, that
+    call included. A capture that fails raises: there is no eager retry.
+    """
+
+    def __init__(self, step: Callable[[GraphKey], Tuple],
+                 new_graph: Callable[[], Any], stats,
+                 stream: torch.cuda.Stream = None):
+        self._step = step
+        self._new_graph = new_graph
+        self._stream = stream
+        self.stats = stats
+        self.graphs: Dict[GraphKey, _Captured] = {}
+
+    @contextmanager
+    def _on_capture_stream(self):
+        if self._stream is None:
+            yield
+            return
+        current = torch.cuda.current_stream()
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            yield
+        current.wait_stream(self._stream)
+
+    def warm_up(self, keys: Iterable[GraphKey]) -> None:
+        """Run each key's step once, eagerly, on the capture stream, as
+        PyTorch asks before a capture: the first calls build and load the
+        kernel library and create the libraries' handles and workspaces.
+        The launches are not counted. The step changes the state it runs
+        on, so the caller runs this on state that it then drops."""
+        t0 = time.perf_counter()
+        with _uncounted(), self._on_capture_stream():
+            for key in keys:
+                self._step(key)
+        self._sync()
+        self.stats.graph_s += time.perf_counter() - t0
+
+    def __call__(self, key: GraphKey) -> Tuple:
+        captured = self.graphs.get(key)
+        if captured is None:
+            captured = self._capture(key)
+        captured.graph.replay()
+        kernels.add_launch_counts(captured.launches)
+        self.stats.graph_replays += 1
+        return captured.outputs
+
+    def _capture(self, key: GraphKey) -> _Captured:
+        t0 = time.perf_counter()
+        graph = self._new_graph()
+        with _uncounted() as launches:
+            outputs = graph.capture(partial(self._step, key))
+        captured = _Captured(graph, outputs, launches)
+        self.graphs[key] = captured
+        self.stats.graph_captures += 1
+        self._sync()
+        self.stats.graph_s += time.perf_counter() - t0
+        return captured
+
+    def _sync(self) -> None:
+        if self._stream is not None:
+            torch.cuda.synchronize(self._stream.device)

@@ -10,15 +10,19 @@ batch/KV runtime objects. Each iteration is
   3. under ``kv_layout="paged"``, a tail page for every live slot's next
      KV write, preempting the cheapest-to-recompute slot when the pool is
      exhausted;
-  4. one ``model.decode_step`` over the full slot batch, with per-slot
-     temperature/top-k sampling; finished slots are evicted.
+  4. one decode step over the full slot batch (``runtime/decode_graph``:
+     ``Model.decode_step``, per-slot temperature/top-k sampling), fed from
+     static buffers; finished slots are evicted.
 
-The engine runs eagerly on one device with ``moe_impl="capacity"``, over
-dense or paged KV (``runtime/paging.py``); recurrent (ssm and hybrid)
-models keep per-slot states and prefill by exact prompt length. The planner
-(``PlanCache`` and policies), expert placement, profiling and
-observability are ROADMAP items of later slices and are not accepted as
-arguments.
+On a CUDA device the decode step is a CUDA graph, captured once per
+static key and replayed at every step: the counterpart of the reference's
+jitted decode. ``decode_graph=False`` runs the same step function eagerly
+(the CPU always does). The engine runs on one device with
+``moe_impl="capacity"``, over dense or paged KV (``runtime/paging.py``);
+recurrent (ssm and hybrid) models keep per-slot states and prefill by
+exact prompt length. The planner (``PlanCache`` and policies), expert
+placement, profiling and observability are ROADMAP items of later slices
+and are not accepted as arguments.
 """
 from __future__ import annotations
 
@@ -33,10 +37,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import build_model
 from repro_torch.models.transformer import ExecutionContext
 from repro_torch.runtime.batching import BatchScheduler, PrefillGroup, StepPlan
+from repro_torch.runtime.decode_graph import (GRAPH_KEYS, CudaGraph,
+                                              DecodeGraphs, GraphKey,
+                                              StagedBuffer, bind_step)
 from repro_torch.runtime.kv import KVCacheManager
 from repro_torch.runtime.paging import PagedKVCacheManager
 from repro_torch.runtime.request import Request, RequestState
-from repro_torch.runtime.sampler import sample
 from repro_torch.sched.occupancy import bucket_length
 
 
@@ -49,6 +55,12 @@ class EngineStats:
     # wall time of the model calls, each ending in a device sync
     prefill_s: float = 0.0
     decode_s: float = 0.0
+    # CUDA graphs of the decode step: captures (at most one per key) and
+    # replays (one per decode step), and the wall time of the warm-up and
+    # the captures (a capture runs inside its step, so also in decode_s)
+    graph_captures: int = 0
+    graph_replays: int = 0
+    graph_s: float = 0.0
 
 
 class ServingEngine:
@@ -59,7 +71,9 @@ class ServingEngine:
     positions (``kv_num_blocks`` pages, default the dense footprint)
     with prefix sharing, watermark admission (the manager's 0.90 / 0.75
     hysteresis) and preemption by recompute; it needs a full-attention
-    GQA dense or moe model."""
+    GQA dense or moe model. ``decode_graph`` runs the decode step as a
+    CUDA graph: None means on for a CUDA device and off on the CPU, True
+    on the CPU raises, False runs the step eagerly."""
 
     def __init__(self, cfg: ModelConfig, params=None, *, num_slots: int = 4,
                  max_context: int = 4096,
@@ -71,8 +85,14 @@ class ServingEngine:
                  kv_block_size: int = 32,
                  kv_num_blocks: Optional[int] = None,
                  dtype=torch.float32, seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 decode_graph: Optional[bool] = None):
         self.device = resolve_device(device)
+        cuda = self.device.type == "cuda"
+        if decode_graph and not cuda:
+            raise ValueError(f"decode_graph=True needs a CUDA device, not "
+                             f"{self.device}")
+        self.decode_graph = cuda if decode_graph is None else decode_graph
         self.cfg = cfg
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout={kv_layout!r}; "
@@ -118,9 +138,25 @@ class ServingEngine:
                                  device=self.device)
         self.top_ks = torch.zeros((num_slots,), dtype=torch.long,
                                   device=self.device)
+        self._lengths = StagedBuffer((num_slots,), torch.int32, self.device)
+        # the last decode step's logits [num_slots, 1, V] (a graph's own
+        # output buffer when the graph is on)
+        self.last_logits: Optional[torch.Tensor] = None
         self.waiting: List[Request] = []
         self.finished: List[Request] = []
         self.stats = EngineStats()
+        generator = self.generator
+        self._step = bind_step(self.model, self.params, self.kv,
+                               self.last_tokens, self._lengths.tensor,
+                               self.temps, self.top_ks, generator,
+                               self._paged)
+        self._graphs: Optional[DecodeGraphs] = None
+        if self.decode_graph:
+            stream = torch.cuda.Stream(self.device)
+            pool = torch.cuda.graph_pool_handle()
+            self._graphs = DecodeGraphs(
+                self._step, lambda: CudaGraph(pool, stream, generator),
+                self.stats, stream=stream)
 
     @property
     def caches(self):
@@ -140,10 +176,24 @@ class ServingEngine:
         req.finish_t = now
         self.finished.append(req)
 
+    def _ensure_caches(self) -> None:
+        """Make the caches; with the graph on, warm it up first: each key's
+        step runs once eagerly on caches that are then dropped for fresh
+        ones (nothing is live yet), and the token buffer and the sampling
+        generator are put back, so the warm-up leaves no trace."""
+        if self.kv.caches is None and self._graphs is not None:
+            self.kv.ensure_caches()
+            rng = self.generator.get_state()
+            self._graphs.warm_up(GRAPH_KEYS)
+            self.generator.set_state(rng)
+            self.last_tokens.zero_()
+            self.kv.caches = None
+        self.kv.ensure_caches()
+
     def _prefill_group(self, group: PrefillGroup):
         """Run one same-bucket group as one batched prefill and copy the
         rows into the per-slot caches."""
-        self.kv.ensure_caches()
+        self._ensure_caches()
         if group.bucket == 0:
             # empty/single-token prompts: nothing to prefill, the (only)
             # prompt token is fed through the shared decode step
@@ -213,14 +263,19 @@ class ServingEngine:
             self._prefill_group(group)
         return step_plan
 
-    def _decode_step(self, lengths, use_topk: bool):
-        tables = self.kv.table_array() if self._paged else None
-        logits, caches = self.model.decode_step(
-            self.params, self.last_tokens, self.kv.caches, lengths=lengths,
-            block_tables=tables)
-        nxt = sample(self.generator, logits[:, -1], self.temps,
-                     self.top_ks if use_topk else 0)
-        return nxt[:, None], caches
+    def _decode_step(self, lengths, use_topk: bool) -> torch.Tensor:
+        """Copy this step's per-slot ``lengths`` (the KV ledger's, which
+        drive the attention mask and the ragged kernel's loop bound) and,
+        under paged KV, a changed block table into the static buffers, then
+        replay the key's graph or run the step eagerly. Returns the next
+        tokens [N]; they are also in ``last_tokens``."""
+        self._lengths.load(lengths)
+        if self._paged:
+            self.kv.table_array()      # copies the table if it changed
+        key = GraphKey(use_topk=use_topk)
+        run = self._graphs if self._graphs is not None else self._step
+        nxt, self.last_logits = run(key)
+        return nxt
 
     # ------------------------------------------------------------------
     # paged-KV capacity management
@@ -292,16 +347,11 @@ class ServingEngine:
                 # capacity actions (preempt/cap) happened; not idle
                 return True
         use_topk = any(r is not None and r.top_k > 0 for r in self.slots)
-        # the ledger's per-slot context lengths drive the attention mask
-        # AND the ragged kernel's loop bound (dead slots decode as len 0)
-        lengths = torch.as_tensor(self.kv.lengths(), dtype=torch.int32,
-                                  device=self.device)
         t0 = time.perf_counter()
-        nxt, new_caches = self._decode_step(lengths, use_topk)
-        toks = nxt[:, 0].tolist()          # waits for the device
+        # dead slots decode as length 0
+        nxt = self._decode_step(self.kv.lengths(), use_topk)
+        toks = nxt.tolist()                # waits for the device
         self.stats.decode_s += time.perf_counter() - t0
-        self.kv.caches = new_caches
-        self.last_tokens = nxt
         self.kv.note_decode(live)
         now = time.perf_counter()
         for i in live:

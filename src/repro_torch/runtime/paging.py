@@ -25,7 +25,8 @@ context. This module replaces that layout with fixed-size blocks
                      but each slot holds a block table (int row of
                      physical page ids) instead of a dense cache row.
                      ``table_array()`` is the int32 tensor the paged
-                     decode kernel reads its page chains from.
+                     decode kernel reads its page chains from (one
+                     tensor, refilled in place after a table change).
 
 The ledger (pool, prefix cache, tables, admission and watermarks) is a
 copy of the reference's and is held against it by the tests. The cache
@@ -56,6 +57,7 @@ import numpy as np
 
 import torch
 
+from repro_torch.runtime.decode_graph import StagedBuffer
 from repro_torch.runtime.kv import KVCacheManager
 from repro_torch.sched.occupancy import OccupancySummary
 
@@ -326,7 +328,11 @@ class PagedKVCacheManager(KVCacheManager):
         self._throttled = False
         self._tables = np.full((num_slots, self.max_blocks), -1, np.int32)
         self._nblk = [0] * num_slots         # allocated logical blocks/slot
-        self._table_dev = None               # tensor mirror, rebuilt on change
+        # the decode step's device table, one tensor for the manager's life
+        # (a captured step reads it in place), refilled after a change
+        self._table_buf = StagedBuffer(self._tables.shape, torch.int32,
+                                       self._device())
+        self._table_dirty = True
 
     # ------------------------------------------------------------------
     # pool pressure / watermarks
@@ -377,7 +383,7 @@ class PagedKVCacheManager(KVCacheManager):
             self._release_page(int(self._tables[slot, l]))
         self._tables[slot, :] = -1
         self._nblk[slot] = 0
-        self._table_dev = None
+        self._table_dirty = True
 
     # ------------------------------------------------------------------
     # slot lifecycle overrides
@@ -471,7 +477,7 @@ class PagedKVCacheManager(KVCacheManager):
         hit_tokens = sum(self.block_size for _, _, c in out if c)
         self.paging.prefix_hit_tokens += hit_tokens
         self.paging.prefix_miss_tokens += max(len(tokens) - hit_tokens, 0)
-        self._table_dev = None
+        self._table_dirty = True
         return out
 
     # ------------------------------------------------------------------
@@ -493,7 +499,7 @@ class PagedKVCacheManager(KVCacheManager):
         l = self._nblk[slot]
         self._tables[slot, l] = page
         self._nblk[slot] = l + 1
-        self._table_dev = None
+        self._table_dirty = True
         return True
 
     # ------------------------------------------------------------------
@@ -605,11 +611,12 @@ class PagedKVCacheManager(KVCacheManager):
 
     def table_array(self) -> torch.Tensor:
         """The [num_slots, max_blocks] int32 block table the decode
-        step's kernel reads (rebuilt only after a table change)."""
-        if self._table_dev is None:
-            self._table_dev = torch.from_numpy(self._tables.copy()).to(
-                self._device())
-        return self._table_dev
+        step's kernel reads: the same tensor at every call, refilled from
+        the host tables (pinned, asynchronously) only after they change."""
+        if self._table_dirty:
+            self._table_buf.load(self._tables)
+            self._table_dirty = False
+        return self._table_buf.tensor
 
     def merge_prefill(self, slots: Sequence[int], prefilled: List[Any],
                       lengths: Sequence[int],
@@ -647,7 +654,7 @@ class PagedKVCacheManager(KVCacheManager):
             self._nblk[slot] = l + 1
             out.append((l, page, False))
         self.paging.prefix_miss_tokens += max(n_prefill_tokens, 0)
-        self._table_dev = None
+        self._table_dirty = True
         return out
 
     def _scatter_prefill(self, slots, prefilled, lengths, assignments):
