@@ -47,6 +47,19 @@
               also over one batched prefill call of 8 x 300 tokens); a
               paired decode-step timing takes turns between the dense
               graph, dense eager and paged graph engines;
+     dep      the same model, weights and requests with the FinDEP
+              policy (PAPER_A6000 profile) and an NCCL expert group of
+              one rank: every MoE layer walks its plan's program (A2E /
+              EXP / E2A per (stream, chunk), all_to_all on a comm
+              stream); the expert GEMM must launch 24 x sum(r1·r2) of
+              each step's programs; graph against eager (greedy tokens,
+              11 teacher-forced steps bitwise), interleave "streams"
+              against "off" bitwise, one full-width layer against the
+              capacity path (bitwise where r2 = 1 and the shared expert
+              is one segment, else within GEMM_TOL); plans, captures per
+              key, a decode-step and a prefill profile, expert-GEMM ms
+              per launch at the chunk widths, and a paired timing of the
+              DEP graph engine against the capacity graph engine;
   5. xlstm    ServingEngine with the full xlstm-1.3b config (48 layers,
               42 mLSTM through the mLSTM scan kernels, 6 sLSTM): 16
               requests, 8 slots, max_context 1024, with the graph; held
@@ -62,8 +75,10 @@
               eager engine (a teacher-forced ring wraps) and timed beside
               it; profiled over 3 decode steps (graph and eager) and one
               3000-token prefill call;
-  7. report   one JSON line with every kernel's numbers, the card's name and
-              power limit, and as the last line {"ok": true, "device": ...}.
+  7. report   one JSON line with every kernel's numbers (launches from the
+              dep path for the kernels of qwen2-moe's dense KV), the
+              card's name and power limit, and as the last line
+              {"ok": true, "device": ...}.
 
 Any failure ends the run with a traceback and a non-zero exit. Without a
 CUDA device it exits non-zero and prints no result.
@@ -71,7 +86,8 @@ CUDA device it exits non-zero and prints no result.
 Run from the repository root:  python3 chip_smoke.py
 (``--no-serve`` stops after phase 3 and the ring check: a quick check of
 new kernels.) ``python3 tools/rehearse_chip_smoke.py`` runs phases 4-6
-on the CPU at smoke size, with a stand-in for the CUDA graph.
+on the CPU at smoke size, with a stand-in for the CUDA graph and a gloo
+expert group.
 """
 from __future__ import annotations
 
@@ -85,6 +101,7 @@ import shutil
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -97,6 +114,11 @@ from repro_torch import generator_for  # noqa: E402
 from repro_torch import kernels as kernel_lib  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs.base import DepClusterConfig  # noqa: E402
+from repro_torch.core.dep import DepGroups, moe_apply_dep  # noqa: E402
+from repro_torch.core.perf_model import PAPER_A6000  # noqa: E402
+from repro_torch.core.planner import FinDEPPlanner, PlannerConfig  # noqa: E402
+from repro_torch.core.taskgraph import ExecProgram, lower_exec  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as dec_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
@@ -117,8 +139,10 @@ from repro_torch.kernels.rg_lru import kernel as rglru_kernel  # noqa: E402
 from repro_torch.kernels.rg_lru.ops import rg_lru_scan  # noqa: E402
 from repro_torch.kernels.rg_lru.ref import rg_lru_scan_ref  # noqa: E402
 from repro_torch.models import ExecutionContext, build_model  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.runtime import Request, RequestState, ServingEngine  # noqa: E402
-from repro_torch.runtime.decode_graph import GRAPH_KEYS  # noqa: E402
+from repro_torch.runtime.engine import prefill_split  # noqa: E402
+from repro_torch.sched import FinDEPPolicy  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -180,32 +204,100 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-def device_ms(fn, kernel=None, iters: int = 10) -> float:
+def is_annotation(e) -> bool:
+    """A device event that marks a collective's span ("nccl:all_to_all")
+    over the copies or kernels it ran, not a kernel of its own."""
+    return e.name.startswith("nccl:")
+
+
+def device_events(prof):
+    """The profiler's device events: kernels, copies and sets, without
+    the collectives' span annotations."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not is_annotation(e)]
+
+
+#: device events per wrapper call of the repo's kernels, by the name
+#: filter ``device_ms`` is given: two launches for the expert GEMM (SwiGLU,
+#: then down) and decode attention (split, then combine), one otherwise
+PER_CALL = {"decode_attention_": 2, "decode_attention_split": 1,
+            "decode_attention_combine": 1, "moe_gemm_": 2,
+            "flash_attention_": 1, "mlstm_chunk_prep": 1,
+            "mlstm_chunk_scan": 1, "rg_lru_scan": 1}
+
+
+def trace_span(prof) -> str:
+    """Where a trace's device events lie against its host events (us from
+    the first host event): what a short trace lost."""
+    host = [e.time_range for e in prof.events()
+            if e.device_type != torch.autograd.DeviceType.CUDA]
+    dev = [e.time_range for e in device_events(prof)]
+    if not host or not dev:
+        return f"{len(host)} host and {len(dev)} device events"
+    t0 = min(r.start for r in host)
+    return (f"host events {0:.0f}..{max(r.end for r in host) - t0:.0f} us, "
+            f"device events {min(r.start for r in dev) - t0:.0f}.."
+            f"{max(r.end for r in dev) - t0:.0f} us")
+
+
+def device_ms(fn, kernel=None, iters: int = 10, per_call=None,
+              bound=None) -> float:
     """Mean device time per call of ``fn`` of the kernels whose name
     contains ``kernel`` (every device kernel of the call when ``kernel``
     is None), from torch.profiler: unlike ``time_ms`` it holds no host
-    time, which dominates a kernel of a few microseconds."""
+    time, which dominates a kernel of a few microseconds.
+
+    The profiler now and then drops device events, which reads short. So
+    a trace counts only when it holds every event: ``per_call`` (default
+    ``PER_CALL[kernel]``) matching events per call, or, where that is not
+    known (plain versions, library calls), a count that an earlier trace
+    of the same calls gave too. A short trace is taken again, six in
+    all; then the reading fails. A reading below ``bound`` (ms, the least
+    time the card could take) fails too."""
+    if per_call is None:
+        per_call = PER_CALL.get(kernel)
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(2):  # a trace now and then comes back empty: once more
+    seen = []
+    for _ in range(6):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and (kernel is None or kernel in e.name))
-        if us > 0:
-            return us / 1e3 / iters
-    fail(f"device_ms: the profiler recorded no {kernel or 'kernel'} on the "
-         "card")
+        events = [e for e in device_events(prof)
+                  if kernel is None or kernel in e.name]
+        n = len(events)
+        if per_call is not None:
+            whole = n == per_call * iters
+        else:
+            whole = n > 0 and n % iters == 0 and n in seen
+        seen.append(n)
+        if whole:
+            ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+            break
+        if per_call is not None or len(seen) > 1:
+            print(f"  device_ms: {n} {kernel or 'device'} events in a trace "
+                  f"of {iters} calls; {trace_span(prof)}; again")
+    else:
+        want = (f"{per_call * iters}" if per_call is not None
+                else "two traces that agree")
+        fail(f"device_ms: no whole trace of {kernel or 'the kernels'} in "
+             f"{len(seen)}: {seen} device events, want {want}")
+    if bound is not None and ms < bound:
+        fail(f"device_ms: {kernel or 'the kernels'} read {ms:.4f} ms, below "
+             f"the card's bound of {bound:.4f} ms")
+    return ms
 
 
-def timed(fn, kernel=None, iters: int = 10) -> tuple:
+def timed(fn, kernel=None, iters: int = 10, per_call=None,
+          bound=None) -> tuple:
     """(CUDA-event ms, profiler device ms) of ``fn``."""
-    return time_ms(fn, iters=iters), device_ms(fn, kernel, iters=iters)
+    return time_ms(fn, iters=iters), device_ms(fn, kernel, iters=iters,
+                                               per_call=per_call,
+                                               bound=bound)
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -846,8 +938,11 @@ def check_mlstm(gen):
         if S in (600, 64, 1) and not fresh:
             def run():
                 return mlstm_scan(*args)
-            ms, dev = timed(run, "mlstm_")
-            cold = device_ms(lambda: (flush.zero_(), run()), "mlstm_")
+            # the chunkwise route launches a prep and a scan kernel
+            n_k = 2 if mlstm_ops.route(S) == "chunkwise" else 1
+            ms, dev = timed(run, "mlstm_", per_call=n_k)
+            cold = device_ms(lambda: (flush.zero_(), run()), "mlstm_",
+                             per_call=n_k)
             split = ({k: device_ms(run, k) for k in ("mlstm_chunk_prep",
                                                      "mlstm_chunk_scan")}
                      if mlstm_ops.route(S) == "chunkwise" else {})
@@ -1392,14 +1487,28 @@ def pressure_requests(vocab: int):
 PRESSURE_BLOCKS = 57
 
 
-def serve(eng, reqs, cfg, path: str, expect):
+def run_stepwise(eng, check):
+    """``eng.run()`` one step at a time: after each step ``check(before,
+    after, programs)`` gets the launch counts around it and the DEP
+    programs of its model calls. Returns the requests finished."""
+    start = len(eng.finished)
+    while True:
+        before, n = kernel_lib.launch_counts(), len(eng.stats.programs)
+        busy = eng.step()
+        check(before, kernel_lib.launch_counts(), eng.stats.programs[n:])
+        if not busy and not eng.waiting:
+            return eng.finished[start:]
+
+
+def serve(eng, reqs, cfg, path: str, expect, step_check=None):
     """Drive ``reqs`` through ``eng`` with the launch counts set to 0 just
-    before and read just after; check that every request finished with 32
+    before and read just after (and ``step_check``, if given, after every
+    step: ``run_stepwise``); check that every request finished with 32
     tokens of the vocabulary and that every kernel launched exactly as
     often as ``expect(eng.stats)`` says (a kernel absent from it must not
     launch). An engine with the decode graph must replay it at every
-    decode step and capture no key twice (at most one graph per key of
-    ``GRAPH_KEYS``); an eager one must capture nothing."""
+    decode step and capture no key twice (one capture per graph it
+    holds); an eager one must capture nothing."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start_gb = torch.cuda.memory_allocated() / 1e9
@@ -1407,7 +1516,8 @@ def serve(eng, reqs, cfg, path: str, expect):
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
-    finished = eng.run()
+    finished = (eng.run() if step_check is None
+                else run_stepwise(eng, step_check))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernel_lib.launch_counts()
@@ -1427,9 +1537,9 @@ def serve(eng, reqs, cfg, path: str, expect):
             fail(f"{path}: {name} launched {n} times, expected "
                  f"{want.get(name, 0)}")
     if eng.decode_graph:
-        if st.graph_captures > len(GRAPH_KEYS):
+        if st.graph_captures != len(eng._graphs.graphs):
             fail(f"{path}: {st.graph_captures} graph captures for "
-                 f"{len(GRAPH_KEYS)} keys")
+                 f"{len(eng._graphs.graphs)} keys")
         if st.graph_replays != st.steps:
             fail(f"{path}: {st.graph_replays} graph replays for {st.steps} "
                  "decode steps")
@@ -1485,13 +1595,14 @@ FORCED_LENGTHS = (60, 16, 137, 250, 301, 404, 517, 600)
 
 
 def teacher_forced(path, graph_eng, eager_eng, cfg, prompts,
-                   steps: int = 10) -> None:
-    """The graph engine against the eager engine on the same weights: both
-    admit the same prompts (even ones greedy, odd ones at T=0.8) and
-    decode ``steps`` + 1 steps, every step after the first fed the same
-    tokens, drawn from a seed rather than sampled. The logits of every
-    step must be bitwise equal (every row, dead ones included); under
-    paged KV at least one step must decode after a table change."""
+                   steps: int = 10, names=("graph", "eager")) -> None:
+    """The graph engine against the eager engine (or any two engines,
+    ``names``) on the same weights: both admit the same prompts (even
+    ones greedy, odd ones at T=0.8) and decode ``steps`` + 1 steps, every
+    step after the first fed the same tokens, drawn from a seed rather
+    than sampled. The logits of every step must be bitwise equal (every
+    row, dead ones included); under paged KV at least one step must
+    decode after a table change."""
     engines = (graph_eng, eager_eng)
     for eng in engines:
         for i, p in enumerate(prompts):
@@ -1513,9 +1624,9 @@ def teacher_forced(path, graph_eng, eager_eng, cfg, prompts,
         if not torch.equal(got, want):
             diff = (got.float() - want.float()).abs()
             rows = sorted({int(r) for r in (diff > 0).nonzero()[:, 0]})
-            fail(f"{path}: graph and eager logits differ at decode step {k} "
-                 f"in {int((diff > 0).sum())} entries of rows {rows}, by "
-                 f"up to {float(diff.max()):.3e}")
+            fail(f"{path}: {names[0]} and {names[1]} logits differ at "
+                 f"decode step {k} in {int((diff > 0).sum())} entries of "
+                 f"rows {rows}, by up to {float(diff.max()):.3e}")
         if paged and not np.array_equal(before, graph_eng.kv._tables):
             after_change += 1
     if paged and not after_change:
@@ -1523,8 +1634,9 @@ def teacher_forced(path, graph_eng, eager_eng, cfg, prompts,
     live = sorted(graph_eng.kv.length(s) for s in graph_eng.kv.live_slots())
     for eng in engines:
         eng.run()
-    print(f"[{path}] graph vs eager, teacher-forced: logits bitwise equal "
-          f"at all {steps + 1} decode steps (live slots at lengths {live} "
+    print(f"[{path}] {names[0]} vs {names[1]}, teacher-forced: logits "
+          f"bitwise equal at all {steps + 1} decode steps (live slots at "
+          f"lengths {live} "
           f"after them" + (f"; {after_change} steps after a table change"
                            if paged else "") + ")")
 
@@ -1705,6 +1817,375 @@ def compare_decode(engines, cfg, steps: int = 8, rounds: int = 2) -> None:
           "alternating: " + json.dumps({"median": med, "turns": times}))
 
 
+# ---------------------------------------------------------------------------
+# phase 4b: the DEP path (the FinDEP planner and the DEP executor)
+# ---------------------------------------------------------------------------
+
+#: the expert group's backend (the CPU rehearsal takes gloo)
+DEP_BACKEND = "nccl"
+
+
+def dep_policy(cfg):
+    """The reference's serving policy (``examples/serve_moe.py``): FinDEP
+    on the paper's layout of 3 attention + 5 expert devices with an
+    8-sample memory cap, solved on the ``PAPER_A6000`` profile (no H100
+    profile is measured yet)."""
+    return FinDEPPolicy(FinDEPPlanner(cfg, DepClusterConfig(8, 3, 5),
+                                      PAPER_A6000,
+                                      PlannerConfig(mem_cap_samples=8)))
+
+
+def exp_launches(programs, layers: int) -> int:
+    """Expert-GEMM launches of the model calls that walked ``programs``
+    (("prefill" or "decode", ExecProgram) pairs): one per MoE layer and
+    (stream, chunk)."""
+    return layers * sum(p.graph.r1 * p.graph.r2 for _, p in programs)
+
+
+def dep_expect(cfg):
+    """Launches of a DEP serve: attention as on the dense path, the
+    expert GEMM once per layer and (stream, chunk) of each call's
+    program."""
+    L = cfg.num_layers
+    return lambda st: {"decode_attention": L * st.steps,
+                       "flash_attention": L * st.prefill_calls,
+                       "moe_gemm": exp_launches(st.programs, L)}
+
+
+def exp_per_step(cfg, path: str):
+    """A ``run_stepwise`` check: every step launched the expert GEMM
+    ``num_layers`` x the sum of r1·r2 over its model calls' programs."""
+    def check(before, after, programs):
+        n = after["moe_gemm"] - before["moe_gemm"]
+        want = exp_launches(programs, cfg.num_layers)
+        if n != want:
+            fail(f"{path}: step {check.steps}: the expert GEMM launched {n} "
+                 f"times, its programs ask for {want}")
+        check.steps += 1
+    check.steps = 0
+    return check
+
+
+def describe(program) -> str:
+    g = program.graph
+    return (f"r1={g.r1} r2={g.r2} m_e={g.m_e} {g.order} "
+            f"{program.interleave}")
+
+
+def print_plans(eng, path: str) -> None:
+    """Every resolved plan with its key and the profile it was solved on;
+    the DEP programs the model calls walked; the decode graph's keys."""
+    profile = eng.plan_policy.planner.hardware.name
+    for key, plan in eng.resolved_plans().items():
+        print(f"[{path}] plan {key}: m_a={plan.m_a} r1={plan.r1} "
+              f"m_e={plan.m_e:g} r2={plan.r2} order={plan.order} "
+              f"(solved on the {profile} profile)")
+    runs = {}
+    for phase, prog in eng.stats.programs:
+        runs[(phase, prog)] = runs.get((phase, prog), 0) + 1
+    for (phase, prog), n in runs.items():
+        print(f"[{path}] {phase} program {describe(prog)}: {n} model calls")
+    if eng._graphs is not None:
+        for key in eng._graphs.graphs:
+            print(f"[{path}] decode graph key use_topk={key.use_topk} "
+                  f"program {describe(key.plan)}: captured once")
+
+
+def forced_program() -> ExecProgram:
+    """The program no plan of the serve resolves to: r1=2 streams x r2=4
+    chunks, ASAS, streams interleaved (eight A2E/E2A pairs per layer)."""
+    return ExecProgram(lower_exec(4, "ASAS", 1, r1=2), "streams")
+
+
+class GemmWidths:
+    """While entered, records the capacity width C of every expert-GEMM
+    call of the model (``models.moe`` calls the wrapper through its
+    module global; a graph capture calls it, a replay does not)."""
+
+    def __enter__(self):
+        self.widths = set()
+        self._wrapped = moe_lib.moe_gemm
+
+        def record(x, *args, **kw):
+            self.widths.add(int(x.shape[1]))
+            return self._wrapped(x, *args, **kw)
+        moe_lib.moe_gemm = record
+        return self
+
+    def __exit__(self, *exc):
+        moe_lib.moe_gemm = self._wrapped
+
+
+def check_dep_layer(params, cfg, groups, programs, device) -> None:
+    """One full-width MoE layer (layer 0 of the served weights, bf16) at
+    world size 1, for every distinct program the serve walked and the
+    forced r1=2 x r2=4 ASAS program: ``moe_apply_dep`` against
+    ``moe_apply_capacity`` at the capacity the program's multiple gives.
+    Bitwise equal where r2 = 1 and the shared expert runs as one segment;
+    elsewhere within ``GEMM_TOL`` (cuBLAS may pick another algorithm for a
+    row range of the shared GEMM). Both sides reach the same expert-GEMM
+    kernel, so this holds the walk, not the kernel: ``check_dep_widths``
+    holds the kernel against its plain version at the same widths."""
+    p = params["layers"][0]["moe"]
+    M = cfg.d_model
+    shapes = {"decode": (8, 1), "prefill": (2, 512)}
+    cases = list(dict.fromkeys(programs)) + [("decode", forced_program())]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    for phase, prog in cases:
+        B, S = shapes[phase]
+        x = torch.randn((B, S, M), generator=gen, device=device).to(
+            torch.bfloat16)
+        cap = moe_lib.expert_capacity(B * S, cfg.moe,
+                                      multiple_of=prog.capacity_multiple)
+        got, _ = moe_apply_dep(p, x, cfg.moe, groups, plan=prog,
+                               with_aux=False)
+        want, _ = moe_lib.moe_apply_capacity(p, x, cfg.moe, capacity=cap)
+        g = prog.graph
+        exact = g.r2 == 1 and g.r1 * g.shared_segments == 1
+        err = float((got.float() - want.float()).abs().max())
+        if exact:
+            if not torch.equal(got, want):
+                fail(f"dep layer {phase} {describe(prog)}: not bitwise "
+                     f"equal to the capacity path (max |d| {err:.3e})")
+            verdict = "bitwise equal"
+        else:
+            ratio = _worst(got.float(), want.float(), GEMM_TOL[torch.bfloat16])
+            if not torch.isfinite(got).all() or ratio > 1:
+                fail(f"dep layer {phase} {describe(prog)}: {ratio:.2f} of "
+                     "GEMM_TOL against the capacity path")
+            verdict = (f"within GEMM_TOL (worst {ratio:.3f} of the limit, "
+                       f"max |d| {err:.3e})")
+        print(f"[dep layer] {phase} x{list(x.shape)} {describe(prog)}, "
+              f"capacity {cap}: {verdict}")
+
+
+def check_dep_widths(p, widths, device) -> None:
+    """The expert-GEMM kernel against its plain version at every width C
+    the DEP path gave it, bf16 at ``GEMM_TOL``: on the served expert
+    weights (what the serve ran), and on weights at ``check_moe_gemm``'s
+    scale (outputs ~0.6) beside its controls, which must fail the limit
+    in every row they change, so that the limit can see a fault at each
+    width. Prints each comparison's worst ratio; any above 1 fails."""
+    ex = p["experts"]
+    E, M, H = ex["gate"].shape
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+
+    def draw(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(torch.bfloat16)
+
+    scaled = (draw((E, M, H), M ** -0.5), draw((E, M, H), M ** -0.5),
+              draw((E, H, M), H ** -0.5))
+    worst = {}
+    for c in widths:
+        x = draw((E, c, M))
+        for label, ws in (("served", (ex["gate"], ex["up"], ex["down"])),
+                          ("scaled", scaled)):
+            name = f"dep width E={E} C={c} M={M} H={H} {label} weights"
+            got, want = moe_gemm(x, *ws), moe_gemm_ref(x, *ws)
+            compare(name, got, want, torch.bfloat16,
+                    GEMM_TOL[torch.bfloat16])
+            worst[f"C={c} {label}"] = _worst(got.float(), want.float(),
+                                             GEMM_TOL[torch.bfloat16])
+            if label == "scaled":
+                check_moe_gemm_controls(name, got, x, *ws, want)
+            del got, want
+    print(f"[dep layer] expert GEMM against its plain version at every DEP "
+          f"width {sorted(widths)}: worst {max(worst.values()):.3f} of "
+          "GEMM_TOL " + json.dumps(worst))
+
+
+def back_to_back_ms(fn, calls: int = 20, iters: int = 5) -> float:
+    """Device-bound time per call of ``fn``: CUDA events around ``calls``
+    back-to-back calls (median of ``iters``). The card stays busy when a
+    call's kernels outlast its host path, as the expert GEMM's 0.3 ms and
+    more do, so this is the kernels' time and the gaps between them."""
+    return time_ms(lambda: [fn() for _ in range(calls)],
+                   iters=iters) / calls
+
+
+def time_dep_chunks(p, widths, device) -> dict:
+    """Time of one expert-GEMM launch over every expert at each DEP chunk
+    width C (weights bf16, as served): CUDA events around one call, and
+    around 20 back-to-back calls, which must not read below the bound.
+    Not the profiler: late in a run its traces of these calls come back
+    without their last kernels, every time (``device_ms`` counts them and
+    fails). Returns {C: [events ms, back-to-back ms, bound ms]}."""
+    ex = p["experts"]
+    E, M, H = ex["gate"].shape
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    res = {}
+    for c in widths:
+        x = torch.randn((E, c, M), generator=gen, device=device).to(
+            torch.bfloat16)
+        b, _ = bound_ms((2 * E * c * M + 3 * E * M * H) * 2,
+                        6.0 * E * c * M * H, torch.bfloat16)
+
+        def call():
+            return moe_gemm(x, ex["gate"], ex["up"], ex["down"])
+        res[c] = [time_ms(call), back_to_back_ms(call), b]
+        if res[c][1] < b:
+            fail(f"dep width C={c}: the expert GEMM read {res[c][1]:.4f} ms "
+                 f"a call back to back, below its bound {b:.4f} ms")
+    print("[dep layer] expert GEMM ms per launch at the DEP chunk widths "
+          "(C: [events one call, events over 20 back-to-back calls, "
+          "bound]): " + json.dumps(res))
+    return res
+
+
+def time_dep_alltoall(groups, widths, M, E, device) -> None:
+    """Time of one A2E all_to_all_single over the expert group ([E, C, M]
+    bf16) at each DEP chunk width C, CUDA events around each call (the
+    profiler records no device event for it outside a graph; inside one,
+    at world size 1, it is a device-to-device copy)."""
+    res = {}
+    for c in widths:
+        send = torch.zeros((E, c, M), dtype=torch.bfloat16, device=device)
+        recv = torch.empty_like(send)
+        res[c] = time_ms(lambda: torch.distributed.all_to_all_single(
+            recv, send, group=groups.expert))
+    print(f"[dep layer] all_to_all ms per call over {groups.expert_size} "
+          "rank(s) at the DEP chunk widths (C: ms, events): "
+          + json.dumps(res))
+
+
+def force_decode_program(eng, program):
+    """Make every decode step of ``eng`` walk ``program`` in place of the
+    one its decode plan lowers to (prefill keeps its plans). The override
+    holds the engine weakly: through a cycle a dropped engine, its
+    weights included, would stay on the card until the collector ran."""
+    exec_program = type(eng)._exec_program
+    ref = weakref.ref(eng)
+
+    def forced(plan, streams=None):
+        return (program if streams is None
+                else exec_program(ref(), plan, streams))
+    eng._exec_program = forced
+    return eng
+
+
+def check_forced_graph(engine, params, cfg) -> None:
+    """The forced r1=2 x r2=4 program in a real CUDA graph: eight A2E/E2A
+    pairs per layer on the comm stream, each ordered by its (stream,
+    chunk) events, forked from and joined into the capture stream. A
+    graph engine whose every decode step walks it, against an eager one
+    with the same override, teacher-forced: the logits must be bitwise
+    equal at every step; the graph engine must hold one graph, of that
+    program, captured once (after the engine's one warm-up on the
+    unchunked program) with 24 x 8 expert-GEMM launches and replayed at
+    every step; both engines' launches must equal 24 x sum(r1*r2) over
+    their calls' programs."""
+    prog = forced_program()
+    graph = force_decode_program(engine(params), prog)
+    eager = force_decode_program(engine(params, decode_graph=False), prog)
+    kernel_lib.reset_launch_counts()
+    teacher_forced("dep forced", graph, eager, cfg,
+                   forced_prompts(cfg.vocab_size))
+    L = cfg.num_layers
+    n = kernel_lib.launch_counts()["moe_gemm"]
+    want = (exp_launches(graph.stats.programs, L)
+            + exp_launches(eager.stats.programs, L))
+    if n != want:
+        fail(f"dep forced: the expert GEMM launched {n} times, the programs "
+             f"ask for {want}")
+    decode = {p for ph, p in graph.stats.programs if ph == "decode"}
+    keys = graph._graphs.graphs
+    st = graph.stats
+    if decode != {prog} or {k.plan for k in keys} != {prog}:
+        fail(f"dep forced: decode walked {len(decode)} programs, graphs of "
+             f"{len(keys)}; want the forced program alone")
+    launches = [c.launches["moe_gemm"] for c in keys.values()]
+    if (st.graph_captures != len(keys) or st.graph_replays != st.steps
+            or launches != [L * 8] * len(keys)):
+        fail(f"dep forced: {st.graph_captures} captures of {len(keys)} "
+             f"keys, {st.graph_replays} replays for {st.steps} steps, "
+             f"{launches} expert-GEMM launches per replay (want {L * 8})")
+    print(f"[dep forced] {describe(prog)} captured once per key "
+          f"({len(keys)}), {L * 8} expert-GEMM launches per replay, "
+          f"{st.graph_replays} replays for {st.steps} steps; launches "
+          f"{n} = {L} x sum(r1*r2) of both engines' calls")
+
+
+def phase_serve_dep():
+    """The DEP path: full qwen2-moe-a2.7b on the serve path's weights
+    (seed 0) and its 16 requests, with the FinDEP policy and an NCCL
+    expert group of one rank, so every MoE layer walks its plan's program
+    (A2E/E2A all_to_all on the comm stream, the expert GEMM per (stream,
+    chunk)). Checks: the expert GEMM's launches every step; greedy tokens
+    and 11 teacher-forced steps' logits of the graph engine against an
+    eager one; interleave "streams" against "off" bitwise; the forced
+    r1=2 x r2=4 program captured in a graph against its eager run; one
+    layer against the capacity path; the expert GEMM against its plain
+    version at every width the path gave it. Profiles a decode step and
+    a prefill admission and times the DEP graph engine against the
+    capacity graph engine. Returns the launch counts of the serve."""
+    cfg = get_config("qwen2-moe-a2.7b")
+    # NCCL's bootstrap stays on the loopback interface
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    groups = DepGroups.single(DEP_BACKEND)
+
+    def engine(params=None, **kw):
+        return ServingEngine(cfg, params=params, num_slots=8,
+                             max_context=1024, dtype=torch.bfloat16, seed=0,
+                             plan_policy=dep_policy(cfg), ep_group=groups,
+                             **kw)
+
+    eng = engine()
+    torch.cuda.synchronize()
+    print(f"[dep] expert group: {DEP_BACKEND}, {groups.world_size} rank; "
+          f"engine with weights drawn in {time.perf_counter() - t0:.1f} s")
+    params = eng.params
+    reqs = mixed_requests(cfg)
+    expect = dep_expect(cfg)
+    step_check = exp_per_step(cfg, "dep")
+    with GemmWidths() as rec:
+        counts = serve(eng, reqs, cfg, "dep", expect, step_check=step_check)
+        print(f"[dep] the expert GEMM launched {cfg.num_layers} x "
+              f"sum(r1*r2) of each step's programs at all "
+              f"{step_check.steps} steps")
+        print_plans(eng, "dep")
+        profile_decode(eng, np.random.RandomState(5), cfg, "dep")
+        prompts = np.random.RandomState(8).randint(0, cfg.vocab_size,
+                                                   size=(8, 300))
+        chunk, _ = prefill_split(dep_policy(cfg).resolve("prefill", 512, 8),
+                                 8)
+        profile_prefill(eng, prompts, "dep", calls=-(-8 // chunk))
+        eager = engine(params, decode_graph=False)
+        against_eager("dep", eng, eager, cfg, reqs,
+                      lambda: mixed_requests(cfg), expect,
+                      forced_prompts(cfg.vocab_size))
+        del eager
+        off = engine(params, interleave="off")
+        teacher_forced("dep", eng, off, cfg, forced_prompts(cfg.vocab_size),
+                       names=("streams", "off"))
+        del off
+        check_forced_graph(engine, params, cfg)
+        torch.cuda.empty_cache()
+        check_dep_layer(params, cfg, groups, eng.stats.programs, eng.device)
+    widths = sorted(rec.widths)
+    p = params["layers"][0]["moe"]
+    check_dep_widths(p, widths, eng.device)
+    time_dep_chunks(p, widths, eng.device)
+    time_dep_alltoall(groups, widths, cfg.d_model,
+                      p["experts"]["gate"].shape[0], eng.device)
+    capacity = ServingEngine(cfg, params=params, num_slots=8,
+                             max_context=1024, dtype=torch.bfloat16, seed=0)
+    compare_decode({"dep graph": eng, "capacity graph": capacity}, cfg)
+    del eng, capacity, params, p
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() / 1e9
+    if left > 0.5:
+        fail(f"dep: {left:.2f} GB still allocated after the phase: an "
+             "engine outlived it")
+    torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    return counts
+
+
 def phase_serve_xlstm():
     """The xLSTM path: full xlstm-1.3b, every mLSTM layer through the
     mLSTM scan kernel at prefill and decode, with the decode graph; held
@@ -1817,13 +2298,38 @@ OWN_KERNELS = ("decode_attention_split_kernel",
                "rg_lru_scan_kernel", "rg_lru_scan_short_kernel")
 
 
+#: wrapper launch counter -> (device event name filter, events per call)
+TRACED = {"decode_attention": ("decode_attention_", 2),
+          "decode_attention_paged": ("decode_attention_", 2),
+          "moe_gemm": ("moe_gemm_", 2),
+          "flash_attention": ("flash_attention_", 1),
+          "rg_lru_scan": ("rg_lru_scan", 1)}
+
+
+def traced_launches(prof, before, after, names=None) -> dict:
+    """For the repo's kernels: {name filter: [device events in the trace,
+    events the wrappers' launches between ``before`` and ``after`` make]}.
+    The profiler can drop the tail of a trace; this shows how much of
+    the kernels a profile's numbers hold."""
+    want = {}
+    for name, (pattern, per) in TRACED.items():
+        if names is None or name in names:
+            want[pattern] = want.get(pattern, 0) + per * (after[name]
+                                                         - before[name])
+    events = device_events(prof)
+    got = {p: sum(p in e.name for e in events) for p in want}
+    return {p: [got[p], want[p]] for p in want if want[p] or got[p]}
+
+
 def profile_decode(eng, rng, cfg, path: str, steps: int = 3) -> None:
     """Where a steady decode step's time goes: the wall time of ``steps``
     plain decode steps, then the same number under torch.profiler for the
     device time by kernel (the profiler's device events include the
-    kernels a graph replay launches); the idle share is 1 - kernel time /
-    plain wall time (one stream, so kernels do not overlap). Also counts
-    the host's ``cudaGraphLaunch`` and ``cudaLaunchKernel`` calls."""
+    kernels a graph replay launches), the expert GEMM's and NCCL's share
+    of it; the idle share is 1 - the time some kernel runs (the union of
+    the kernels' spans: the DEP path's comm stream overlaps the compute
+    stream) / plain wall time. Also counts the host's
+    ``cudaGraphLaunch`` and ``cudaLaunchKernel`` calls."""
     for _ in range(eng.num_slots):
         eng.submit(Request(prompt=list(rng.randint(0, cfg.vocab_size,
                                                    size=300)),
@@ -1836,16 +2342,17 @@ def profile_decode(eng, rng, cfg, path: str, steps: int = 3) -> None:
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    before = kernel_lib.launch_counts()
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
+    traced = traced_launches(prof, before, kernel_lib.launch_counts())
     eng.run()
     per_kernel = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us, n = per_kernel.get(e.name, (0.0, 0))
-            per_kernel[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    for e in device_events(prof):
+        us, n = per_kernel.get(e.name, (0.0, 0))
+        per_kernel[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy_ms = sum(us for us, _ in per_kernel.values()) / 1e3 / steps
     if busy_ms <= 0:
         fail(f"profile {path}: the profiler recorded no kernel on the card")
@@ -1854,12 +2361,27 @@ def profile_decode(eng, rng, cfg, path: str, steps: int = 3) -> None:
     # the card's idle time inside the window: short gaps between device
     # ops (launch latency) apart from long ones (the host between steps)
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   for e in device_events(prof))
     gaps = [b[0] - a[1] for a, b in zip(spans, spans[1:])]
+    covered, end = 0.0, None
+    for s, e in spans:               # the union of the kernels' spans
+        if end is None or s > end:
+            covered, end = covered + e - s, e
+        elif e > end:
+            covered, end = covered + e - end, e
+    covered_ms = covered / 1e3 / steps
     row = dict(wall_ms=wall_ms, kernel_ms=busy_ms,
                device_ops=sum(n for _, n in per_kernel.values()) // steps,
-               idle=max(0.0, 1 - busy_ms / wall_ms), **host_calls,
+               moe_gemm_ms=sum(us for name, (us, _) in per_kernel.items()
+                               if "moe_gemm_" in name) / 1e3 / steps,
+               nccl_kernel_ms=sum(us for name, (us, _) in per_kernel.items()
+                                  if "nccl" in name.lower()) / 1e3 / steps,
+               dtod_ms=per_kernel.get("Memcpy DtoD (Device -> Device)",
+                                      (0.0, 0))[0] / 1e3 / steps,
+               dtod=per_kernel.get("Memcpy DtoD (Device -> Device)",
+                                   (0.0, 0))[1] // steps,
+               busy_ms=covered_ms, idle=max(0.0, 1 - covered_ms / wall_ms),
+               **host_calls,
                gaps_under_50us_ms=sum(g for g in gaps if 0 < g < 50)
                / 1e3 / steps,
                gaps_over_50us_ms=sum(g for g in gaps if g >= 50)
@@ -1867,12 +2389,18 @@ def profile_decode(eng, rng, cfg, path: str, steps: int = 3) -> None:
     print(f"[profile {path}] decode step, 8 slots at ~300-token contexts, "
           f"graph {'on' if eng.decode_graph else 'off'}: wall "
           f"{wall_ms:.2f} ms/step, kernels {busy_ms:.2f} ms/step "
-          f"({row['device_ops']} device ops), device idle share "
-          f"{row['idle']:.3f}; per step {host_calls['cudaGraphLaunch']:g} "
+          f"({row['device_ops']} device ops; expert GEMM "
+          f"{row['moe_gemm_ms']:.2f}, NCCL kernels "
+          f"{row['nccl_kernel_ms']:.2f}, {row['dtod']} device-to-device "
+          f"copies {row['dtod_ms']:.2f}), device "
+          f"idle share {row['idle']:.3f}; per step "
+          f"{host_calls['cudaGraphLaunch']:g} "
           f"cudaGraphLaunch, {host_calls['cudaLaunchKernel']:g} "
           f"cudaLaunchKernel; gaps between device ops "
           f"{row['gaps_under_50us_ms']:.2f} ms/step under 50 us, "
           f"{row['gaps_over_50us_ms']:.2f} over " + json.dumps(row))
+    print(f"[profile {path}] the repo's kernels in the trace / launched: "
+          + json.dumps(traced))
     # the ten largest, then the repo's own kernels that fall below them
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
     for i, (name, (us, n)) in enumerate(ranked):
@@ -1889,12 +2417,13 @@ def profile_decode(eng, rng, cfg, path: str, steps: int = 3) -> None:
               f"{e.count // steps:5d}/step  {e.key[:60]}")
 
 
-def profile_prefill(eng, prompts, path: str) -> None:
-    """Where one batched prefill call's time goes: ``prompts`` (of one
-    length, so one bucket and one call) admitted together, three times
-    (each drained by one decode step): a warm-up, one timed by the
-    engine's prefill clock, one under torch.profiler for the device time
-    by kernel. Idle share = 1 - kernel time / the call's wall time."""
+def profile_prefill(eng, prompts, path: str, calls: int = 1) -> None:
+    """Where one batched prefill admission's time goes: ``prompts`` (of
+    one length, so one bucket: one call, or ``calls`` when the engine's
+    plan chunks the group) admitted together, three times (each drained
+    by one decode step): a warm-up, one timed by the engine's prefill
+    clock, one under torch.profiler for the device time by kernel. Idle
+    share = 1 - kernel time / the calls' wall time."""
     def admit(prof=None) -> float:
         for p in prompts:
             eng.submit(Request(prompt=list(p), max_new_tokens=1))
@@ -1906,24 +2435,28 @@ def profile_prefill(eng, prompts, path: str) -> None:
             with prof:
                 eng._admit()
                 torch.cuda.synchronize()
-        if eng.stats.prefill_calls != n0 + 1:
+        if eng.stats.prefill_calls != n0 + calls:
             fail(f"prefill {path}: {eng.stats.prefill_calls - n0} prefill "
-                 "calls, expected one")
+                 f"calls, expected {calls}")
         ms = (eng.stats.prefill_s - s0) * 1e3
         eng.run()
         return ms
 
     admit()
     wall_ms = admit()
+    before = kernel_lib.launch_counts()
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
     admit(prof)
+    # the counts move on with the drain after the admission, which
+    # launches no prefill kernel (flash, the chunked expert GEMM's r1·r2)
+    traced = traced_launches(prof, before, kernel_lib.launch_counts(),
+                             names=("flash_attention",))
     per_kernel = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us, n = per_kernel.get(e.name, (0.0, 0))
-            per_kernel[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    for e in device_events(prof):
+        us, n = per_kernel.get(e.name, (0.0, 0))
+        per_kernel[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy_ms = sum(us for us, _ in per_kernel.values()) / 1e3
     if busy_ms <= 0:
         fail(f"prefill {path}: the profiler recorded no kernel on the card")
@@ -1931,12 +2464,14 @@ def profile_prefill(eng, prompts, path: str) -> None:
                    if "flash_attention_" in name) / 1e3
     gemm_ms = sum(us for name, (us, _) in per_kernel.items()
                   if "moe_gemm_" in name) / 1e3
-    print(f"[prefill {path}] one prefill call of {len(prompts)} x "
-          f"{len(prompts[0])} tokens: wall {wall_ms:.2f} ms, kernels "
+    print(f"[prefill {path}] {calls} prefill call(s) of {len(prompts)} x "
+          f"{len(prompts[0])} tokens in all: wall {wall_ms:.2f} ms, kernels "
           f"{busy_ms:.2f} ms ({sum(n for _, n in per_kernel.values())} "
           f"launches), device idle share {max(0.0, 1 - busy_ms / wall_ms):.3f};"
           f" flash {flash_ms:.3f} ms ({flash_ms / busy_ms:.1%} of kernel "
           f"time), expert GEMM {gemm_ms:.3f} ms")
+    print(f"[prefill {path}] flash kernels in the trace / launched: "
+          + json.dumps(traced))
     own = {k: (sum(us for name, (us, _) in per_kernel.items() if k in name),
                sum(n for name, (_, n) in per_kernel.items() if k in name))
            for k in OWN_KERNELS}
@@ -1946,6 +2481,20 @@ def profile_prefill(eng, prompts, path: str) -> None:
     for i, (name, (us, n)) in enumerate(ranked):
         if i < 10 or any(k in name for k in OWN_KERNELS):
             print(f"  {us / 1e3:8.3f} ms/call {n:5d}/call  {name[:80]}")
+
+
+def check_bounds(name: str, entry: dict) -> None:
+    """Fail a kernel whose device time, at any shape of its entry, reads
+    below the bound the entry gives for that shape: the card cannot go
+    faster, so the profiler dropped some of its work."""
+    for key in ("device_ms", "cold_device_ms"):
+        if key in entry and "bound_ms" in entry \
+                and entry[key] < entry["bound_ms"]:
+            fail(f"{name}: {key} {entry[key]:.4f} is below its bound "
+                 f"{entry['bound_ms']:.4f} ms")
+    for sub, value in entry.items():
+        if isinstance(value, dict):
+            check_bounds(f"{name} {sub}", value)
 
 
 def _leaves(tree):
@@ -1962,8 +2511,8 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 
 #: the serve path whose run gives each kernel's launch count in the report
-KERNEL_PATH = {"decode_attention": "serve", "moe_gemm": "serve",
-               "flash_attention": "serve", "decode_attention_paged": "paged",
+KERNEL_PATH = {"decode_attention": "dep", "moe_gemm": "dep",
+               "flash_attention": "dep", "decode_attention_paged": "paged",
                "mlstm_scan": "xlstm", "rg_lru_scan": "hybrid"}
 
 
@@ -1993,11 +2542,13 @@ def main(argv=None) -> int:
     counts = {}
     if not args.no_serve:
         counts = phase_serve()
+        counts["dep"] = phase_serve_dep()
         counts["xlstm"] = phase_serve_xlstm()
         counts["hybrid"] = phase_serve_hybrid()
 
     report = []
     for e in entries:
+        check_bounds(e["name"], e)
         path = KERNEL_PATH[e["name"]]
         launches = counts.get(path, {}).get(e["name"], 0)
         e = dict(e, route="cuda", launches=launches, launches_path=path,

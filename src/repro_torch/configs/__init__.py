@@ -1,10 +1,13 @@
-"""Architecture registry of the port: the architectures it serves so far."""
+"""Architecture registry of the port: the architectures it serves, the
+paper's two MoE backbones (which the planner solves for; their MLA and
+128-expert models are not served yet), and the input shapes."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (ARCH_FAMILIES, ModelConfig, MoEConfig,
-                                      RecurrentConfig)
+from repro_torch.configs.base import (ARCH_FAMILIES, SHAPES,
+                                      DepClusterConfig, ModelConfig,
+                                      MoEConfig, RecurrentConfig, ShapeConfig)
 
 # arch-id -> module name
 _ARCH_MODULES = {
@@ -12,6 +15,9 @@ _ARCH_MODULES = {
     "qwen2-1.5b": "qwen2_1_5b",
     "xlstm-1.3b": "xlstm_1_3b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    # the paper's backbones (the planner's Table-5/7 shapes)
+    "deepseek-v2-lite": "deepseek_v2_lite",
+    "qwen3-moe": "qwen3_moe",
 }
 
 ALL_ARCHS = tuple(_ARCH_MODULES)
@@ -32,5 +38,10 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke()
 
 
-__all__ = ["ARCH_FAMILIES", "ALL_ARCHS", "ModelConfig", "MoEConfig",
-           "RecurrentConfig", "get_config", "get_smoke_config"]
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+__all__ = ["ARCH_FAMILIES", "ALL_ARCHS", "SHAPES", "DepClusterConfig",
+           "ModelConfig", "MoEConfig", "RecurrentConfig", "ShapeConfig",
+           "get_config", "get_smoke_config", "get_shape"]

@@ -1,9 +1,10 @@
-"""Configuration schema for models (a copy of ``repro.configs.base``).
+"""Configuration schema for models, input shapes and the DEP cluster
+layout (a copy of ``repro.configs.base``).
 
 The port keeps its own copy so that it imports nothing of the JAX
-package. Only the model schema is copied: ``ModelConfig``, ``MoEConfig``,
-``RecurrentConfig`` and ``reduced()``; the input shapes and the DEP
-cluster layout come with the slices that use them.
+package: ``ModelConfig``, ``MoEConfig``, ``RecurrentConfig`` and
+``reduced()``, the input shapes (``ShapeConfig``, ``SHAPES``) and the
+DEP cluster layout the planner solves for (``DepClusterConfig``).
 """
 from __future__ import annotations
 
@@ -168,3 +169,44 @@ class ModelConfig:
             )
         kw.update(overrides)
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                 # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# DEP cluster layout (paper Table 1: ag / eg)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class DepClusterConfig:
+    """Disaggregated-expert-parallel group sizes and link characteristics."""
+
+    num_devices: int          # P
+    ag: int                   # attention-group size
+    eg: int                   # expert-group size
+    dtype_bytes: int = 2      # bf16 activations
+
+    def __post_init__(self):
+        if self.ag + self.eg > self.num_devices:
+            raise ValueError(f"ag {self.ag} + eg {self.eg} exceed "
+                             f"{self.num_devices} devices")
+        if self.ag < 1 or self.eg < 1:
+            raise ValueError("ag and eg must be at least 1")

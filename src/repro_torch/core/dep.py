@@ -1,0 +1,439 @@
+"""DEP execution on ``torch.distributed`` (PyTorch counterpart of
+``repro.core.dep``): the paper's A2E/E2A as r2-chunked ``all_to_all``
+collectives over the expert axis.
+
+Each rank runs this module's functions on its own shard, as the
+reference's ``shard_map`` body runs on each device: attention is data
+parallel over the data axes, routed experts are expert parallel over the
+expert axis (``E_pad / mo`` stacked experts per rank), and the router and
+shared experts are replicated. ``DepGroups`` carries the process groups.
+The two communication phases are
+
+  A2E  [E_pad, c, M] -> [E_loc, mo·c, M]   (peers concatenated on the
+       capacity axis in rank order)
+  E2A  [E_loc, mo·c, M] -> [E_pad, c, M]
+
+each one ``all_to_all_single`` over a contiguous [mo, E_loc, c, M] view,
+with a permute on the receiving (A2E) or sending (E2A) side.
+
+The executor WALKS the task-graph IR: ``moe_apply_dep`` lowers the
+resolved plan to an ``ExecProgram`` (or takes one) and runs one handler
+per task of ``program.walk()`` — GATE → router dispatch, A2E/E2A → chunk
+all_to_all (buffer slice and all_reduce combine in replicated decode
+mode), EXP → the expert GEMM kernel's wrapper, SHARED → a shared-expert
+row segment, REP → the replicated hot experts on local rows. Streams
+(r1 > 1) are a capacity split of one router dispatch, so
+``interleave="streams"`` and ``"off"`` compute the same values in
+another order.
+
+On a CUDA device A2E and E2A run on a communication stream and EXP and
+SHARED on the caller's (compute) stream; an event per (micro-batch,
+chunk) and direction orders the two, the comm stream is forked from the
+compute stream at its first wait and joined back into it at the end of
+the call, so a CUDA graph capture records both streams. Every tensor
+either stream touches is made on the compute stream and held until the
+join. On the CPU (gloo) the walk runs in order on the one stream.
+
+Two dispatch modes, as in the reference:
+  * "sequence" (prefill; any call at an expert group of one rank): each
+    peer routes its own slice of the sequence and the buffers are
+    exchanged with all_to_all;
+  * "replicated" (decode with fewer positions than peers): tokens are
+    replicated over the expert axis; each peer runs only its experts and
+    the combine is one all_reduce.
+"""
+from __future__ import annotations
+
+from contextlib import nullcontext
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import MoEConfig
+from repro_torch.core import taskgraph as tg
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.layers import mlp_apply
+
+
+@dataclass(eq=False)
+class DepGroups:
+    """One rank's process groups for DEP: the expert axis (``expert``,
+    where this rank is ``expert_rank`` of ``expert_size``), the data axes
+    (``data``) and every device (``world``, for the aux loss). The comm
+    stream and the events that order it against the compute stream are
+    made once, at their first use on a CUDA device, and reused by every
+    call (an engine shares them across steps and graph captures)."""
+
+    expert: object
+    expert_rank: int
+    expert_size: int
+    data: object
+    world: object
+    world_size: int
+    _stream: Optional[torch.cuda.Stream] = field(default=None, repr=False)
+    _events: Dict[Tuple[str, int], torch.cuda.Event] = field(
+        default_factory=dict, repr=False)
+
+    @classmethod
+    def build(cls, data_size: int, expert_size: int) -> "DepGroups":
+        """The groups of a (data x expert) layout over the default process
+        group, which must hold ``data_size * expert_size`` ranks; rank
+        ``d * expert_size + m`` is expert peer ``m`` of data shard ``d``
+        (the device order of a ("data", "model") mesh). Every rank must
+        call this, in the same order (``new_group`` is collective)."""
+        world = dist.group.WORLD
+        n = dist.get_world_size()
+        if n != data_size * expert_size:
+            raise ValueError(f"world of {n} ranks is not {data_size} x "
+                             f"{expert_size}")
+        rank = dist.get_rank()
+        d, m = divmod(rank, expert_size)
+        expert = data = world
+        if data_size > 1 and expert_size > 1:
+            for dd in range(data_size):
+                g = dist.new_group([dd * expert_size + mm
+                                    for mm in range(expert_size)])
+                if dd == d:
+                    expert = g
+            for mm in range(expert_size):
+                g = dist.new_group([dd * expert_size + mm
+                                    for dd in range(data_size)])
+                if mm == m:
+                    data = g
+        return cls(expert=expert, expert_rank=m, expert_size=expert_size,
+                   data=data, world=world, world_size=n)
+
+    @classmethod
+    def single(cls, backend: str) -> "DepGroups":
+        """An expert group of one rank: initializes the default process
+        group over an in-process store (no network) unless one exists.
+        Under NCCL the communicator is made now, on the current card, not
+        at the first collective of a serve."""
+        if not dist.is_initialized():
+            device = (torch.device("cuda", torch.cuda.current_device())
+                      if backend == "nccl" else None)
+            dist.init_process_group(backend, store=dist.HashStore(),
+                                    world_size=1, rank=0, device_id=device)
+        return cls.build(1, dist.get_world_size())
+
+    def stream(self, device: torch.device) -> Optional[torch.cuda.Stream]:
+        """The comm stream on a CUDA ``device``; None on the CPU."""
+        if device.type != "cuda":
+            return None
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        return self._stream
+
+    def event(self, name: str, index: int) -> torch.cuda.Event:
+        ev = self._events.get((name, index))
+        if ev is None:
+            ev = self._events[(name, index)] = torch.cuda.Event()
+        return ev
+
+
+class _Streams:
+    """Orders the comm stream against the compute stream (the current
+    one) with the groups' events; does nothing on the CPU."""
+
+    def __init__(self, groups: DepGroups, device: torch.device):
+        self.groups = groups
+        self.comm = groups.stream(device)
+        self.compute = (torch.cuda.current_stream(device)
+                        if self.comm is not None else None)
+
+    def to_comm(self, name: str, index: int) -> None:
+        """The comm stream's next work waits for the compute stream's."""
+        if self.comm is not None:
+            ev = self.groups.event(name, index)
+            ev.record(self.compute)
+            self.comm.wait_event(ev)
+
+    def to_compute(self, name: str, index: int) -> None:
+        """The compute stream's next work waits for the comm stream's."""
+        if self.comm is not None:
+            ev = self.groups.event(name, index)
+            ev.record(self.comm)
+            self.compute.wait_event(ev)
+
+    def on_comm(self):
+        return (torch.cuda.stream(self.comm) if self.comm is not None
+                else nullcontext())
+
+
+def seq_mode(seq_len: int, expert_size: int) -> bool:
+    """The reference's dispatch-mode rule for a global sequence length:
+    sequence mode when the sequence splits evenly over the expert axis,
+    replicated-token mode otherwise."""
+    return seq_len % expert_size == 0 and seq_len >= expert_size
+
+
+def as_exec_program(plan) -> tg.ExecProgram:
+    """The executor's program for ``plan``: an ``ExecProgram`` passes
+    through; a bare ``TaskGraph`` is wrapped with ``interleave="off"``; a
+    ``Plan`` is lowered from its (r2, order, m_e) slice; None means the
+    unchunked single-stream r2=1 schedule."""
+    if plan is None:
+        return tg.ExecProgram(tg.lower_exec(1, "AASS", 1))
+    if isinstance(plan, tg.ExecProgram):
+        return plan
+    if isinstance(plan, tg.TaskGraph):
+        return tg.ExecProgram(plan)
+    r2 = max(int(getattr(plan, "r2", 1) or 1), 1)
+    m_e = getattr(plan, "m_e", 1) or 1
+    return tg.ExecProgram(tg.lower_exec(r2, getattr(plan, "order", "AASS"),
+                                        max(int(m_e), 1)))
+
+
+def _shared_part(shared_fn, shared_x, k: int, n_seg: int):
+    """The shared-expert GEMM for segment ``k`` of ``n_seg``: each (mb,
+    boundary) SHARED task owns one equal row range of the local batch,
+    the last one the remainder. Rows are independent, so the segments
+    concatenate back to the whole-batch product."""
+    if n_seg == 1:
+        return shared_fn(shared_x)
+    seg = shared_x.shape[0] // n_seg
+    lo = k * seg
+    hi = shared_x.shape[0] if k == n_seg - 1 else (k + 1) * seg
+    return shared_fn(shared_x[lo:hi])
+
+
+def _walk_chunk_stream(program, handlers) -> None:
+    """Run the program's executed order: ``handlers`` maps task kind ->
+    callable(task); kinds without a handler are skipped (SHARED for a
+    model without a shared expert, GATE and ATTN, which the caller runs).
+    A bare ``TaskGraph`` means its single-stream ``interleave="off"``
+    walk."""
+    if isinstance(program, tg.TaskGraph):
+        program = tg.ExecProgram(program)
+    for task in program.walk():
+        h = handlers.get(task.kind)
+        if h is not None:
+            h(task)
+
+
+def _a2e_layout(recv: torch.Tensor) -> torch.Tensor:
+    """A2E's receive side: [mo, E_loc, c, M] (peer p's chunk for this
+    rank's experts at index p) -> [E_loc, mo·c, M], peers concatenated on
+    the capacity axis in rank order."""
+    mo, E_loc, c, M = recv.shape
+    return recv.permute(1, 0, 2, 3).reshape(E_loc, mo * c, M)
+
+
+def _e2a_layout(out: torch.Tensor, mo: int) -> torch.Tensor:
+    """E2A's send side: [E_loc, mo·c, M] -> a contiguous [mo, E_loc, c, M]
+    whose index p goes back to peer p."""
+    E_loc, C, M = out.shape
+    return out.reshape(E_loc, mo, C // mo, M).permute(1, 0, 2, 3) \
+              .contiguous()
+
+
+def _graph_expert_alltoall(program: tg.ExecProgram, buffers, expert_params,
+                           groups: DepGroups, shared_fn=None, shared_x=None,
+                           hot_weights=None, hot_rows=None):
+    """Sequence-mode walk: buffers [E_pad, C_loc, M] per peer ->
+    (outputs [E_pad, C_loc, M] back in dispatch layout, shared_out or
+    None). Task (stream i, chunk j) covers capacity columns
+    [(i·r2+j)·c, (i·r2+j+1)·c); the results reassemble in fixed (i, j)
+    order, so the values do not depend on the stream count or the walk
+    order. ``hot_weights``/``hot_rows`` run the REP task: the replicated
+    hot experts' FFN on this peer's own dispatch rows, spliced over the
+    rows the wire round trip returned for them (each row depends only on
+    itself and its expert's weights, so the splice is bitwise the wire's
+    result)."""
+    graph = program.graph
+    E_pad, C_loc, M = buffers.shape
+    r1, r2 = graph.r1, graph.r2
+    chunk = C_loc // (r1 * r2)
+    n_seg = graph.shared_segments          # per stream
+    rep_chunk = C_loc // r1                # REP slice width per stream
+    mo = groups.expert_size
+    E_loc = E_pad // mo
+    streams = _Streams(groups, buffers.device)
+    held = []                              # alive until the join
+    dispatched = {}
+    ffn_out = {}
+    outs = {}
+    shared_parts = {}
+    hot_out = {}
+
+    def exchange(name, index, send, recv):
+        held.extend((send, recv))
+        streams.to_comm(name, index)
+        with streams.on_comm():
+            dist.all_to_all_single(recv, send, group=groups.expert)
+
+    def on_a2e(t):     # [E_pad, c, M] -> [E_loc, mo*c, M]
+        i = t.mb * r2 + t.chunk
+        send = buffers[:, i * chunk:(i + 1) * chunk].contiguous()
+        recv = send.new_empty((mo, E_loc, chunk, M))
+        exchange("a2e_send", i, send, recv)
+        streams.to_compute("a2e_recv", i)
+        dispatched[(t.mb, t.chunk)] = recv
+
+    def on_shared(t):
+        if shared_fn is not None:
+            shared_parts[(t.mb, t.chunk)] = _shared_part(
+                shared_fn, shared_x, t.mb * n_seg + t.chunk, r1 * n_seg)
+
+    def on_exp(t):
+        x = _a2e_layout(dispatched.pop((t.mb, t.chunk)))
+        ffn_out[(t.mb, t.chunk)] = moe_lib.expert_ffn(expert_params, x)
+
+    def on_e2a(t):     # [E_loc, mo*c, M] -> [E_pad, c, M]
+        i = t.mb * r2 + t.chunk
+        send = _e2a_layout(ffn_out.pop((t.mb, t.chunk)), mo)
+        recv = torch.empty_like(send)
+        exchange("e2a_send", i, send, recv)
+        outs[(t.mb, t.chunk)] = recv.view(E_pad, chunk, M)
+
+    def on_rep(t):     # hot-expert FFN on the locally resident rows
+        rows = buffers[hot_rows][:, t.mb * rep_chunk:(t.mb + 1) * rep_chunk]
+        hot_out[t.mb] = moe_lib.expert_ffn(hot_weights, rows)
+
+    handlers = {tg.A2E: on_a2e, tg.SHARED: on_shared,
+                tg.EXP: on_exp, tg.E2A: on_e2a}
+    if hot_weights is not None:
+        handlers[tg.REP] = on_rep
+    _walk_chunk_stream(program, handlers)
+    if hot_weights is not None and not hot_out:
+        # a graph lowered without a REP task: still run the hot FFN
+        hot_out[0] = moe_lib.expert_ffn(hot_weights, buffers[hot_rows])
+    streams.to_compute("join", 0)
+    shared_out = (torch.cat([shared_parts[k] for k in sorted(shared_parts)])
+                  if shared_parts else None)
+    out = torch.cat([outs[k] for k in sorted(outs)], dim=1)
+    if hot_out:
+        out[hot_rows] = torch.cat([hot_out[k] for k in sorted(hot_out)],
+                                  dim=1)
+    del held
+    return out, shared_out
+
+
+def _graph_replicated_experts(program: tg.ExecProgram, local_buf,
+                              expert_params, shared_fn=None, shared_x=None):
+    """Replicated-token decode walk: each peer runs only its local
+    experts' chunks; A2E tasks are buffer slices (the transport is the
+    one all_reduce after the walk) and SHARED tasks interleave per the
+    solved order. The same (stream, chunk) split and fixed-order
+    reassembly as the sequence walk."""
+    graph = program.graph
+    cap = local_buf.shape[1]
+    r1, r2 = graph.r1, graph.r2
+    chunk = cap // (r1 * r2)
+    n_seg = graph.shared_segments
+    sliced = {}
+    outs = {}
+    shared_parts = {}
+
+    def on_a2e(t):
+        i = t.mb * r2 + t.chunk
+        sliced[(t.mb, t.chunk)] = local_buf[:, i * chunk:(i + 1) * chunk]
+
+    def on_shared(t):
+        if shared_fn is not None:
+            shared_parts[(t.mb, t.chunk)] = _shared_part(
+                shared_fn, shared_x, t.mb * n_seg + t.chunk, r1 * n_seg)
+
+    def on_exp(t):
+        outs[(t.mb, t.chunk)] = moe_lib.expert_ffn(
+            expert_params, sliced.pop((t.mb, t.chunk)))
+
+    _walk_chunk_stream(program, {tg.A2E: on_a2e, tg.SHARED: on_shared,
+                                 tg.EXP: on_exp})
+    shared_out = (torch.cat([shared_parts[k] for k in sorted(shared_parts)])
+                  if shared_parts else None)
+    out = torch.cat([outs[k] for k in sorted(outs)], dim=1)
+    return out, shared_out
+
+
+def moe_apply_dep(params, x, mcfg: MoEConfig, groups: DepGroups,
+                  num_experts_padded: int = 0, plan=None, placement=None,
+                  hot_weights=None, with_aux: bool = True):
+    """Schedule-driven MoE layer on one rank. ``x`` [Bl, Sl, M] is this
+    rank's tokens in the reference's layout: its data shard, and in
+    sequence mode its slice of the sequence over the expert axis.
+    ``params["experts"]`` holds this rank's ``E_pad / mo`` experts; the
+    router and ``params["shared"]`` are replicated. ``plan`` is an
+    ``ExecProgram`` (see ``Plan.exec_program``), a ``TaskGraph``, a
+    ``Plan`` or None (the unchunked r2=1 schedule).
+
+    The dispatch mode is ``seq_mode`` of x's own length: sequence mode
+    when it is a multiple of the expert group (so a caller that splits a
+    sequence over the group gives each peer such a slice; at a group of
+    one rank every call is), replicated decode when it is shorter (x then
+    holds every position, on every peer). ``placement`` (a
+    ``Placement`` over the padded experts) re-homes each logical expert
+    to the buffer row of ``placement.perm``; its replicated hot experts
+    run the REP task on ``hot_weights`` ([n_hot, ...] in
+    ``placement.replicated`` order, held by every rank) in sequence mode.
+    Returns (y [Bl, Sl, M], aux), aux being the device mean of the load
+    balance loss, or None with ``with_aux=False`` (which skips its
+    all_reduce)."""
+    Bl, Sl, M = x.shape
+    mo = groups.expert_size
+    E_pad = num_experts_padded or mcfg.num_experts
+    if E_pad % mo:
+        raise ValueError(f"{E_pad} experts do not divide over {mo} ranks")
+    sequence = seq_mode(Sl, mo)
+    program = as_exec_program(plan)
+    if placement is not None and placement.is_uniform:
+        placement = None        # the plain path IS this placement
+    if placement is not None and (placement.num_experts != E_pad
+                                  or placement.num_ranks != mo):
+        raise ValueError(f"placement of {placement.num_experts} experts on "
+                         f"{placement.num_ranks} ranks, layer of {E_pad} "
+                         f"on {mo}")
+    expert_map = hot_rows = None
+    if placement is not None:
+        expert_map = torch.as_tensor(placement.perm, device=x.device)
+        if placement.hot_experts and sequence:
+            if hot_weights is None:
+                raise ValueError("a placement with replicated experts "
+                                 "needs their hot_weights")
+            hot_rows = torch.as_tensor(
+                [placement.perm[e] for e in placement.replicated],
+                device=x.device)
+    else:
+        hot_weights = None
+    xf = x.reshape(-1, M)
+    T_loc = xf.shape[0]
+    # the GATE task: router dispatch into capacity buffers aligned so
+    # each of the r1·r2 (stream, chunk) slices is a multiple of the m_e
+    # the solver modeled; capacity only rounds up
+    cap = moe_lib.expert_capacity(T_loc, mcfg, E_pad,
+                                  multiple_of=program.capacity_multiple)
+    info = moe_lib.moe_dispatch({"router": params["router"]}, xf, mcfg, cap,
+                                E_pad, expert_map=expert_map)
+    shared = params.get("shared")
+    shared_fn = None if shared is None else (lambda xs: mlp_apply(shared,
+                                                                 xs))
+    if sequence:
+        out, shared_out = _graph_expert_alltoall(
+            program, info.buffers, params["experts"], groups,
+            shared_fn=shared_fn, shared_x=xf, hot_weights=hot_weights,
+            hot_rows=hot_rows)
+        y = moe_lib.moe_combine(info, out, T_loc, x.dtype)
+    else:
+        # each peer combines only ITS experts' rows into the dense [T, M]
+        # output; the transport is one all_reduce of that
+        E_loc = E_pad // mo
+        lo = groups.expert_rank * E_loc
+        local_out, shared_out = _graph_replicated_experts(
+            program, info.buffers[lo:lo + E_loc], params["experts"],
+            shared_fn=shared_fn, shared_x=xf)
+        full = local_out.new_zeros((E_pad,) + local_out.shape[1:])
+        full[lo:lo + E_loc] = local_out
+        y = moe_lib.moe_combine(info, full, T_loc, x.dtype)
+        dist.all_reduce(y, group=groups.expert)
+    if shared_out is not None:
+        y = y + shared_out
+    aux = None
+    if with_aux:
+        # device mean: exact over distinct shards, unbiased under
+        # replication
+        aux = info.aux.clone()
+        dist.all_reduce(aux, group=groups.world)
+        aux = aux / groups.world_size
+    return y.reshape(Bl, Sl, M), aux

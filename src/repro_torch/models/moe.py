@@ -147,9 +147,9 @@ class DispatchInfo(NamedTuple):
     buffers: torch.Tensor     # [E, C, M] dispatched tokens
     combine: torch.Tensor     # [T, k] combine weights (drops zeroed)
     slot: torch.Tensor        # [T, k] slot within expert buffer (C = drop)
-    experts: torch.Tensor     # [T, k] expert (buffer row) ids
+    experts: torch.Tensor     # [T, k] PHYSICAL expert (buffer row) ids
     aux: torch.Tensor
-    load: torch.Tensor        # [E] token-assignment counts
+    load: torch.Tensor        # [E] token-assignment counts, LOGICAL ids
     dropped: torch.Tensor     # []  capacity-overflow assignments (int32)
 
 
@@ -164,13 +164,17 @@ def expert_capacity(num_tokens: int, mcfg: MoEConfig,
 
 
 def moe_dispatch(params, xf, mcfg: MoEConfig, capacity: int,
-                 num_experts_padded: int = 0) -> DispatchInfo:
+                 num_experts_padded: int = 0,
+                 expert_map: Optional[torch.Tensor] = None) -> DispatchInfo:
     """Route and scatter tokens into per-expert buffers [E, C, M].
 
     Slots are assigned by a cumulative sum in TOKEN order (token t's k-th
     choice before token t+1's), so the kept and dropped assignments are
     exactly the reference's; an assignment past ``capacity`` goes to the
-    scratch slot C, which is cut off."""
+    scratch slot C, which is cut off. ``expert_map`` is an optional [E_pad]
+    logical -> physical permutation (a ``Placement.perm``): tokens routed
+    to logical expert e land in buffer row ``expert_map[e]``; ``load``
+    stays in logical ids."""
     T, M = xf.shape
     k = mcfg.top_k
     E_pad = num_experts_padded or mcfg.num_experts
@@ -178,6 +182,9 @@ def moe_dispatch(params, xf, mcfg: MoEConfig, capacity: int,
     experts = routing.experts
     flat = F.one_hot(experts.reshape(T * k), E_pad)            # [Tk, E]
     load = flat.sum(dim=0).float()                             # [E]
+    if expert_map is not None:
+        experts = expert_map.to(experts.device, torch.long)[experts]
+        flat = F.one_hot(experts.reshape(T * k), E_pad)
     pos = torch.cumsum(flat, dim=0) - flat
     slot = (pos * flat).sum(-1).reshape(T, k)                  # [T, k]
     keep = slot < capacity

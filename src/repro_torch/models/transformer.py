@@ -16,6 +16,12 @@ Execution modes:
   prefill()      full-sequence + cache fill
   decode_step()  one token with cache (attention cache rows are written in
                  place; dense or, with ``block_tables``, paged KV)
+
+MoE layers dispatch through ``moe_impl``: "dense" (exact all-experts
+oracle), "capacity" (GShard capacity dispatch, one device) or "dep" (the
+FinDEP-scheduled expert-parallel walk of ``repro_torch.core.dep`` over the
+context's ``DepGroups``; the schedule, an ``ExecProgram``, is passed per
+call as ``plan=``).
 """
 from __future__ import annotations
 
@@ -41,27 +47,29 @@ MOE_IMPLS = ("dense", "capacity", "dep")
 
 @dataclass(frozen=True)
 class ExecutionContext:
-    """Immutable execution template: which attention and MoE paths run.
+    """Immutable execution template: which attention and MoE paths run,
+    and the process groups of the DEP path. Schedules are not part of
+    it: the plan flows through each model call.
 
     attn_impl: "xla" (plain masked SDPA), "flash" (flash kernel for
     prefill) or "decode_kernel" (flash kernel for prefill, ragged decode
-    kernel for decode — the serving default). moe_impl: "dense" or
-    "capacity"; "dep" is the expert-parallel executor, not ported yet."""
+    kernel for decode — the serving default). moe_impl: "dense",
+    "capacity" or "dep", which needs ``groups`` (a
+    ``repro_torch.core.dep.DepGroups``)."""
 
     attn_impl: str = "xla"
     moe_impl: str = "capacity"
+    groups: Optional[Any] = None
 
     def __post_init__(self):
         if self.attn_impl not in attn.ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r} not in "
                              f"{attn.ATTN_IMPLS}")
-        if self.moe_impl == "dep":
-            raise NotImplementedError(
-                "moe_impl='dep' (the DEP executor, repro/core/dep.py) is not "
-                "ported yet: ROADMAP Queue 1 item 4")
         if self.moe_impl not in MOE_IMPLS:
             raise ValueError(f"moe_impl {self.moe_impl!r} not in "
                              f"{MOE_IMPLS}")
+        if (self.moe_impl == "dep") != (self.groups is not None):
+            raise ValueError("moe_impl='dep' and only it takes groups")
 
 
 def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -116,19 +124,33 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
     raise ValueError(kind)
 
 
-def _apply_moe(p, cfg: ModelConfig, h, ctx: ExecutionContext):
+def _apply_moe(p, cfg: ModelConfig, h, ctx: ExecutionContext, plan=None):
+    """Returns (y, aux); ``plan`` reaches only the DEP path, whose aux
+    (an all_reduce) is skipped: serving discards it."""
     if ctx.moe_impl == "dense":
         return moe_lib.moe_apply_dense(p["moe"], h, cfg.moe)
-    return moe_lib.moe_apply_capacity(p["moe"], h, cfg.moe)
+    if ctx.moe_impl == "capacity":
+        return moe_lib.moe_apply_capacity(p["moe"], h, cfg.moe)
+    from repro_torch.core import dep as dep_lib
+    if ctx.groups.expert_size > 1 and dep_lib.seq_mode(h.shape[1],
+                                                      ctx.groups.expert_size):
+        raise NotImplementedError(
+            "the model does not split a sequence over the expert axis: its "
+            "DEP layers run on an expert group of one rank, or in "
+            "replicated-token decode")
+    y, _ = dep_lib.moe_apply_dep(p["moe"], h, cfg.moe, ctx.groups,
+                                 plan=plan, with_aux=False)
+    return y, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def apply_layer(p, cfg: ModelConfig, kind: str, x, positions, cache,
                 mode: str, ctx: ExecutionContext, lengths=None,
-                paged=None):
+                paged=None, plan=None):
     """Returns (x, new_cache, aux_loss). ``lengths`` is the decode-mode
     per-slot KV ledger vector shared by every attention layer; ``paged``
     is the decode step's paged-KV addresses (``attn.paged_address``, also
-    shared: one table addresses every layer's page pool)."""
+    shared: one table addresses every layer's page pool); ``plan`` is the
+    DEP schedule of every MoE layer."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     if kind in ("mlstm", "slstm"):
@@ -164,7 +186,7 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, positions, cache,
     x = x + a
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
     if kind == "attn_moe":
-        y, aux = _apply_moe(p, cfg, h, ctx)
+        y, aux = _apply_moe(p, cfg, h, ctx, plan)
     else:
         y = mlp_apply(p["mlp"], h)
     return x + y, cache, aux
@@ -226,10 +248,11 @@ class Model:
         return x.float() @ params["lm_head"]["kernel"].float()
 
     def prefill(self, params, tokens, seq_budget: Optional[int] = None,
-                last_positions=None):
+                last_positions=None, plan=None):
         """tokens: [B, S] (right-padded when batching several requests).
         ``last_positions`` ([B] int, optional) takes each row's logits at
-        its own last real token instead of the padded bucket end. Returns
+        its own last real token instead of the padded bucket end. ``plan``
+        is the DEP schedule of this call's MoE layers. Returns
         (logits [B,1,V], caches of capacity ``seq_budget``). The readout
         runs only on the positions it returns (the reference computes all
         S and then gathers: the same values)."""
@@ -243,7 +266,7 @@ class Model:
         for i, kind in enumerate(self.kinds):
             x, caches[i], _ = apply_layer(params["layers"][i], cfg, kind, x,
                                           positions, caches[i], "prefill",
-                                          self.ctx)
+                                          self.ctx, plan=plan)
         if last_positions is not None:
             pos = torch.as_tensor(last_positions, device=self.device).long()
             x = x[torch.arange(B, device=self.device), pos][:, None]
@@ -253,7 +276,7 @@ class Model:
         return self._readout(params, x), caches
 
     def decode_step(self, params, tokens, caches, lengths=None,
-                    block_tables=None):
+                    block_tables=None, plan=None):
         """tokens: [B, 1] -> (logits [B,1,V], caches). ``lengths`` ([B]
         int32, optional) are the per-slot context lengths from the KV
         ledger, shared by every attention layer (mask source and the
@@ -261,9 +284,10 @@ class Model:
         max_blocks], optional) is the paged-KV page map; one table serves
         every attention layer, since page p of each layer's pool belongs
         to the same logical block, so the step's page addresses are worked
-        out once here. None = dense. The caches' K/V rows and the mLSTM
-        matrix states are written in place; the returned list holds the
-        advanced indices and the other new recurrent states."""
+        out once here. None = dense. ``plan`` is the DEP schedule of
+        every MoE layer. The caches' K/V rows and the mLSTM matrix states
+        are written in place; the returned list holds the advanced
+        indices and the other new recurrent states."""
         cfg = self.cfg
         x = embedding_apply(params["embed"], tokens.to(self.device),
                             self.dtype)
@@ -279,7 +303,7 @@ class Model:
         for i, kind in enumerate(self.kinds):
             x, nc, _ = apply_layer(params["layers"][i], cfg, kind, x, None,
                                    caches[i], "decode", self.ctx,
-                                   lengths=lengths, paged=paged)
+                                   lengths=lengths, paged=paged, plan=plan)
             new_caches.append(nc)
         x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
         return self._readout(params, x), new_caches

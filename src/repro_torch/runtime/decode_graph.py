@@ -11,17 +11,27 @@ stays fixed and a CUDA graph captures it as it is. The engine runs the
 same function eagerly when the graph is off and on the CPU, so the CPU
 tests cover what the card captures.
 
-``DecodeGraphs`` keeps one captured graph per ``GraphKey``. A replay does
-not pass through the kernels' Python wrappers, so it adds the launches its
-capture made to their counts (``kernels.add_launch_counts``); the warm-up
-and capture calls themselves are taken back out of the counts.
+``DecodeGraphs`` keeps one captured graph per ``GraphKey``: the sampling
+variant and, under DEP, the ``ExecProgram`` the MoE layers walk, so plans
+that lower to the same program share a graph and the captures are bounded
+by the distinct programs. The engine warms the graphs up once, before any
+cache is live: the step runs eagerly on caches it then drops, for the
+keys it can name up front, which loads the kernel library and makes the
+libraries' handles and workspaces and the DEP communicator, comm stream
+and events. Every key, those first seen mid-serve included, is then
+captured at its first use with no eager run: a capture records the step
+and runs nothing, so it touches no live state. A replay does not pass
+through the kernels' Python wrappers, so it adds the launches its capture
+made to their counts (``kernels.add_launch_counts``); the warm-up and
+capture calls themselves are taken back out of the counts.
 """
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
 from functools import partial
-from typing import Any, Callable, Dict, Iterable, NamedTuple, Tuple
+from typing import (Any, Callable, Dict, Iterable, NamedTuple, Optional,
+                    Tuple)
 
 import torch
 
@@ -32,15 +42,12 @@ from repro_torch.runtime.sampler import sample
 class GraphKey(NamedTuple):
     """The static key of one captured decode step, laid out like the
     reference's ``static_argnames`` ("plan", "use_topk", "placement",
-    "cap_scale", "collect_stats"). The port has no planner, placement or
-    MoE statistics yet (ROADMAP Queue 1 items 3, 4 and 7), so it mirrors
-    ``use_topk`` only; those items add their fields here."""
+    "cap_scale", "collect_stats"): ``plan`` is the DEP ``ExecProgram``
+    (hashable; None when DEP is off). Expert placement and MoE statistics
+    are not ported yet, so their fields are not here."""
 
     use_topk: bool
-
-
-#: every key the port's engine asks for
-GRAPH_KEYS = (GraphKey(use_topk=False), GraphKey(use_topk=True))
+    plan: Optional[Any] = None
 
 
 class StagedBuffer:
@@ -82,16 +89,17 @@ def commit_states(caches, new_caches) -> None:
 
 
 def decode_step(model, params, caches, tokens, lengths, table, temps,
-                top_ks, generator, use_topk: bool):
+                top_ks, generator, use_topk: bool, plan=None):
     """One engine decode step over every slot. ``tokens`` ([N, 1] int64),
     ``lengths`` ([N] int32), ``table`` (int32 [N, max_blocks] under paged
     KV, else None), ``temps`` and ``top_ks`` are the engine's static
-    buffers; the step reads no value on the host and ends with the states
-    in ``caches``' own tensors and the sampled tokens in ``tokens``.
-    Returns (next tokens int64 [N], logits [N, 1, V])."""
+    buffers; ``plan`` is the DEP program of the MoE layers. The step reads
+    no value on the host and ends with the states in ``caches``' own
+    tensors and the sampled tokens in ``tokens``. Returns (next tokens
+    int64 [N], logits [N, 1, V])."""
     logits, new_caches = model.decode_step(params, tokens, caches,
                                            lengths=lengths,
-                                           block_tables=table)
+                                           block_tables=table, plan=plan)
     commit_states(caches, new_caches)
     nxt = sample(generator, logits[:, -1], temps,
                  top_ks if use_topk else 0)
@@ -100,7 +108,7 @@ def decode_step(model, params, caches, tokens, lengths, table, temps,
 
 
 def bind_step(model, params, kv, tokens, lengths, temps, top_ks,
-              generator, paged: bool) -> Callable[["GraphKey"], Tuple]:
+              generator, paged: bool) -> Callable[[GraphKey], Tuple]:
     """``decode_step`` bound to one engine's model, KV manager and static
     buffers, as a function of the key: what a graph captures and what the
     eager path runs. It holds no reference to the engine, so an engine
@@ -110,7 +118,7 @@ def bind_step(model, params, kv, tokens, lengths, temps, top_ks,
     def step(key: GraphKey):
         table = kv.table_array() if paged else None
         return decode_step(model, params, kv.caches, tokens, lengths, table,
-                           temps, top_ks, generator, key.use_topk)
+                           temps, top_ks, generator, key.use_topk, key.plan)
     return step
 
 
@@ -193,9 +201,10 @@ class DecodeGraphs:
     def warm_up(self, keys: Iterable[GraphKey]) -> None:
         """Run each key's step once, eagerly, on the capture stream, as
         PyTorch asks before a capture: the first calls build and load the
-        kernel library and create the libraries' handles and workspaces.
-        The launches are not counted. The step changes the state it runs
-        on, so the caller runs this on state that it then drops."""
+        kernel library, create the libraries' handles and workspaces and,
+        under DEP, the communicator, the comm stream and its events. The
+        launches are not counted. The step changes the state it runs on,
+        so the caller runs this on state that it then drops."""
         t0 = time.perf_counter()
         with _uncounted(), self._on_capture_stream():
             for key in keys:

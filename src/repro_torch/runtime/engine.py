@@ -1,12 +1,13 @@
 """Continuous-batching serving engine (PyTorch counterpart of
-``repro.runtime.engine`` with no plan policy): a thin loop over the
-batch/KV runtime objects. Each iteration is
+``repro.runtime.engine``): a thin loop over the batch/KV runtime objects.
+Each iteration is
 
   1. ``BatchScheduler.build_step(waiting, kv)``: reject oversized
      prompts, admit under the admission policy, allocate KV slots, group
      admitted requests by padded prefill bucket;
-  2. one batched ``model.prefill`` per ``PrefillGroup``, copied into the
-     per-slot caches by the ``KVCacheManager``;
+  2. batched ``model.prefill`` calls per ``PrefillGroup`` (chunked by the
+     resolved plan's r1·m_a granularity), copied into the per-slot caches
+     by the ``KVCacheManager``;
   3. under ``kv_layout="paged"``, a tail page for every live slot's next
      KV write, preempting the cheapest-to-recompute slot when the pool is
      exhausted;
@@ -17,33 +18,69 @@ batch/KV runtime objects. Each iteration is
 On a CUDA device the decode step is a CUDA graph, captured once per
 static key and replayed at every step: the counterpart of the reference's
 jitted decode. ``decode_graph=False`` runs the same step function eagerly
-(the CPU always does). The engine runs on one device with
-``moe_impl="capacity"``, over dense or paged KV (``runtime/paging.py``);
+(the CPU always does). KV is dense or paged (``runtime/paging.py``);
 recurrent (ssm and hybrid) models keep per-slot states and prefill by
-exact prompt length. The planner (``PlanCache`` and policies), expert
-placement, profiling and observability are ROADMAP items of later slices
-and are not accepted as arguments.
+exact prompt length.
+
+Scheduling goes through a pluggable ``repro_torch.sched.SchedulePolicy``
+behind a ``PlanCache`` (``plan_policy=``), the paper's online phase: every
+prefill group resolves a plan for its (bucket, batch) shape and every
+decode step one for the KV ledger's ``OccupancySummary``. The plans are
+always resolved (``resolved_plans()``), but reach the model only when
+the DEP executor runs: ``ep_group=`` (a ``core.dep.DepGroups`` of one
+rank) turns the MoE layers into the DEP walk of each plan's
+``ExecProgram``, which also keys the decode graph; without it the MoE
+layers run the capacity path. An expert group of several ranks (sharded
+weights, one process per card) is not served yet and raises.
+Expert placement, the measured cost profile and observability are not
+ported yet; their arguments raise (``_NOT_PORTED``).
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
-from typing import Dict, List, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch import DeviceLike, generator_for, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.dep import as_exec_program
+from repro_torch.core.solver import Plan
+from repro_torch.core.taskgraph import ATTN, LoweringSpec, lower
 from repro_torch.models import build_model
 from repro_torch.models.transformer import ExecutionContext
 from repro_torch.runtime.batching import BatchScheduler, PrefillGroup, StepPlan
-from repro_torch.runtime.decode_graph import (GRAPH_KEYS, CudaGraph,
-                                              DecodeGraphs, GraphKey,
-                                              StagedBuffer, bind_step)
+from repro_torch.runtime.decode_graph import (CudaGraph, DecodeGraphs,
+                                              GraphKey, StagedBuffer,
+                                              bind_step)
 from repro_torch.runtime.kv import KVCacheManager
 from repro_torch.runtime.paging import PagedKVCacheManager
 from repro_torch.runtime.request import Request, RequestState
+from repro_torch.sched import PlanCache, SchedulePolicy
 from repro_torch.sched.occupancy import bucket_length
+
+#: arguments of the reference's engine that the port does not take yet,
+#: with the ROADMAP Queue 1 item that brings each
+_NOT_PORTED = {
+    "profile": 5, "calibrate": 5, "profile_store": 5, "telemetry": 5,
+    "drift_threshold": 5, "drift_min_samples": 5, "drift_recalibrate": 5,
+    "recalibrate_max_age_s": 5,
+    "tracer": 6, "metrics": 6,
+    "replicate_hot_k": 7, "rebalance_threshold": 7, "track_expert_load": 7,
+    "rebalance_min_observations": 7, "max_capacity_scale": 7,
+}
+
+
+def prefill_split(plan: Optional[Plan], n: int) -> Tuple[int, int]:
+    """(requests per prefill call, micro-batch streams of each call's DEP
+    program) for a group of ``n`` under ``plan``: the lowered graph's
+    micro-batches one plan iteration admits, times the samples per
+    micro-batch. No plan: one call of one stream."""
+    if plan is None:
+        return n, 1
+    n_mb = len(lower(plan, LoweringSpec(T=1)).tasks_of(ATTN, layer=0))
+    return max(min(n_mb * max(int(plan.m_a), 1), n), 1), n_mb
 
 
 @dataclass
@@ -61,6 +98,9 @@ class EngineStats:
     graph_captures: int = 0
     graph_replays: int = 0
     graph_s: float = 0.0
+    # the DEP program of every model call, in order: ("prefill" or
+    # "decode", ExecProgram); empty while DEP is off
+    programs: List[Tuple[str, object]] = field(default_factory=list)
 
 
 class ServingEngine:
@@ -73,7 +113,16 @@ class ServingEngine:
     hysteresis) and preemption by recompute; it needs a full-attention
     GQA dense or moe model. ``decode_graph`` runs the decode step as a
     CUDA graph: None means on for a CUDA device and off on the CPU, True
-    on the CPU raises, False runs the step eagerly."""
+    on the CPU raises, False runs the step eagerly.
+
+    ``plan_policy`` is any ``SchedulePolicy`` (a ``PlanCache`` of
+    ``plan_cache_capacity`` entries memoizes it); ``ep_group`` the
+    ``DepGroups`` of the DEP executor, None for no DEP (the reference's
+    ``mesh=None``). The group must be of one rank (``expert_size`` 1):
+    the engine holds every expert's weights, so a wider group raises. ``interleave`` is the DEP walk's emission, "streams"
+    (scheduled start order) or "off" (stream after stream): the same
+    values either way. ``validate`` runs ``analysis.graphcheck`` on every
+    distinct program before it is used."""
 
     def __init__(self, cfg: ModelConfig, params=None, *, num_slots: int = 4,
                  max_context: int = 4096,
@@ -86,7 +135,22 @@ class ServingEngine:
                  kv_num_blocks: Optional[int] = None,
                  dtype=torch.float32, seed: int = 0,
                  device: DeviceLike = None,
-                 decode_graph: Optional[bool] = None):
+                 decode_graph: Optional[bool] = None,
+                 plan_policy: Optional[SchedulePolicy] = None,
+                 plan_cache_capacity: Optional[int] = None,
+                 ep_group=None,
+                 interleave: str = "streams",
+                 validate: bool = False,
+                 **not_ported):
+        for name in not_ported:
+            if name not in _NOT_PORTED:
+                raise TypeError(f"unexpected argument {name!r}")
+            raise NotImplementedError(
+                f"{name}= is not ported yet (ROADMAP Queue 1 item "
+                f"{_NOT_PORTED[name]})")
+        if interleave not in ("off", "streams"):
+            raise ValueError(f"interleave must be 'off' or 'streams', "
+                             f"got {interleave!r}")
         self.device = resolve_device(device)
         cuda = self.device.type == "cuda"
         if decode_graph and not cuda:
@@ -110,7 +174,25 @@ class ServingEngine:
                     f"decoder (family={cfg.family!r}, "
                     f"attention={cfg.attention!r}, "
                     f"mla={cfg.mla_kv_lora_rank})")
-        ctx = ExecutionContext(attn_impl=attn_impl, moe_impl="capacity")
+        if ep_group is not None and ep_group.expert_size > 1:
+            raise NotImplementedError(
+                f"an expert group of {ep_group.expert_size} ranks: the "
+                "engine serves DEP at an expert group of one rank only "
+                "(sharded serving is ROADMAP Queue 1 item 11)")
+        self.plan_policy = plan_policy
+        self.plan_cache = (PlanCache(plan_policy,
+                                     capacity=plan_cache_capacity)
+                           if (plan_policy is not None and cfg.is_moe)
+                           else None)
+        # plans reach the model only when the DEP executor can act on them
+        self._dep_active = ep_group is not None and cfg.is_moe
+        self.interleave = interleave
+        self.validate = bool(validate)
+        self._validated_programs: set = set()
+        ctx = ExecutionContext(
+            attn_impl=attn_impl,
+            moe_impl="dep" if self._dep_active else "capacity",
+            groups=ep_group if self._dep_active else None)
         self.model = build_model(cfg, ctx=ctx, dtype=dtype,
                                  device=self.device)
         self.params = params if params is not None else self.model.init(
@@ -177,22 +259,70 @@ class ServingEngine:
         self.finished.append(req)
 
     def _ensure_caches(self) -> None:
-        """Make the caches; with the graph on, warm it up first: each key's
-        step runs once eagerly on caches that are then dropped for fresh
-        ones (nothing is live yet), and the token buffer and the sampling
-        generator are put back, so the warm-up leaves no trace."""
+        """Make the caches; with the graph on, warm it up first: the step
+        of every key named up front (both sampling variants; under DEP on
+        the unchunked program) runs once eagerly on caches that are then
+        dropped for fresh ones (nothing is live yet), and the token buffer
+        and the sampling generator are put back, so the warm-up leaves no
+        trace. Keys met later are captured without an eager run."""
         if self.kv.caches is None and self._graphs is not None:
             self.kv.ensure_caches()
             rng = self.generator.get_state()
-            self._graphs.warm_up(GRAPH_KEYS)
+            program = as_exec_program(None) if self._dep_active else None
+            self._graphs.warm_up([GraphKey(use_topk, program)
+                                  for use_topk in (False, True)])
             self.generator.set_state(rng)
             self.last_tokens.zero_()
             self.kv.caches = None
         self.kv.ensure_caches()
 
+    # ------------------------------------------------------------------
+    # scheduling
+    # ------------------------------------------------------------------
+    def _resolve_plan(self, phase: str, seq_bucket: Optional[int] = None,
+                      batch_per_device: Optional[int] = None,
+                      occupancy=None) -> Optional[Plan]:
+        if self.plan_cache is None:
+            return None
+        return self.plan_cache.get(phase, seq_bucket, batch_per_device,
+                                   occupancy=occupancy)
+
+    def _exec_program(self, plan: Optional[Plan],
+                      streams: Optional[int] = None):
+        """The ``ExecProgram`` the DEP executor walks for ``plan``
+        (hashable, so plans that lower to the same program share one
+        decode graph). ``streams`` overrides the stream split: a prefill
+        call covers the lowered chunk's micro-batches; decode uses the
+        plan's r1. None when DEP is off (after validation, if on)."""
+        if plan is None or (not self._dep_active and not self.validate):
+            return None
+        program = plan.exec_program(streams=streams,
+                                    interleave=self.interleave)
+        if self.validate:
+            self._check_program(program)
+        return program if self._dep_active else None
+
+    def _check_program(self, program) -> None:
+        """Static-verify an ExecProgram (see ``validate``), once per
+        distinct program."""
+        if program in self._validated_programs:
+            return
+        from repro_torch.analysis import AnalysisError
+        from repro_torch.analysis.graphcheck import check_exec_program
+        violations = check_exec_program(program)
+        if violations:
+            raise AnalysisError(violations)
+        self._validated_programs.add(program)
+
+    def resolved_plans(self) -> Dict[Any, Plan]:
+        """Every resolution so far: prefill plans keyed (phase, bucket,
+        batch), decode plans keyed (phase, OccupancySummary)."""
+        return self.plan_cache.entries() if self.plan_cache else {}
+
     def _prefill_group(self, group: PrefillGroup):
-        """Run one same-bucket group as one batched prefill and copy the
-        rows into the per-slot caches."""
+        """Run one same-bucket group as batched prefill calls, chunked by
+        the resolved plan's r1·m_a granularity (the samples one plan
+        iteration admits), and copy the rows into the per-slot caches."""
         self._ensure_caches()
         if group.bucket == 0:
             # empty/single-token prompts: nothing to prefill, the (only)
@@ -201,27 +331,37 @@ class ServingEngine:
                 self.kv.reset_slot(slot)
                 self._activate(slot, req, prefilled=0)
             return
-        reqs, slots = group.requests, group.slots
-        toks = torch.zeros((len(reqs), group.bucket), dtype=torch.long)
-        lengths = []
-        token_rows = []
-        for j, req in enumerate(reqs):
-            feed = req.resume_tokens     # prompt (+ preempted output)
-            Lp = len(feed) - 1
-            toks[j, :Lp] = torch.as_tensor(feed[:Lp], dtype=torch.long)
-            lengths.append(Lp)
-            token_rows.append(feed[:Lp])
-        t0 = time.perf_counter()
-        _, prefilled = self.model.prefill(self.params, toks.to(self.device),
-                                          seq_budget=self.max_context)
-        # under paged KV the token ids key the prefix cache: shared full
-        # blocks map to already-resident pages and skip the copy
-        self.kv.merge_prefill(slots, prefilled, lengths, tokens=token_rows)
-        self._sync()
-        self.stats.prefill_s += time.perf_counter() - t0
-        self.stats.prefill_calls += 1
-        for slot, req, Lp in zip(slots, reqs, lengths):
-            self._activate(slot, req, prefilled=Lp)
+        plan = self._resolve_plan("prefill", group.bucket,
+                                  len(group.requests))
+        chunk, n_mb = prefill_split(plan, len(group.requests))
+        program = self._exec_program(plan, streams=n_mb)
+        for ofs in range(0, len(group.requests), chunk):
+            reqs = group.requests[ofs:ofs + chunk]
+            slots = group.slots[ofs:ofs + chunk]
+            toks = torch.zeros((len(reqs), group.bucket), dtype=torch.long)
+            lengths = []
+            token_rows = []
+            for j, req in enumerate(reqs):
+                feed = req.resume_tokens     # prompt (+ preempted output)
+                Lp = len(feed) - 1
+                toks[j, :Lp] = torch.as_tensor(feed[:Lp], dtype=torch.long)
+                lengths.append(Lp)
+                token_rows.append(feed[:Lp])
+            t0 = time.perf_counter()
+            _, prefilled = self.model.prefill(
+                self.params, toks.to(self.device),
+                seq_budget=self.max_context, plan=program)
+            # under paged KV the token ids key the prefix cache: shared
+            # full blocks map to already-resident pages and skip the copy
+            self.kv.merge_prefill(slots, prefilled, lengths,
+                                  tokens=token_rows)
+            self._sync()
+            self.stats.prefill_s += time.perf_counter() - t0
+            self.stats.prefill_calls += 1
+            if program is not None:
+                self.stats.programs.append(("prefill", program))
+            for slot, req, Lp in zip(slots, reqs, lengths):
+                self._activate(slot, req, prefilled=Lp)
 
     def _activate(self, slot: int, req: Request, prefilled: int):
         if req.admit_t is None:
@@ -263,16 +403,18 @@ class ServingEngine:
             self._prefill_group(group)
         return step_plan
 
-    def _decode_step(self, lengths, use_topk: bool) -> torch.Tensor:
+    def _decode_step(self, lengths, use_topk: bool,
+                     program=None) -> torch.Tensor:
         """Copy this step's per-slot ``lengths`` (the KV ledger's, which
         drive the attention mask and the ragged kernel's loop bound) and,
         under paged KV, a changed block table into the static buffers, then
-        replay the key's graph or run the step eagerly. Returns the next
-        tokens [N]; they are also in ``last_tokens``."""
+        replay the key's graph or run the step eagerly. ``program`` is the
+        step's DEP program. Returns the next tokens [N]; they are also in
+        ``last_tokens``."""
         self._lengths.load(lengths)
         if self._paged:
             self.kv.table_array()      # copies the table if it changed
-        key = GraphKey(use_topk=use_topk)
+        key = GraphKey(use_topk=use_topk, plan=program)
         run = self._graphs if self._graphs is not None else self._step
         nxt, self.last_logits = run(key)
         return nxt
@@ -346,10 +488,16 @@ class ServingEngine:
             if not live:
                 # capacity actions (preempt/cap) happened; not idle
                 return True
+        # the decode plan is solved on the ledger's live composition and
+        # re-resolved only when it changes
+        program = self._exec_program(self._resolve_plan(
+            "decode", occupancy=self.kv.occupancy()))
+        if program is not None:
+            self.stats.programs.append(("decode", program))
         use_topk = any(r is not None and r.top_k > 0 for r in self.slots)
         t0 = time.perf_counter()
         # dead slots decode as length 0
-        nxt = self._decode_step(self.kv.lengths(), use_topk)
+        nxt = self._decode_step(self.kv.lengths(), use_topk, program)
         toks = nxt.tolist()                # waits for the device
         self.stats.decode_s += time.perf_counter() - t0
         self.kv.note_decode(live)

@@ -22,8 +22,8 @@ from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.moe_gemm import ops as gemm_ops  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.runtime import Request, ServingEngine, sample  # noqa: E402
-from repro_torch.runtime.decode_graph import (GRAPH_KEYS,  # noqa: E402
-                                              DecodeGraphs, GraphKey)
+from repro_torch.runtime.decode_graph import (DecodeGraphs,  # noqa: E402
+                                              GraphKey)
 from test_torch_paging import BS, _engines, _smoke_kw  # noqa: E402
 
 #: prompt lengths per family: pages of 16 hold the 45-token prompt's
@@ -119,7 +119,7 @@ class _FunctionalEngine(ServingEngine):
     lengths and table tensors every step, and the new caches and tokens
     rebound after it."""
 
-    def _decode_step(self, lengths, use_topk):
+    def _decode_step(self, lengths, use_topk, program=None):
         table = (torch.from_numpy(self.kv._tables.copy()) if self._paged
                  else None)
         logits, caches = self.model.decode_step(
@@ -244,7 +244,8 @@ def test_replays_add_captured_launches(monkeypatch):
     assert outs[0] == outs[1]
     assert stats[0].graph_replays == 0
     graphs = eng._graphs.graphs
-    assert set(graphs) == set(GRAPH_KEYS)     # the top-k request took both
+    # the top-k request took both keys
+    assert set(graphs) == {GraphKey(use_topk=False), GraphKey(use_topk=True)}
     assert stats[1].graph_captures == len(graphs) == 2
     assert stats[1].graph_replays == stats[1].steps
     assert graphs[GraphKey(use_topk=False)].launches == {

@@ -91,8 +91,14 @@ def test_attention_impls_agree(impl):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the DEP path is ported; it needs its process groups
+    with pytest.raises(ValueError, match="groups"):
         ExecutionContext(moe_impl="dep")
+    from repro_torch.runtime import ServingEngine
+    for arg in ("tracer", "profile", "replicate_hot_k"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ServingEngine(get_smoke_config("qwen2-moe-a2.7b"), device="cpu",
+                          **{arg: 1})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_smoke_config("qwen2-1.5b").reduced(
             attention="mla", mla_kv_lora_rank=32),

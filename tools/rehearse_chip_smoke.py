@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Rehearse chip_smoke.py's serve phases on the CPU, at smoke size.
 
-The serve, paged, pressure, xlstm and hybrid phases run as on the card,
-with the smoke configs in place of the full ones and every engine on the
-CPU. An engine that would capture its decode step gets ``EagerGraph``,
+The serve, paged, pressure, dep, xlstm and hybrid phases run as on the
+card, with the smoke configs in place of the full ones, every engine on
+the CPU and the dep phase's expert group on gloo (one rank). An engine
+that would capture its decode step gets ``EagerGraph``,
 a stand-in for ``decode_graph.CudaGraph`` whose replay runs the captured
 step again and copies its outputs into the captured ones, so that the
-graph path's bookkeeping (warm-up on dropped caches, one capture per
-key, a replay per step, launches added per replay) and chip_smoke's
-checks of it run. The kernel wrappers count their CPU calls here, as
-their CUDA calls count on the card; the profiles are skipped (they read
-device time). This finds wrong paths, shapes and checks before a chip
-call; it measures nothing.
+graph path's bookkeeping (one warm-up before the serve, one capture per
+key, a replay per step, launches added per replay)
+and chip_smoke's checks of it run. The kernel wrappers count their CPU
+calls here, as their CUDA calls count on the card; the profiles and
+timings are skipped (they read device time). This finds wrong paths,
+shapes and checks before a chip call; it measures nothing.
 
 Run from the repository root:  python3 tools/rehearse_chip_smoke.py
 """
@@ -102,6 +103,9 @@ def main() -> int:
     chip_smoke.ServingEngine = engine
     chip_smoke.profile_decode = lambda *a, **k: None
     chip_smoke.profile_prefill = lambda *a, **k: None
+    chip_smoke.time_dep_chunks = lambda *a, **k: None
+    chip_smoke.time_dep_alltoall = lambda *a, **k: None
+    chip_smoke.DEP_BACKEND = "gloo"
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         setattr(torch.cuda, name, lambda *a, **k: None)
     torch.cuda.memory_allocated = lambda *a, **k: 0
@@ -109,6 +113,7 @@ def main() -> int:
     torch.cuda.max_memory_reserved = lambda *a, **k: 0
     t0 = time.perf_counter()
     chip_smoke.phase_serve()
+    chip_smoke.phase_serve_dep()
     chip_smoke.phase_serve_xlstm()
     chip_smoke.phase_serve_hybrid()
     print(f"rehearsal: every serve phase passed on the CPU in "
