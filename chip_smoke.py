@@ -27,7 +27,18 @@
      ring     recurrentgemma-9b at full width cut to one (rec, rec, attn)
               group, f32 weights: teacher-forced decode across the local
               attention ring's wrap against prefill of the longer prompt;
-  4. serve    ServingEngine with the full qwen2-moe-a2.7b config (24
+  4. calibrate  the port's microbenchmarks (``profiling.calibrate``) on the
+              card at bf16 over the card's sweeps: the expert path's
+              GEMMs (``torch.matmul``), the flash kernel (attention) and
+              the split-KV decode kernel (decode), and the copy proxy for
+              the all_to_all (one card has no wire); print every
+              sample, alpha, beta, R^2, proxy flag and retries, and the
+              rate beta implies beside the card's peak; fail if a
+              non-proxy fit has R^2 under 0.9 or beta <= 0, if either
+              kernel's launches differ from the sweep's calls, or if the
+              profile stored in a fresh ``ProfileStore`` does not load
+              back bit for bit;
+     serve    ServingEngine with the full qwen2-moe-a2.7b config (24
               layers, bf16 weights drawn from a seed on the card): 16
               requests, 8 slots, max_context 1024, on three paths, each
               run with the decode step as a CUDA graph and with the
@@ -48,8 +59,11 @@
               paired decode-step timing takes turns between the dense
               graph, dense eager and paged graph engines;
      dep      the same model, weights and requests with the FinDEP
-              policy (PAPER_A6000 profile) and an NCCL expert group of
-              one rank: every MoE layer walks its plan's program (A2E /
+              policy on the profile the calibrate phase measured (its
+              plans printed beside the PAPER_A6000 ones at every prefill
+              (bucket, batch) and decode occupancy met) and an NCCL
+              expert group of one rank: every MoE layer walks its plan's
+              program (A2E /
               EXP / E2A per (stream, chunk), all_to_all on a comm
               stream); the expert GEMM must launch 24 x sum(r1·r2) of
               each step's programs; graph against eager (greedy tokens,
@@ -59,7 +73,19 @@
               is one segment, else within GEMM_TOL); plans, captures per
               key, a decode-step and a prefill profile, expert-GEMM ms
               per launch at the chunk widths, and a paired timing of the
-              DEP graph engine against the capacity graph engine;
+              DEP graph engine against the capacity graph engine; the
+              engine's telemetry (measured against predicted seconds, per
+              phase and per plan key);
+     drift    on the same weights and requests, a dep engine with a
+              drift threshold and a re-calibration whenever its store
+              is older than 0 s (polled every ``DRIFT_POLL_S``): the
+              calibration runs on the refresh worker, on its own stream,
+              while the engine serves; every request must finish, the
+              graph replay once per decode step and capture no key
+              twice, the expert GEMM launch 24 x sum(r1·r2), and at
+              least one re-calibration and one re-solve land before the
+              serve ends; drift events, re-solves, re-calibrations and
+              the programs first captured mid-serve are printed;
   5. xlstm    ServingEngine with the full xlstm-1.3b config (48 layers,
               42 mLSTM through the mLSTM scan kernels, 6 sLSTM): 16
               requests, 8 slots, max_context 1024, with the graph; held
@@ -85,9 +111,10 @@ CUDA device it exits non-zero and prints no result.
 
 Run from the repository root:  python3 chip_smoke.py
 (``--no-serve`` stops after phase 3 and the ring check: a quick check of
-new kernels.) ``python3 tools/rehearse_chip_smoke.py`` runs phases 4-6
-on the CPU at smoke size, with a stand-in for the CUDA graph and a gloo
-expert group.
+new kernels.) The calibration's profile store is a temporary directory
+under ``.repro-profiles/``, removed at the end.
+``python3 tools/rehearse_chip_smoke.py`` runs phases 4-6 on the CPU at
+smoke size, with a stand-in for the CUDA graph and a gloo expert group.
 """
 from __future__ import annotations
 
@@ -100,6 +127,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import weakref
 
@@ -107,8 +135,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import generator_for  # noqa: E402
 from repro_torch import kernels as kernel_lib  # noqa: E402
@@ -140,9 +168,12 @@ from repro_torch.kernels.rg_lru.ops import rg_lru_scan  # noqa: E402
 from repro_torch.kernels.rg_lru.ref import rg_lru_scan_ref  # noqa: E402
 from repro_torch.models import ExecutionContext, build_model  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.profiling import (ProfileKey, ProfileStore,  # noqa: E402
+                                   calibrate)
+from repro_torch.profiling.microbench import sweeps_for  # noqa: E402
 from repro_torch.runtime import Request, RequestState, ServingEngine  # noqa: E402
 from repro_torch.runtime.engine import prefill_split  # noqa: E402
-from repro_torch.sched import FinDEPPolicy  # noqa: E402
+from repro_torch.sched import FinDEPPolicy, PlanCache  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -1454,6 +1485,96 @@ def _to_numpy(tree):
 
 
 # ---------------------------------------------------------------------------
+# phase 4a: calibrate the cost model on the card
+# ---------------------------------------------------------------------------
+
+#: where and at what dtype the calibrate phase measures (the engine's
+#: serving dtype; the CPU rehearsal takes the CPU at f32)
+CAL_DEVICE = "cuda"
+CAL_DTYPE = torch.bfloat16
+#: the R^2 every non-proxy fit must reach (the reference's ``min_r2``)
+CAL_MIN_R2 = 0.9
+#: the card's peak rate per unit of each primitive's x: GEMM and
+#: attention in FLOP (2 per m·k·n; 2 per unit of N_h·B·S^2·(d_k+d_v) for
+#: the full square, of which a causal kernel does half), decode in bytes
+#: read, the copy proxy in bytes read and written (2 per byte)
+CAL_PEAK = {"gemm": (2, PEAK_FLOPS[torch.bfloat16], "FLOP/s"),
+            "attn": (2, PEAK_FLOPS[torch.bfloat16], "FLOP/s (full S^2)"),
+            "decode": (1, HBM_BYTES_PER_S, "B/s"),
+            "comm": (2, HBM_BYTES_PER_S, "B/s")}
+
+
+def sweep_calls(sweep, retries: int) -> int:
+    """Kernel calls of a sweep: warm-up and timed calls per sample (the
+    full sweep's 2 + 9), once and again per retry."""
+    return len(sweep) * (2 + 9) * (1 + retries)
+
+
+def phase_calibrate(store_dir: str):
+    """``calibrate()`` on the card at bf16 over the card's sweeps (full:
+    2 warm-up and 9 timed calls per sample), into a fresh store. Prints
+    each primitive's samples, fit, proxy flag, retries and implied rate;
+    fails on a non-proxy fit with R^2 under ``CAL_MIN_R2`` or beta <= 0,
+    on flash or decode-attention launches other than the sweeps' calls,
+    and unless the stored profile loads back bit for bit. Returns the
+    fitted profile."""
+    device = torch.device(CAL_DEVICE)
+    key = ProfileKey.for_host(None, CAL_DTYPE, device)
+    kernel_lib.reset_launch_counts()
+    res = calibrate(name=key.slug(), fast=False, dtype=CAL_DTYPE,
+                    device=device, min_r2=CAL_MIN_R2)
+    counts = kernel_lib.launch_counts()
+    hw = res.profile
+    print(f"[calibrate] {key.device_kind}, {CAL_DTYPE}: {res.wall_s:.2f} s "
+          f"wall; profile {hw.name!r}")
+    for kind, s in res.samples.items():
+        fit = getattr(hw, kind)
+        mult, peak, unit = CAL_PEAK[kind]
+        rate = mult / fit.beta if fit.beta > 0 else float("nan")
+        note = (" (proxy: an on-card copy, one card has no wire; plans "
+                "on it see transport as nearly free)" if kind == "comm"
+                and s.proxy else " (proxy)" if s.proxy else "")
+        print(f"[calibrate] {kind}: alpha {fit.alpha:.6e} s, beta "
+              f"{fit.beta:.6e} s/unit, R^2 {res.fit_r2[kind]:.6f}, proxy "
+              f"{s.proxy}, retries {res.retries[kind]}; beta implies "
+              f"{rate:.4e} {unit} against the card's peak {peak:.4e} "
+              f"({rate / peak:.1%}){note}")
+        print(f"[calibrate] {kind} samples (x, median ms): " + json.dumps(
+            [[x, t * 1e3] for x, t in zip(s.xs, s.ts)]))
+        if not s.proxy and res.fit_r2[kind] < CAL_MIN_R2:
+            fail(f"calibrate: {kind} fits with R^2 {res.fit_r2[kind]:.4f} "
+                 f"< {CAL_MIN_R2}")
+        if not s.proxy and fit.beta <= 0:
+            fail(f"calibrate: {kind} beta {fit.beta:.3e} <= 0")
+    sweeps = sweeps_for(device, fast=False)
+    # the CPU rehearsal times the plain versions, which count no launch
+    on_card = device.type == "cuda"
+    want = {"flash_attention": sweep_calls(
+                sweeps.attn, res.retries["attn"]) * on_card,
+            "decode_attention": sweep_calls(
+                sweeps.decode, res.retries["decode"]) * on_card}
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            fail(f"calibrate: {name} launched {n} times, the sweeps call it "
+                 f"{want.get(name, 0)} times")
+    store = ProfileStore(store_dir)
+    stored = store.put_calibration(res, key)
+    back = store.get(stored.name)
+    if (back.profile != hw or back.profile.as_dict() != hw.as_dict()
+            or back.fit_r2 != res.fit_r2 or back.key != key
+            or back.comm_proxy != res.comm_is_proxy
+            or back.samples != {k: v.as_xt()
+                                for k, v in res.samples.items()}):
+        fail("calibrate: the stored profile does not load back bit for bit")
+    print(f"[calibrate] launches {counts}; stored as {stored.name!r} and "
+          "loaded back bit for bit; " + json.dumps(dict(
+              key=key.as_dict(), profile=hw.as_dict(), fit_r2=res.fit_r2,
+              retries=res.retries, wall_s=res.wall_s,
+              comm_proxy=res.comm_is_proxy, launches=counts)))
+    return hw, counts
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serve the full-width models, one path at a time
 # ---------------------------------------------------------------------------
 
@@ -1825,13 +1946,13 @@ def compare_decode(engines, cfg, steps: int = 8, rounds: int = 2) -> None:
 DEP_BACKEND = "nccl"
 
 
-def dep_policy(cfg):
+def dep_policy(cfg, profile):
     """The reference's serving policy (``examples/serve_moe.py``): FinDEP
     on the paper's layout of 3 attention + 5 expert devices with an
-    8-sample memory cap, solved on the ``PAPER_A6000`` profile (no H100
-    profile is measured yet)."""
+    8-sample memory cap, solved on ``profile`` (the calibrate phase's
+    measured H100 profile; ``PAPER_A6000`` for the comparison)."""
     return FinDEPPolicy(FinDEPPlanner(cfg, DepClusterConfig(8, 3, 5),
-                                      PAPER_A6000,
+                                      profile,
                                       PlannerConfig(mem_cap_samples=8)))
 
 
@@ -1889,6 +2010,52 @@ def print_plans(eng, path: str) -> None:
         for key in eng._graphs.graphs:
             print(f"[{path}] decode graph key use_topk={key.use_topk} "
                   f"program {describe(key.plan)}: captured once")
+
+
+def print_plans_beside(eng, cfg, path: str) -> None:
+    """Every plan ``eng`` resolved (on its measured profile) beside the
+    plan ``PAPER_A6000`` gives the same (bucket, batch) or occupancy."""
+    a6000 = PlanCache(dep_policy(cfg, PAPER_A6000))
+    rows = []
+
+    def fields(p):
+        return dict(m_a=p.m_a, r1=p.r1, m_e=p.m_e, r2=p.r2, order=p.order,
+                    makespan_s=p.makespan)
+
+    for key, plan in eng.resolved_plans().items():
+        phase, *rest = key
+        if phase == "decode":
+            other = a6000.get("decode", occupancy=rest[0])
+        else:
+            other = a6000.get(phase, rest[0], rest[1])
+        rows.append(dict(key=repr(key), measured=fields(plan),
+                         paper_a6000=fields(other)))
+        print(f"[{path}] plan {key}: measured profile m_a={plan.m_a} "
+              f"r1={plan.r1} m_e={plan.m_e:g} r2={plan.r2} {plan.order} "
+              f"makespan {plan.makespan * 1e3:.4f} ms | PAPER_A6000 "
+              f"m_a={other.m_a} r1={other.r1} m_e={other.m_e:g} "
+              f"r2={other.r2} {other.order} makespan "
+              f"{other.makespan * 1e3:.4f} ms")
+    print(f"[{path}] plans beside PAPER_A6000: " + json.dumps(rows))
+
+
+def print_telemetry(eng, path: str) -> None:
+    """The engine's telemetry, as ``examples/serve_moe.py`` prints it:
+    measured against predicted seconds and the residual per phase, then
+    per plan key (observations after each key's first, its EWMA)."""
+    for phase, st in sorted(eng.telemetry.summary().items()):
+        res = st["residual"]
+        print(f"[{path}] telemetry {phase:>7}: n={st['count']:<4} measured="
+              f"{st['measured_s']:.4f}s predicted={st['predicted_s']:.6f}s "
+              + (f"residual={res:+.1%}" if res is not None
+                 else "residual=n/a"))
+    for key, st in eng.telemetry.keys.items():
+        res = ((st.measured_s - st.predicted_s) / st.predicted_s
+               if st.predicted_s > 0 else None)
+        print(f"[{path}] telemetry key {key}: n={st.count} measured="
+              f"{st.measured_s:.4f}s predicted={st.predicted_s:.6f}s "
+              + (f"residual={res:+.1%} ewma={st.residual_ewma:+.1%}"
+                 if res is not None else "residual=n/a"))
 
 
 def forced_program() -> ExecProgram:
@@ -2109,7 +2276,123 @@ def check_forced_graph(engine, params, cfg) -> None:
           f"{n} = {L} x sum(r1*r2) of both engines' calls")
 
 
-def phase_serve_dep():
+#: the drift phase's residual threshold (|EWMA residual|) and samples per
+#: key before it may trip, and how often its engine polls the profile
+#: store (max age 0: every poll re-calibrates). A finished re-calibration
+#: restarts every key's residual history and a drift episode waits for
+#: the worker to be idle, so drift can trip only between calibrations: a
+#: poll every 0.5 s kept the worker busy through the serve on an H100 (a
+#: sweep took 1.2 s under load) and no drift event tripped.
+DRIFT_THRESHOLD = 0.5
+DRIFT_MIN_SAMPLES = 1
+DRIFT_POLL_S = 1.5
+
+
+def check_drift(engine, params, cfg, store_dir: str, clean) -> None:
+    """A dep engine with ``drift_threshold`` and ``recalibrate_max_age_s=0``
+    over a fresh store under ``store_dir`` serves the dep phase's requests
+    on its weights, one step at a time: the re-calibrations run on the
+    refresh worker, on the engine's calibration stream, while it serves. Every request
+    must finish with 32 tokens, the graph replay once per decode step and
+    capture no key twice, the expert GEMM launch 24 x sum(r1·r2) of the
+    calls' programs (the calibration does not launch it; the attention
+    kernels' counts include its sweeps), and at least one re-calibration
+    and one re-solve must land before the serve ends. Prints the drift
+    events, re-solves, re-calibrations and the programs first captured
+    mid-serve, with the step at which each showed, and each
+    re-calibration's betas against ``clean`` (the calibrate phase's
+    profile, taken on an idle card)."""
+    eng = engine(params, drift_threshold=DRIFT_THRESHOLD,
+                 drift_min_samples=DRIFT_MIN_SAMPLES,
+                 profile_store=os.path.join(store_dir, "drift"),
+                 recalibrate_max_age_s=0.0)
+    eng.recalibrator.poll_interval_s = DRIFT_POLL_S
+    recals, calibrate_fn, stats = [], eng.recalibrator.calibrate_fn, eng.stats
+
+    def recorded():
+        """The engine's calibration job, noting the decode steps it
+        overlapped (``stats``, not the engine: no cycle through it)."""
+        start, s0 = stats.steps, time.perf_counter() - t0
+        res = calibrate_fn()
+        recals.append(dict(
+            steps=[start, stats.steps],
+            s=[s0, time.perf_counter() - t0], wall_s=res.wall_s,
+            beta_vs_idle={k: getattr(res.profile, k).beta
+                          / getattr(clean, k).beta for k in res.fit_r2},
+            fit_r2=res.fit_r2))
+        return res
+    eng.recalibrator.calibrate_fn = recorded
+    # the graphs' warm-up before the first poll, so that the first
+    # re-calibration overlaps the serve and does not hold up the warm-up
+    eng._ensure_caches()
+    reqs = mixed_requests(cfg)
+    kernel_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    step, seen, events = 0, set(), []
+    state = (0, 0, 0)
+    while True:
+        busy = eng.step()
+        step += 1
+        now = (eng.recalibrator.recalibrations, eng.plan_cache.stats.refreshes,
+               eng.drift.stats.drift_events)
+        if now != state:
+            events.append(dict(step=step, s=time.perf_counter() - t0,
+                               recalibrations=now[0], re_solves=now[1],
+                               drift_events=now[2]))
+            state = now
+        for key in set(eng._graphs.graphs) - seen:
+            seen.add(key)
+            print(f"[drift] step {step}: captured use_topk={key.use_topk} "
+                  f"program {describe(key.plan)}"
+                  + (" (first met mid-serve)" if eng.stats.steps > 1 else ""))
+        if not busy and not eng.waiting:
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_recal, resolves = state[0], state[1]
+    counts = kernel_lib.launch_counts()
+    st = eng.stats
+    eng.close()                     # waits for the worker's last job
+    for r in reqs:
+        if r.state != RequestState.FINISHED or len(r.output) != 32:
+            fail(f"drift: request {r.request_id}: {r.state} with "
+                 f"{len(r.output)} tokens")
+    if (st.graph_replays != st.steps
+            or st.graph_captures != len(eng._graphs.graphs)):
+        fail(f"drift: {st.graph_replays} replays for {st.steps} steps, "
+             f"{st.graph_captures} captures of {len(eng._graphs.graphs)} "
+             "keys")
+    L = cfg.num_layers
+    if counts["moe_gemm"] != exp_launches(st.programs, L):
+        fail(f"drift: the expert GEMM launched {counts['moe_gemm']} times, "
+             f"the programs ask for {exp_launches(st.programs, L)}")
+    if (counts["decode_attention"] < L * st.steps
+            or counts["flash_attention"] < L * st.prefill_calls):
+        fail(f"drift: attention launches {counts} below the serve's")
+    if n_recal < 1 or resolves < 1:
+        fail(f"drift: {n_recal} re-calibrations and {resolves} re-solves "
+             "landed while serving; want at least one each")
+    ds = eng.drift.stats
+    print(f"[drift] served {len(reqs)} requests in {wall:.2f} s: "
+          f"{st.steps} decode steps, {st.prefill_calls} prefill calls; "
+          f"{st.graph_captures} captures ({len(seen)} keys), "
+          f"{st.graph_replays} replays; while serving "
+          f"{n_recal} re-calibrations and {resolves} re-solves; after the "
+          f"worker drained {eng.recalibrator.recalibrations} and "
+          f"{eng.plan_cache.stats.refreshes}; {ds.drift_events} drift "
+          f"events over {ds.observations} observations (per key "
+          f"{ds.per_key_events}, last at residual "
+          f"{ds.last_drift_residual}, last scales {ds.last_scales})")
+    print("[drift] events by step: " + json.dumps(events))
+    print(f"[drift] launches {counts}")
+    print("[drift] re-calibrations (decode steps and seconds they spanned, "
+          "beta over the idle card's): " + json.dumps(recals))
+    print_telemetry(eng, "drift")
+
+
+def phase_serve_dep(profile, store_dir: str):
     """The DEP path: full qwen2-moe-a2.7b on the serve path's weights
     (seed 0) and its 16 requests, with the FinDEP policy and an NCCL
     expert group of one rank, so every MoE layer walks its plan's program
@@ -2131,8 +2414,8 @@ def phase_serve_dep():
     def engine(params=None, **kw):
         return ServingEngine(cfg, params=params, num_slots=8,
                              max_context=1024, dtype=torch.bfloat16, seed=0,
-                             plan_policy=dep_policy(cfg), ep_group=groups,
-                             **kw)
+                             plan_policy=dep_policy(cfg, profile),
+                             ep_group=groups, **kw)
 
     eng = engine()
     torch.cuda.synchronize()
@@ -2148,11 +2431,13 @@ def phase_serve_dep():
               f"sum(r1*r2) of each step's programs at all "
               f"{step_check.steps} steps")
         print_plans(eng, "dep")
+        print_plans_beside(eng, cfg, "dep")
+        print_telemetry(eng, "dep")
         profile_decode(eng, np.random.RandomState(5), cfg, "dep")
         prompts = np.random.RandomState(8).randint(0, cfg.vocab_size,
                                                    size=(8, 300))
-        chunk, _ = prefill_split(dep_policy(cfg).resolve("prefill", 512, 8),
-                                 8)
+        chunk, _ = prefill_split(dep_policy(cfg, profile).resolve(
+            "prefill", 512, 8), 8)
         profile_prefill(eng, prompts, "dep", calls=-(-8 // chunk))
         eager = engine(params, decode_graph=False)
         against_eager("dep", eng, eager, cfg, reqs,
@@ -2175,7 +2460,9 @@ def phase_serve_dep():
     capacity = ServingEngine(cfg, params=params, num_slots=8,
                              max_context=1024, dtype=torch.bfloat16, seed=0)
     compare_decode({"dep graph": eng, "capacity graph": capacity}, cfg)
-    del eng, capacity, params, p
+    del capacity
+    check_drift(engine, params, cfg, store_dir, profile)
+    del eng, params, p
     torch.cuda.synchronize()
     left = torch.cuda.memory_allocated() / 1e9
     if left > 0.5:
@@ -2540,11 +2827,17 @@ def main(argv=None) -> int:
     phase_small()
     phase_ring()
     counts = {}
+    cal_counts = {}
     if not args.no_serve:
-        counts = phase_serve()
-        counts["dep"] = phase_serve_dep()
-        counts["xlstm"] = phase_serve_xlstm()
-        counts["hybrid"] = phase_serve_hybrid()
+        os.makedirs(os.path.join(ROOT, ".repro-profiles"), exist_ok=True)
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, ".repro-profiles")) as store_dir:
+            profile, cal_counts = phase_calibrate(store_dir)
+            torch.cuda.empty_cache()
+            counts = phase_serve()
+            counts["dep"] = phase_serve_dep(profile, store_dir)
+            counts["xlstm"] = phase_serve_xlstm()
+            counts["hybrid"] = phase_serve_hybrid()
 
     report = []
     for e in entries:
@@ -2552,7 +2845,7 @@ def main(argv=None) -> int:
         path = KERNEL_PATH[e["name"]]
         launches = counts.get(path, {}).get(e["name"], 0)
         e = dict(e, route="cuda", launches=launches, launches_path=path,
-                 ok=True)
+                 calibrate_launches=cal_counts.get(e["name"], 0), ok=True)
         report.append(e)
         lib = ("none" if e["library_ms"] is None
                else f"{e['library_ms']:.3f}")

@@ -32,13 +32,30 @@ rank) turns the MoE layers into the DEP walk of each plan's
 ``ExecProgram``, which also keys the decode graph; without it the MoE
 layers run the capacity path. An expert group of several ranks (sharded
 weights, one process per card) is not served yet and raises.
-Expert placement, the measured cost profile and observability are not
-ported yet; their arguments raise (``_NOT_PORTED``).
+
+The measured cost models (``repro_torch.profiling``) close the loop as
+in the reference: ``calibrate=True`` measures the microbenchmarks on the
+engine's device, expert group and dtype and plans from the fit (stored
+in ``profile_store`` when one is given); ``profile=`` plans from a
+stored, registered or given ``HardwareProfile``; ``telemetry`` (a
+``StepTimer``, on by default) compares every prefill call's and decode
+step's measured time with its plan's modelled makespan; a
+``drift_threshold`` breach re-solves plans on a worker thread; and
+``recalibrate_max_age_s`` re-runs the calibration in the background when
+the stored profile is older. On a CUDA device a calibration runs on its
+own stream and holds the engine's device lock, which the decode graph's
+warm-up and every capture take too: no calibration kernel runs while a
+graph is being set up. Expert placement and observability are not ported
+yet; their arguments raise (``_NOT_PORTED``).
 """
 from __future__ import annotations
 
+import threading
 import time
+import warnings
+from contextlib import nullcontext
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -46,10 +63,14 @@ import torch
 from repro_torch import DeviceLike, generator_for, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dep import as_exec_program
+from repro_torch.core.perf_model import HardwareProfile, get_profile
 from repro_torch.core.solver import Plan
 from repro_torch.core.taskgraph import ATTN, LoweringSpec, lower
 from repro_torch.models import build_model
 from repro_torch.models.transformer import ExecutionContext
+from repro_torch.profiling import (DriftMonitor, PeriodicRecalibrator,
+                                   ProfileKey, ProfileStore, StepTimer)
+from repro_torch.profiling import calibrate as run_calibration
 from repro_torch.runtime.batching import BatchScheduler, PrefillGroup, StepPlan
 from repro_torch.runtime.decode_graph import (CudaGraph, DecodeGraphs,
                                               GraphKey, StagedBuffer,
@@ -63,13 +84,17 @@ from repro_torch.sched.occupancy import bucket_length
 #: arguments of the reference's engine that the port does not take yet,
 #: with the ROADMAP Queue 1 item that brings each
 _NOT_PORTED = {
-    "profile": 5, "calibrate": 5, "profile_store": 5, "telemetry": 5,
-    "drift_threshold": 5, "drift_min_samples": 5, "drift_recalibrate": 5,
-    "recalibrate_max_age_s": 5,
     "tracer": 6, "metrics": 6,
     "replicate_hot_k": 7, "rebalance_threshold": 7, "track_expert_load": 7,
     "rebalance_min_observations": 7, "max_capacity_scale": 7,
 }
+
+
+def _calibrate_off_graphs(lock: threading.Lock, stream, name: str, **kw):
+    """``profiling.calibrate`` (fast sweeps; the card's on a CUDA device)
+    on ``stream`` (None: the current one), holding ``lock``."""
+    with lock, torch.cuda.stream(stream):
+        return run_calibration(name=name, fast=True, **kw)
 
 
 def prefill_split(plan: Optional[Plan], n: int) -> Tuple[int, int]:
@@ -122,7 +147,18 @@ class ServingEngine:
     the engine holds every expert's weights, so a wider group raises. ``interleave`` is the DEP walk's emission, "streams"
     (scheduled start order) or "off" (stream after stream): the same
     values either way. ``validate`` runs ``analysis.graphcheck`` on every
-    distinct program before it is used."""
+    distinct program before it is used.
+
+    The measured cost models, as in the reference: ``profile`` (a
+    ``HardwareProfile``, a name in ``profile_store``, or a registered
+    name) or ``calibrate=True`` retunes the policy's planner before any
+    plan is solved; the calibration runs at the engine's ``dtype``.
+    ``telemetry`` is a ``StepTimer``, None for a fresh one, False for
+    none. ``drift_threshold`` (with ``drift_min_samples`` and
+    ``drift_recalibrate``) turns on the ``DriftMonitor``;
+    ``recalibrate_max_age_s`` with a ``profile_store`` the
+    ``PeriodicRecalibrator``, which ``step()`` polls. ``close()`` stops
+    their worker threads."""
 
     def __init__(self, cfg: ModelConfig, params=None, *, num_slots: int = 4,
                  max_context: int = 4096,
@@ -141,6 +177,13 @@ class ServingEngine:
                  ep_group=None,
                  interleave: str = "streams",
                  validate: bool = False,
+                 telemetry=None,
+                 profile=None, calibrate: bool = False,
+                 profile_store=None,
+                 drift_threshold: Optional[float] = None,
+                 drift_min_samples: int = 3,
+                 drift_recalibrate: bool = True,
+                 recalibrate_max_age_s: Optional[float] = None,
                  **not_ported):
         for name in not_ported:
             if name not in _NOT_PORTED:
@@ -184,6 +227,45 @@ class ServingEngine:
                                      capacity=plan_cache_capacity)
                            if (plan_policy is not None and cfg.is_moe)
                            else None)
+        # no calibration job runs on the card while a decode graph is
+        # warmed up or captured: both hold this lock
+        self._device_lock = threading.Lock()
+        self._calibrate = partial(
+            _calibrate_off_graphs, self._device_lock,
+            torch.cuda.Stream(self.device) if cuda else None,
+            groups=ep_group, dtype=dtype, device=self.device)
+        self.calibration = None
+        self._apply_profile(profile, calibrate, profile_store, ep_group,
+                            dtype)
+        if telemetry is False:
+            self.telemetry: Optional[StepTimer] = None
+        else:
+            self.telemetry = (telemetry if isinstance(telemetry, StepTimer)
+                              else StepTimer())
+        self.drift: Optional[DriftMonitor] = None
+        if drift_threshold is not None and self.plan_cache is not None:
+            self.drift = DriftMonitor(
+                self.plan_cache,
+                timer=self.telemetry if self.telemetry is not None
+                else StepTimer(),
+                threshold=drift_threshold,
+                min_samples=drift_min_samples,
+                recalibrate=drift_recalibrate)
+        # cron-style background re-calibration: when the stored profile
+        # for this host goes stale, re-run the microbenchmarks off the
+        # critical path (step() polls; the check is throttled)
+        self.recalibrator: Optional[PeriodicRecalibrator] = None
+        if (recalibrate_max_age_s is not None
+                and self.plan_cache is not None
+                and self.profile_store is not None):
+            self.recalibrator = PeriodicRecalibrator(
+                self.plan_cache, self.profile_store, groups=ep_group,
+                device=self.device, dtype=dtype,
+                max_age_s=recalibrate_max_age_s,
+                refresher=self.drift.refresher if self.drift else None,
+                timer=self.telemetry)
+            self.recalibrator.calibrate_fn = partial(
+                self._calibrate, self.recalibrator.name)
         # plans reach the model only when the DEP executor can act on them
         self._dep_active = ep_group is not None and cfg.is_moe
         self.interleave = interleave
@@ -269,12 +351,83 @@ class ServingEngine:
             self.kv.ensure_caches()
             rng = self.generator.get_state()
             program = as_exec_program(None) if self._dep_active else None
-            self._graphs.warm_up([GraphKey(use_topk, program)
-                                  for use_topk in (False, True)])
+            with self._device_lock:
+                self._graphs.warm_up([GraphKey(use_topk, program)
+                                      for use_topk in (False, True)])
             self.generator.set_state(rng)
             self.last_tokens.zero_()
             self.kv.caches = None
         self.kv.ensure_caches()
+
+    # ------------------------------------------------------------------
+    # measured cost models
+    # ------------------------------------------------------------------
+    def _apply_profile(self, profile, calibrate: bool, profile_store,
+                       groups, dtype) -> None:
+        """Retune the policy's planner onto a measured HardwareProfile.
+
+        ``calibrate=True`` runs the microbenchmarks now (fast sweeps on
+        the CPU, the card's sweeps on a CUDA device) at the engine's
+        dtype and, when a ``profile_store`` is given, persists the fit so
+        the next process can pass ``profile=<name>`` instead of
+        re-measuring. ``profile=`` accepts a HardwareProfile, a stored
+        profile name, or a registry name
+        (``repro_torch.core.perf_model.PROFILES``)."""
+        store = None
+        if profile_store is not None:
+            store = (profile_store if isinstance(profile_store, ProfileStore)
+                     else ProfileStore(profile_store))
+        self.profile_store = store
+        if not calibrate and profile is None:
+            return
+        if calibrate:
+            key = ProfileKey.for_host(groups, dtype, self.device)
+            name = profile if isinstance(profile, str) else key.slug()
+            result = self._calibrate(name)
+            hw = result.profile
+            self.calibration = result
+            if store is not None:
+                store.put_calibration(result, key, name=name)
+        elif isinstance(profile, HardwareProfile):
+            hw = profile
+        else:
+            try:
+                hw = (store.load_profile(profile) if store is not None
+                      else get_profile(profile))
+            except KeyError:
+                hw = get_profile(profile)
+        reprofile = getattr(self.plan_policy, "reprofile", None)
+        if callable(reprofile):
+            reprofile(hw)
+        elif self.plan_policy is not None:
+            warnings.warn(
+                f"policy {getattr(self.plan_policy, 'name', '?')!r} has no "
+                "reprofile() hook; profile=/calibrate= had no effect on "
+                "planning", stacklevel=3)
+
+    def _observe(self, phase: str, key, measured_s: float,
+                 plan: Optional[Plan], predicted_scale: float = 1.0) -> None:
+        """One measured model call against its plan's modelled makespan
+        (pro-rated by ``predicted_scale``) and per-primitive split."""
+        predicted = None
+        breakdown = None
+        if plan is not None and plan.makespan > 0.0:
+            predicted = plan.makespan * predicted_scale
+            if plan.breakdown is not None:
+                breakdown = plan.breakdown.scaled(predicted_scale).as_dict()
+        if self.drift is not None:
+            self.drift.observe(key, measured_s, predicted, phase=phase,
+                               breakdown=breakdown)
+        elif self.telemetry is not None:
+            self.telemetry.observe(phase, measured_s, predicted_s=predicted,
+                                   key=key, breakdown=breakdown)
+
+    def close(self) -> None:
+        """Stop the background refresh/recalibration workers (if any)."""
+        if self.drift is not None:
+            self.drift.close()
+        if self.recalibrator is not None:
+            self.recalibrator.close()
 
     # ------------------------------------------------------------------
     # scheduling
@@ -333,6 +486,7 @@ class ServingEngine:
             return
         plan = self._resolve_plan("prefill", group.bucket,
                                   len(group.requests))
+        plan_key = ("prefill", group.bucket, len(group.requests))
         chunk, n_mb = prefill_split(plan, len(group.requests))
         program = self._exec_program(plan, streams=n_mb)
         for ofs in range(0, len(group.requests), chunk):
@@ -356,8 +510,13 @@ class ServingEngine:
             self.kv.merge_prefill(slots, prefilled, lengths,
                                   tokens=token_rows)
             self._sync()
-            self.stats.prefill_s += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.stats.prefill_s += dt
             self.stats.prefill_calls += 1
+            # plan.makespan models one full chunk; pro-rate the prediction
+            # for a remainder chunk so it isn't biased short
+            self._observe("prefill", plan_key, dt, plan,
+                          predicted_scale=len(reqs) / chunk)
             if program is not None:
                 self.stats.programs.append(("prefill", program))
             for slot, req, Lp in zip(slots, reqs, lengths):
@@ -415,8 +574,12 @@ class ServingEngine:
         if self._paged:
             self.kv.table_array()      # copies the table if it changed
         key = GraphKey(use_topk=use_topk, plan=program)
-        run = self._graphs if self._graphs is not None else self._step
-        nxt, self.last_logits = run(key)
+        if self._graphs is None:
+            nxt, self.last_logits = self._step(key)
+            return nxt
+        capture = key not in self._graphs.graphs
+        with self._device_lock if capture else nullcontext():
+            nxt, self.last_logits = self._graphs(key)
         return nxt
 
     # ------------------------------------------------------------------
@@ -477,6 +640,9 @@ class ServingEngine:
 
     def step(self) -> bool:
         """One engine iteration; returns False when idle."""
+        if self.recalibrator is not None:
+            # throttled staleness check; calibration runs on the worker
+            self.recalibrator.maybe_recalibrate()
         self._admit()
         live = [i for i, r in enumerate(self.slots) if r is not None]
         if not live:
@@ -490,8 +656,9 @@ class ServingEngine:
                 return True
         # the decode plan is solved on the ledger's live composition and
         # re-resolved only when it changes
-        program = self._exec_program(self._resolve_plan(
-            "decode", occupancy=self.kv.occupancy()))
+        occ = self.kv.occupancy()
+        plan = self._resolve_plan("decode", occupancy=occ)
+        program = self._exec_program(plan)
         if program is not None:
             self.stats.programs.append(("decode", program))
         use_topk = any(r is not None and r.top_k > 0 for r in self.slots)
@@ -499,7 +666,11 @@ class ServingEngine:
         # dead slots decode as length 0
         nxt = self._decode_step(self.kv.lengths(), use_topk, program)
         toks = nxt.tolist()                # waits for the device
-        self.stats.decode_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.stats.decode_s += dt
+        # the observe edge of the profiling loop: a sustained residual
+        # breach re-solves this occupancy's plan on the refresh worker
+        self._observe("decode", ("decode", occ), dt, plan)
         self.kv.note_decode(live)
         now = time.perf_counter()
         for i in live:

@@ -95,7 +95,7 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="groups"):
         ExecutionContext(moe_impl="dep")
     from repro_torch.runtime import ServingEngine
-    for arg in ("tracer", "profile", "replicate_hot_k"):
+    for arg in ("tracer", "metrics", "replicate_hot_k"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(get_smoke_config("qwen2-moe-a2.7b"), device="cpu",
                           **{arg: 1})

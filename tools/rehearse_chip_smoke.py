@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's serve phases on the CPU, at smoke size.
+"""Rehearse chip_smoke.py's calibrate and serve phases on the CPU, at
+smoke size.
 
-The serve, paged, pressure, dep, xlstm and hybrid phases run as on the
-card, with the smoke configs in place of the full ones, every engine on
-the CPU and the dep phase's expert group on gloo (one rank). An engine
+The calibrate, serve, paged, pressure, dep, drift, xlstm and hybrid
+phases run as on the card, with the smoke configs in place of the full
+ones, every engine on the CPU, the calibration on the CPU at f32 over the
+reference's sweeps (the plain versions in place of the kernels), and the
+dep phase's expert group on gloo (one rank). An engine
 that would capture its decode step gets ``EagerGraph``,
 a stand-in for ``decode_graph.CudaGraph`` whose replay runs the captured
 step again and copies its outputs into the captured ones, so that the
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import os
 import sys
+import tempfile
 import time
 
 import torch
@@ -111,12 +115,19 @@ def main() -> int:
     torch.cuda.memory_allocated = lambda *a, **k: 0
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
     torch.cuda.max_memory_reserved = lambda *a, **k: 0
+    chip_smoke.CAL_DEVICE = "cpu"
+    chip_smoke.CAL_DTYPE = torch.float32
     t0 = time.perf_counter()
-    chip_smoke.phase_serve()
-    chip_smoke.phase_serve_dep()
-    chip_smoke.phase_serve_xlstm()
-    chip_smoke.phase_serve_hybrid()
-    print(f"rehearsal: every serve phase passed on the CPU in "
+    os.makedirs(os.path.join(ROOT, ".repro-profiles"), exist_ok=True)
+    with tempfile.TemporaryDirectory(
+            dir=os.path.join(ROOT, ".repro-profiles")) as store_dir:
+        profile, _ = chip_smoke.phase_calibrate(store_dir)
+        chip_smoke.phase_serve()
+        chip_smoke.phase_serve_dep(profile, store_dir)
+        chip_smoke.phase_serve_xlstm()
+        chip_smoke.phase_serve_hybrid()
+    print(f"rehearsal: the calibrate phase and every serve phase passed on "
+          f"the CPU in "
           f"{time.perf_counter() - t0:.0f} s")
     return 0
 
