@@ -86,6 +86,25 @@
               least one re-calibration and one re-solve land before the
               serve ends; drift events, re-solves, re-calibrations and
               the programs first captured mid-serve are printed;
+     obs      the port's entry point, ``repro_torch.launch.serve_moe``,
+              serves the same model (--full --dep, 16 requests, 8 slots,
+              max_context 1024, the calibrate phase's profile) with
+              --trace-out and --metrics-out: the trace must validate and
+              hold every span, the JSONL and the Prometheus text parse
+              back with a TTFT count of every finished request; an
+              untraced twin (tracer=None, metrics=False) on the same
+              weights must give the same greedy tokens and graph keys,
+              and both the same host launch calls per decode step (1
+              cudaGraphLaunch, 2 cudaLaunchKernel). Then one MoE layer
+              of those weights is traced on the card
+              (``trace_dep_execution``: CUDA event pairs, A2E/E2A on the
+              comm stream, EXP/SHARED on the compute stream) under the
+              8 x 300 prefill's planned program and the forced r1=2 x
+              r2=4 one, each interleaved and not: spans in walk order,
+              one EXP per (stream, chunk), output bitwise the untraced
+              layer's, each A2E/E2A span at least its copy's bytes
+              bound; per-kind device ms, executed against scheduled
+              exposed comm and the comm-under-EXP share are printed;
   5. xlstm    ServingEngine with the full xlstm-1.3b config (48 layers,
               42 mLSTM through the mLSTM scan kernels, 6 sLSTM): 16
               requests, 8 slots, max_context 1024, with the graph; held
@@ -143,10 +162,12 @@ from repro_torch import kernels as kernel_lib  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.configs.base import DepClusterConfig  # noqa: E402
+from repro_torch.core.analytic import StageTimes  # noqa: E402
 from repro_torch.core.dep import DepGroups, moe_apply_dep  # noqa: E402
 from repro_torch.core.perf_model import PAPER_A6000  # noqa: E402
 from repro_torch.core.planner import FinDEPPlanner, PlannerConfig  # noqa: E402
-from repro_torch.core.taskgraph import ExecProgram, lower_exec  # noqa: E402
+from repro_torch.core.taskgraph import (ExecProgram, TaskCosts,  # noqa: E402
+                                        lower_exec, schedule)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as dec_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
@@ -167,7 +188,12 @@ from repro_torch.kernels.rg_lru import kernel as rglru_kernel  # noqa: E402
 from repro_torch.kernels.rg_lru.ops import rg_lru_scan  # noqa: E402
 from repro_torch.kernels.rg_lru.ref import rg_lru_scan_ref  # noqa: E402
 from repro_torch.models import ExecutionContext, build_model  # noqa: E402
+from repro_torch.launch import serve_moe  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.obs import (attribute_overlap, interval_subtract,  # noqa: E402
+                             interval_total, interval_union, lane_intervals,
+                             parse_prometheus, trace_dep_execution,
+                             validate_chrome_trace)
 from repro_torch.profiling import (ProfileKey, ProfileStore,  # noqa: E402
                                    calibrate)
 from repro_torch.profiling.microbench import sweeps_for  # noqa: E402
@@ -2469,8 +2495,249 @@ def phase_serve_dep(profile, store_dir: str):
         fail(f"dep: {left:.2f} GB still allocated after the phase: an "
              "engine outlived it")
     torch.cuda.empty_cache()
-    torch.distributed.destroy_process_group()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: observability (the serve entry point, the device trace)
+# ---------------------------------------------------------------------------
+
+#: where the obs phase serves (the CPU rehearsal passes "cpu")
+OBS_DEVICE = "cuda"
+
+
+def check_obs_outputs(served, args) -> None:
+    """The entry point's outputs read back: the trace file passes
+    ``validate_chrome_trace`` and holds every span the tracer recorded;
+    the JSONL parses and its TTFT histogram counts every finished
+    request, as the Prometheus text parsed back does."""
+    eng = served.engine
+    n = len(served.finished)
+    if n != len(served.requests) or any(
+            r.state != RequestState.FINISHED for r in served.requests):
+        fail(f"obs: served {n}/{len(served.requests)} requests")
+    with open(args.trace_out) as f:
+        obj = json.load(f)
+    stats = validate_chrome_trace(obj)
+    if stats["complete"] != len(eng.tracer):
+        fail(f"obs: the trace file holds {stats['complete']} spans, the "
+             f"tracer {len(eng.tracer)}")
+    with open(args.metrics_out) as f:
+        lines = [json.loads(line) for line in f]
+    snap = lines[-1]["metrics"]
+    samples = parse_prometheus(eng.metrics.render_prometheus())
+    prom = {"repro_engine_ttft_seconds_count": [
+                v for name, _, v in samples
+                if name == "repro_engine_ttft_seconds_count"],
+            'repro_engine_requests_total{state="finished"}': [
+                v for name, labels, v in samples
+                if name == "repro_engine_requests_total"
+                and labels == {"state": "finished"}]}
+    for name, values in prom.items():
+        if snap.get(name) != n or values != [n]:
+            fail(f"obs: {name} is {snap.get(name)} in the JSONL and "
+                 f"{values} in the Prometheus text; {n} requests finished")
+    cats = {}
+    for sp in eng.tracer.spans:
+        cats[sp.cat] = cats.get(sp.cat, 0) + 1
+    print(f"[obs] trace {stats} valid, spans by category {cats}; "
+          f"{len(lines)} JSONL line(s), {len(samples)} Prometheus samples "
+          "parsed back")
+
+
+def check_obs_twin(served, args, cfg) -> None:
+    """The untraced twin (``tracer=None, metrics=False``) on the same
+    weights serves the same requests: the same greedy tokens, the same
+    graph keys and captures; both capture no key twice and replay once
+    per decode step; and a profiled decode step makes as many host
+    launch calls with the registry and the tracer as without, 1
+    ``cudaGraphLaunch`` and 2 ``cudaLaunchKernel``: the default-on
+    registry adds no launch and no sync to the step."""
+    eng = served.engine
+    twin = serve_moe.serve(args, serve_moe.build_engine(
+        args, params=eng.params, tracer=None, metrics=False))
+    if twin.engine.tracer is not None or twin.engine.metrics is not None:
+        fail("obs: the twin engine traces or counts")
+    pairs = [(a, b) for a, b in zip(served.requests, twin.requests)
+             if a.temperature == 0]
+    bad = [a.request_id for a, b in pairs if a.output != b.output]
+    if not pairs or bad:
+        fail(f"obs: greedy requests {bad} differ between the traced serve "
+             "and the untraced twin")
+    keys = [set(e._graphs.graphs) for e in (eng, twin.engine)]
+    for e, name in ((eng, "traced"), (twin.engine, "twin")):
+        st = e.stats
+        if (st.graph_captures != len(e._graphs.graphs)
+                or st.graph_replays != st.steps):
+            fail(f"obs: {name} engine: {st.graph_captures} captures of "
+                 f"{len(e._graphs.graphs)} keys, {st.graph_replays} replays "
+                 f"for {st.steps} decode steps")
+    if keys[0] != keys[1]:
+        fail(f"obs: the traced engine captured {len(keys[0])} keys, the "
+             f"twin {len(keys[1])}: not the same")
+    rows = [profile_decode(e, np.random.RandomState(5), cfg, f"obs {name}")
+            for e, name in ((eng, "traced"), (twin.engine, "twin"))]
+    calls = [(r["cudaGraphLaunch"], r["cudaLaunchKernel"]) for r in rows]
+    if calls[0] != calls[1] or calls[0] != (1, 2):
+        fail(f"obs: (cudaGraphLaunch, cudaLaunchKernel) per decode step "
+             f"traced {calls[0]}, twin {calls[1]}; want (1, 2) for both")
+    print(f"[obs] twin: all {len(pairs)} greedy requests give the traced "
+          f"serve's tokens; {len(keys[0])} graph keys, captured once each, "
+          f"in both; per decode step (cudaGraphLaunch, cudaLaunchKernel) "
+          f"{calls[0]} traced and {calls[1]} untraced")
+    del twin
+
+
+def modelled_schedule(planner, program, seq_len: int, m_a: float,
+                      m_e: float):
+    """The program's graph scheduled under the planner's stage models (the
+    calibrated profile) at ``seq_len``: its ``ScheduleResult``."""
+    st = StageTimes.from_models(planner.stage_models(seq_len), m_a, m_e)
+    return schedule(program.graph, TaskCosts.from_stage_times(st))
+
+
+def comm_over_exp(spans) -> float:
+    """The share of the comm lanes' busy time (A2E and E2A) that EXP
+    covers, on the spans' own clock."""
+    lanes = lane_intervals(spans)
+    comm = interval_union(lanes.get("A2E", []) + lanes.get("E2A", []))
+    busy = interval_total(comm)
+    if busy <= 0:
+        return 0.0
+    return 1.0 - interval_total(interval_subtract(
+        comm, lanes.get("EG", []))) / busy
+
+
+def check_device_trace(label, program, groups, p, mcfg, x, sched) -> None:
+    """``trace_dep_execution`` of one layer under ``program``: the card
+    still held when the host had enqueued the walk, the spans
+    in the program's walk order (GATE and ATTN are the caller's), one EXP
+    per (stream, chunk), the output bitwise the untraced call's, and
+    every A2E/E2A span at least its all_to_all copy's bytes bound (a
+    read and a write of the chunk at the card's rate), so that the pair
+    bounds the copy and not only its enqueue. Prints per-kind device ms,
+    executed against scheduled exposed comm and the comm-over-EXP
+    share."""
+    tr = trace_dep_execution(program, groups, params=p, mcfg=mcfg, x=x,
+                             device=x.device)
+    if tr.host_ahead is False:
+        fail(f"obs trace {label}: the card caught up with the host before "
+             "the walk was enqueued: the spans hold waits for the host")
+    walk = [(t.kind, t.mb, t.chunk) for t in program.walk()
+            if t.kind not in ("GATE", "ATTN")]
+    got = [(sp.name, sp.arg("mb"), sp.arg("chunk")) for sp in tr.spans]
+    if got != walk:
+        fail(f"obs trace {label}: spans {got} are not the walk {walk}")
+    g = program.graph
+    exp = [(mb, c) for k, mb, c in got if k == "EXP"]
+    if sorted(exp) != [(i, j) for i in range(g.r1) for j in range(g.r2)]:
+        fail(f"obs trace {label}: EXP spans at {exp}, want one per "
+             f"(stream, chunk) of r1={g.r1} x r2={g.r2}")
+    if not torch.equal(tr.out, tr.untraced()):
+        fail(f"obs trace {label}: the traced layer is not bitwise the "
+             "untraced one")
+    E, M = p["experts"]["gate"].shape[0], x.shape[-1]
+    cap = moe_lib.expert_capacity(x.shape[0] * x.shape[1], mcfg,
+                                  multiple_of=program.capacity_multiple)
+    C = cap // (g.r1 * g.r2)
+    copy_bound_s = 2 * E * C * M * x.element_size() / HBM_BYTES_PER_S
+    for sp in tr.spans:
+        if not 0 <= sp.start <= sp.end:
+            fail(f"obs trace {label}: span {sp} out of order")
+        if sp.name in ("A2E", "E2A") and sp.duration < copy_bound_s:
+            fail(f"obs trace {label}: {sp.name} mb={sp.arg('mb')} "
+                 f"chunk={sp.arg('chunk')} took {sp.duration * 1e3:.4f} ms, "
+                 f"under its copy's bound {copy_bound_s * 1e3:.4f} ms: the "
+                 "events do not bound the all_to_all")
+    per_kind = {}
+    for sp in tr.spans:
+        per_kind[sp.name] = per_kind.get(sp.name, 0.0) + sp.duration * 1e3
+    rep = attribute_overlap(tr.spans, sched)
+    row = dict(program=describe(program), x=list(x.shape), capacity=cap,
+               chunk=C, chunk_mb=E * C * M * x.element_size() / 1e6,
+               spans=len(tr.spans), per_kind_ms=per_kind,
+               makespan_ms=rep.makespan_executed * 1e3,
+               exposed_executed_ms={k: v * 1e3 for k, v in
+                                    rep.exposed_executed.items()},
+               exposed_scheduled_ms={k: v * 1e3 for k, v in
+                                     rep.exposed_modeled.items()},
+               exposed_frac_executed=rep.exposed_frac_executed,
+               exposed_frac_scheduled=rep.exposed_frac_modeled,
+               makespan_scheduled_ms=rep.makespan_modeled * 1e3,
+               comm_over_exp=comm_over_exp(tr.spans),
+               copy_bound_ms=copy_bound_s * 1e3, wall_s=tr.wall_s,
+               host_ahead=tr.host_ahead)
+    print(f"[obs trace] {label} {row['program']} x{row['x']}, capacity "
+          f"{cap} ({C} a chunk, {row['chunk_mb']:.1f} MB): device ms by "
+          "kind " + ", ".join(f"{k} {v:.4f}" for k, v in per_kind.items())
+          + f"; makespan {row['makespan_ms']:.4f} ms; exposed comm "
+          f"executed {row['exposed_executed_ms']['total']:.4f} ms "
+          f"({row['exposed_frac_executed']:.1%}) beside scheduled "
+          f"{row['exposed_scheduled_ms']['total']:.4f} ms "
+          f"({row['exposed_frac_scheduled']:.1%} of a modelled "
+          f"{row['makespan_scheduled_ms']:.4f} ms); comm under EXP "
+          f"{row['comm_over_exp']:.1%}; in walk order, one EXP per "
+          "(stream, chunk), bitwise the untraced layer " + json.dumps(row))
+
+
+def phase_obs(profile, store_dir: str) -> None:
+    """The observability path. Serves full qwen2-moe-a2.7b through the
+    port's entry point (``serve_moe.main``: --full --dep, 16 requests, 8
+    slots, max_context 1024, on the calibrate phase's profile, with
+    --trace-out and --metrics-out), reads both files back
+    (``check_obs_outputs``) and holds the traced engine against an
+    untraced twin (``check_obs_twin``). Then traces one MoE layer of the
+    served weights on the card (``trace_dep_execution``: CUDA event pairs
+    on the comm and compute streams) under the 8 x 300 prefill's planned
+    program and the forced r1 = 2 x r2 = 4 one, each interleaved and not
+    (``check_device_trace``). Prints its wall time."""
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-moe-a2.7b")
+    out_dir = tempfile.mkdtemp(dir=store_dir)
+    argv = ["--full", "--dep", "--device", OBS_DEVICE, "--requests", "16",
+            "--slots", "8", "--max-context", "1024",
+            "--profile", profile.name, "--profile-store", store_dir,
+            "--trace-out", os.path.join(out_dir, "trace.json"),
+            "--metrics-out", os.path.join(out_dir, "metrics.jsonl")]
+    served = serve_moe.main(argv)
+    args = serve_moe.build_parser().parse_args(argv)
+    eng = served.engine
+    if eng.plan_policy.planner.hardware != profile:
+        fail("obs: the entry point did not plan on the calibrate phase's "
+             "profile")
+    check_obs_outputs(served, args)
+    check_obs_twin(served, args, cfg)
+    p, groups = eng.params["layers"][0]["moe"], eng.model.ctx.groups
+    del served, eng
+    torch.cuda.empty_cache()
+    planner = dep_policy(cfg, profile).planner
+    plan = dep_policy(cfg, profile).resolve("prefill", 512, 8)
+    chunk, n_mb = prefill_split(plan, 8)
+    gen = torch.Generator(device=OBS_DEVICE)
+    gen.manual_seed(9)
+    for interleave in ("streams", "off"):
+        cases = (("planned 8 x 300 prefill",
+                  plan.exec_program(streams=n_mb, interleave=interleave),
+                  chunk, plan.m_a, plan.m_e),
+                 ("forced", ExecProgram(forced_program().graph, interleave),
+                  8, 4.0, None))
+        for label, prog, B, m_a, m_e in cases:
+            x = torch.randn((B, 512, cfg.d_model), generator=gen,
+                            device=OBS_DEVICE).to(torch.bfloat16)
+            if m_e is None:
+                m_e = planner.stage_models(512).me_from_ma(m_a, prog.graph.r2)
+            sched = modelled_schedule(planner, prog, 512, m_a, m_e)
+            check_device_trace(f"{label} ({interleave})", prog, groups, p,
+                               cfg.moe, x, sched)
+            del x
+    del p, groups
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() / 1e9
+    if left > 0.5:
+        fail(f"obs: {left:.2f} GB still allocated after the phase: an "
+             "engine outlived it")
+    torch.cuda.empty_cache()
+    print(f"[obs] phase passed in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_serve_xlstm():
@@ -2608,7 +2875,7 @@ def traced_launches(prof, before, after, names=None) -> dict:
     return {p: [got[p], want[p]] for p in want if want[p] or got[p]}
 
 
-def profile_decode(eng, rng, cfg, path: str, steps: int = 3) -> None:
+def profile_decode(eng, rng, cfg, path: str, steps: int = 3) -> dict:
     """Where a steady decode step's time goes: the wall time of ``steps``
     plain decode steps, then the same number under torch.profiler for the
     device time by kernel (the profiler's device events include the
@@ -2616,7 +2883,8 @@ def profile_decode(eng, rng, cfg, path: str, steps: int = 3) -> None:
     of it; the idle share is 1 - the time some kernel runs (the union of
     the kernels' spans: the DEP path's comm stream overlaps the compute
     stream) / plain wall time. Also counts the host's
-    ``cudaGraphLaunch`` and ``cudaLaunchKernel`` calls."""
+    ``cudaGraphLaunch`` and ``cudaLaunchKernel`` calls. Returns the
+    printed row."""
     for _ in range(eng.num_slots):
         eng.submit(Request(prompt=list(rng.randint(0, cfg.vocab_size,
                                                    size=300)),
@@ -2702,6 +2970,7 @@ def profile_decode(eng, rng, cfg, path: str, steps: int = 3) -> None:
     for e in host:
         print(f"  host {e.self_cpu_time_total / 1e3 / steps:8.3f} ms/step "
               f"{e.count // steps:5d}/step  {e.key[:60]}")
+    return row
 
 
 def profile_prefill(eng, prompts, path: str, calls: int = 1) -> None:
@@ -2836,6 +3105,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             counts = phase_serve()
             counts["dep"] = phase_serve_dep(profile, store_dir)
+            phase_obs(profile, store_dir)
+            torch.distributed.destroy_process_group()
             counts["xlstm"] = phase_serve_xlstm()
             counts["hybrid"] = phase_serve_hybrid()
 

@@ -34,6 +34,13 @@ the call, so a CUDA graph capture records both streams. Every tensor
 either stream touches is made on the compute stream and held until the
 join. On the CPU (gloo) the walk runs in order on the one stream.
 
+Under a ``repro_torch.obs`` tracer (``use_tracer``) the walk records one
+host span per task it runs, as the reference's walk does; a device-mode
+tracer also times each task on the card with a CUDA event pair, A2E and
+E2A on the comm stream around their ``all_to_all_single`` (after the
+wait for the compute stream), the other tasks on the compute stream.
+With no tracer the walk is the bare loop.
+
 Two dispatch modes, as in the reference:
   * "sequence" (prefill; any call at an expert group of one rank): each
     peer routes its own slice of the sequence and the buffers are
@@ -55,6 +62,8 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.core import taskgraph as tg
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import mlp_apply
+# module-level so the no-tracer walk pays no per-call import lookup
+from repro_torch.obs.trace import active_tracer
 
 
 @dataclass(eq=False)
@@ -135,13 +144,17 @@ class DepGroups:
 
 class _Streams:
     """Orders the comm stream against the compute stream (the current
-    one) with the groups' events; does nothing on the CPU."""
+    one) with the groups' events; does nothing on the CPU.
+    ``timed_kinds`` are the tasks whose handlers time their own device
+    span (on the comm stream) under a device-mode tracer."""
 
-    def __init__(self, groups: DepGroups, device: torch.device):
+    def __init__(self, groups: Optional[DepGroups], device: torch.device,
+                 timed_kinds=()):
         self.groups = groups
-        self.comm = groups.stream(device)
+        self.comm = groups.stream(device) if groups is not None else None
         self.compute = (torch.cuda.current_stream(device)
-                        if self.comm is not None else None)
+                        if device.type == "cuda" else None)
+        self.timed_kinds = timed_kinds
 
     def to_comm(self, name: str, index: int) -> None:
         """The comm stream's next work waits for the compute stream's."""
@@ -199,18 +212,51 @@ def _shared_part(shared_fn, shared_x, k: int, n_seg: int):
     return shared_fn(shared_x[lo:hi])
 
 
-def _walk_chunk_stream(program, handlers) -> None:
+def _walk_chunk_stream(program, handlers, streams=None,
+                       tracer=None) -> None:
     """Run the program's executed order: ``handlers`` maps task kind ->
-    callable(task); kinds without a handler are skipped (SHARED for a
-    model without a shared expert, GATE and ATTN, which the caller runs).
-    A bare ``TaskGraph`` means its single-stream ``interleave="off"``
-    walk."""
+    callable(task) returning the task's value; kinds without a handler
+    are skipped (SHARED for a model without a shared expert, GATE and
+    ATTN, which the caller runs). A bare ``TaskGraph`` means its
+    single-stream ``interleave="off"`` walk.
+
+    When a ``repro_torch.obs`` tracer is scoped (``use_tracer``) around
+    the caller (or given as ``tracer``), each handler call is wrapped in
+    a host task span (``emit=True``), and with ``fence=True`` the walker
+    waits for the task's stream before closing it. A device-mode tracer
+    also times each task on the card (``streams``, the walk's
+    ``_Streams``, on a CUDA device): the compute stream's tasks by an
+    event pair around the handler, after a base event recorded before
+    the walk; A2E and E2A of the sequence walk time their own
+    all_to_all on the comm stream (``_graph_expert_alltoall``). With no
+    active tracer (the default) this is the bare loop."""
     if isinstance(program, tg.TaskGraph):
         program = tg.ExecProgram(program)
+    tracer = tracer if tracer is not None else active_tracer()
+    if tracer is None:
+        for task in program.walk():
+            h = handlers.get(task.kind)
+            if h is not None:
+                h(task)
+        return
+    compute = streams.compute if streams is not None else None
+    comm = streams.comm if streams is not None else None
+    own = streams.timed_kinds if streams is not None else ()
+    tracer.device_base(compute)
+    clock = tracer.clock
     for task in program.walk():
         h = handlers.get(task.kind)
-        if h is not None:
-            h(task)
+        if h is None:
+            continue
+        t0 = clock()
+        if task.kind in own:
+            out = h(task)
+            tracer.maybe_fence(out, comm)
+        else:
+            with tracer.device_task(task, compute):
+                out = h(task)
+            tracer.maybe_fence(out, compute)
+        tracer.task_span(task, t0, clock(), emit=True)
 
 
 def _a2e_layout(recv: torch.Tensor) -> torch.Tensor:
@@ -250,7 +296,8 @@ def _graph_expert_alltoall(program: tg.ExecProgram, buffers, expert_params,
     rep_chunk = C_loc // r1                # REP slice width per stream
     mo = groups.expert_size
     E_loc = E_pad // mo
-    streams = _Streams(groups, buffers.device)
+    streams = _Streams(groups, buffers.device, timed_kinds=(tg.A2E, tg.E2A))
+    tracer = active_tracer()
     held = []                              # alive until the join
     dispatched = {}
     ffn_out = {}
@@ -258,45 +305,54 @@ def _graph_expert_alltoall(program: tg.ExecProgram, buffers, expert_params,
     shared_parts = {}
     hot_out = {}
 
-    def exchange(name, index, send, recv):
+    def exchange(task, name, index, send, recv):
         held.extend((send, recv))
         streams.to_comm(name, index)
-        with streams.on_comm():
+        with streams.on_comm(), (
+                nullcontext() if tracer is None
+                else tracer.device_task(task, streams.comm, "comm")):
             dist.all_to_all_single(recv, send, group=groups.expert)
+        return recv
 
     def on_a2e(t):     # [E_pad, c, M] -> [E_loc, mo*c, M]
         i = t.mb * r2 + t.chunk
         send = buffers[:, i * chunk:(i + 1) * chunk].contiguous()
         recv = send.new_empty((mo, E_loc, chunk, M))
-        exchange("a2e_send", i, send, recv)
+        exchange(t, "a2e_send", i, send, recv)
         streams.to_compute("a2e_recv", i)
         dispatched[(t.mb, t.chunk)] = recv
+        return recv
 
     def on_shared(t):
         if shared_fn is not None:
-            shared_parts[(t.mb, t.chunk)] = _shared_part(
+            out = shared_parts[(t.mb, t.chunk)] = _shared_part(
                 shared_fn, shared_x, t.mb * n_seg + t.chunk, r1 * n_seg)
+            return out
 
     def on_exp(t):
         x = _a2e_layout(dispatched.pop((t.mb, t.chunk)))
-        ffn_out[(t.mb, t.chunk)] = moe_lib.expert_ffn(expert_params, x)
+        out = ffn_out[(t.mb, t.chunk)] = moe_lib.expert_ffn(expert_params,
+                                                            x)
+        return out
 
     def on_e2a(t):     # [E_loc, mo*c, M] -> [E_pad, c, M]
         i = t.mb * r2 + t.chunk
         send = _e2a_layout(ffn_out.pop((t.mb, t.chunk)), mo)
         recv = torch.empty_like(send)
-        exchange("e2a_send", i, send, recv)
+        exchange(t, "e2a_send", i, send, recv)
         outs[(t.mb, t.chunk)] = recv.view(E_pad, chunk, M)
+        return recv
 
     def on_rep(t):     # hot-expert FFN on the locally resident rows
         rows = buffers[hot_rows][:, t.mb * rep_chunk:(t.mb + 1) * rep_chunk]
-        hot_out[t.mb] = moe_lib.expert_ffn(hot_weights, rows)
+        out = hot_out[t.mb] = moe_lib.expert_ffn(hot_weights, rows)
+        return out
 
     handlers = {tg.A2E: on_a2e, tg.SHARED: on_shared,
                 tg.EXP: on_exp, tg.E2A: on_e2a}
     if hot_weights is not None:
         handlers[tg.REP] = on_rep
-    _walk_chunk_stream(program, handlers)
+    _walk_chunk_stream(program, handlers, streams, tracer)
     if hot_weights is not None and not hot_out:
         # a graph lowered without a REP task: still run the hot FFN
         hot_out[0] = moe_lib.expert_ffn(hot_weights, buffers[hot_rows])
@@ -329,19 +385,26 @@ def _graph_replicated_experts(program: tg.ExecProgram, local_buf,
 
     def on_a2e(t):
         i = t.mb * r2 + t.chunk
-        sliced[(t.mb, t.chunk)] = local_buf[:, i * chunk:(i + 1) * chunk]
+        out = sliced[(t.mb, t.chunk)] = local_buf[:, i * chunk:(i + 1)
+                                                  * chunk]
+        return out
 
     def on_shared(t):
         if shared_fn is not None:
-            shared_parts[(t.mb, t.chunk)] = _shared_part(
+            out = shared_parts[(t.mb, t.chunk)] = _shared_part(
                 shared_fn, shared_x, t.mb * n_seg + t.chunk, r1 * n_seg)
+            return out
 
     def on_exp(t):
-        outs[(t.mb, t.chunk)] = moe_lib.expert_ffn(
+        out = outs[(t.mb, t.chunk)] = moe_lib.expert_ffn(
             expert_params, sliced.pop((t.mb, t.chunk)))
+        return out
 
+    tracer = active_tracer()
     _walk_chunk_stream(program, {tg.A2E: on_a2e, tg.SHARED: on_shared,
-                                 tg.EXP: on_exp})
+                                 tg.EXP: on_exp},
+                       None if tracer is None
+                       else _Streams(None, local_buf.device), tracer)
     shared_out = (torch.cat([shared_parts[k] for k in sorted(shared_parts)])
                   if shared_parts else None)
     out = torch.cat([outs[k] for k in sorted(outs)], dim=1)

@@ -45,15 +45,26 @@ step's measured time with its plan's modelled makespan; a
 the stored profile is older. On a CUDA device a calibration runs on its
 own stream and holds the engine's device lock, which the decode graph's
 warm-up and every capture take too: no calibration kernel runs while a
-graph is being set up. Expert placement and observability are not ported
-yet; their arguments raise (``_NOT_PORTED``).
+graph is being set up.
+
+Observability (``repro_torch.obs``) as in the reference: ``metrics`` (a
+``MetricsRegistry``, on by default) holds the TTFT, TPOT, decode-step
+and prefill-chunk histograms, the requests by terminal state and the
+engine's, plan cache's, telemetry's, paging's and drift's counters as
+sources, all cleared by ``reset_stats()``; ``tracer`` (a
+``TraceRecorder``) records the admit / prefill_chunk / decode_step phase
+spans, each finished request's lifecycle and, scoped around the model
+calls, the DEP walk's task emissions (under the decode graph once per
+capture; a replay runs no Python). Neither launches a kernel nor reads
+the device. Expert placement is not ported yet; its arguments raise
+(``_NOT_PORTED``).
 """
 from __future__ import annotations
 
 import threading
 import time
 import warnings
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from functools import partial
 from typing import Any, Dict, List, Optional, Tuple
@@ -68,6 +79,8 @@ from repro_torch.core.solver import Plan
 from repro_torch.core.taskgraph import ATTN, LoweringSpec, lower
 from repro_torch.models import build_model
 from repro_torch.models.transformer import ExecutionContext
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import TraceRecorder, use_tracer
 from repro_torch.profiling import (DriftMonitor, PeriodicRecalibrator,
                                    ProfileKey, ProfileStore, StepTimer)
 from repro_torch.profiling import calibrate as run_calibration
@@ -84,7 +97,6 @@ from repro_torch.sched.occupancy import bucket_length
 #: arguments of the reference's engine that the port does not take yet,
 #: with the ROADMAP Queue 1 item that brings each
 _NOT_PORTED = {
-    "tracer": 6, "metrics": 6,
     "replicate_hot_k": 7, "rebalance_threshold": 7, "track_expert_load": 7,
     "rebalance_min_observations": 7, "max_capacity_scale": 7,
 }
@@ -108,11 +120,33 @@ def prefill_split(plan: Optional[Plan], n: int) -> Tuple[int, int]:
     return max(min(n_mb * max(int(plan.m_a), 1), n), 1), n_mb
 
 
+def _engine_snapshot(stats: "EngineStats", waiting: List[Request],
+                     slots: List[Optional[Request]]) -> Dict[str, float]:
+    """The engine's ``repro_engine`` metrics source."""
+    return {"prefill_tokens_total": float(stats.prefill_tokens),
+            "decode_tokens_total": float(stats.decode_tokens),
+            "steps_total": float(stats.steps),
+            "dropped_tokens_total": float(stats.dropped_tokens),
+            "throughput_tokens_per_s": stats.throughput(),
+            "waiting": float(len(waiting)),
+            "live_slots": float(sum(r is not None for r in slots))}
+
+
+def _drift_snapshot(drift: DriftMonitor) -> Dict[str, float]:
+    """The engine's ``repro_drift`` metrics source."""
+    st = drift.stats
+    return {"observations_total": float(st.observations),
+            "events_total": float(st.drift_events)}
+
+
 @dataclass
 class EngineStats:
     prefill_tokens: int = 0
     decode_tokens: int = 0
     steps: int = 0
+    # token assignments lost to expert-capacity overflow: counted by the
+    # reference's expert-load telemetry (ROADMAP Queue 1 item 7), so 0
+    dropped_tokens: int = 0
     prefill_calls: int = 0
     # wall time of the model calls, each ending in a device sync
     prefill_s: float = 0.0
@@ -126,6 +160,34 @@ class EngineStats:
     # the DEP program of every model call, in order: ("prefill" or
     # "decode", ExecProgram); empty while DEP is off
     programs: List[Tuple[str, object]] = field(default_factory=list)
+    # clock starts on first submit/step, NOT at engine construction —
+    # construction-time weight init would count as idle serving time
+    start_t: Optional[float] = None
+
+    def ensure_started(self) -> None:
+        if self.start_t is None:
+            self.start_t = time.perf_counter()
+
+    def reset(self) -> None:
+        """Zero the counters and re-arm the clock (benchmark warmup). The
+        captures and their seconds stay: they count the graphs the engine
+        holds, which a reset keeps."""
+        self.prefill_tokens = 0
+        self.decode_tokens = 0
+        self.steps = 0
+        self.dropped_tokens = 0
+        self.prefill_calls = 0
+        self.prefill_s = 0.0
+        self.decode_s = 0.0
+        self.graph_replays = 0
+        self.programs = []
+        self.start_t = None
+
+    def throughput(self) -> float:
+        if self.start_t is None:
+            return 0.0
+        dt = time.perf_counter() - self.start_t
+        return (self.prefill_tokens + self.decode_tokens) / max(dt, 1e-9)
 
 
 class ServingEngine:
@@ -158,7 +220,12 @@ class ServingEngine:
     ``drift_recalibrate``) turns on the ``DriftMonitor``;
     ``recalibrate_max_age_s`` with a ``profile_store`` the
     ``PeriodicRecalibrator``, which ``step()`` polls. ``close()`` stops
-    their worker threads."""
+    their worker threads.
+
+    Observability, as in the reference: ``tracer`` is a ``TraceRecorder``
+    (or True for a fresh one; None or False for none, the default);
+    ``metrics`` a ``MetricsRegistry`` (shared across engines), None for a
+    fresh private one (the default), or False for none."""
 
     def __init__(self, cfg: ModelConfig, params=None, *, num_slots: int = 4,
                  max_context: int = 4096,
@@ -184,6 +251,7 @@ class ServingEngine:
                  drift_min_samples: int = 3,
                  drift_recalibrate: bool = True,
                  recalibrate_max_age_s: Optional[float] = None,
+                 tracer=None, metrics=None,
                  **not_ported):
         for name in not_ported:
             if name not in _NOT_PORTED:
@@ -242,6 +310,16 @@ class ServingEngine:
         else:
             self.telemetry = (telemetry if isinstance(telemetry, StepTimer)
                               else StepTimer())
+        if tracer is True:
+            tracer = TraceRecorder()
+        self.tracer: Optional[TraceRecorder] = \
+            tracer if isinstance(tracer, TraceRecorder) else None
+        # sources are only polled at snapshot time
+        if metrics is False:
+            self.metrics: Optional[MetricsRegistry] = None
+        else:
+            self.metrics = (metrics if isinstance(metrics, MetricsRegistry)
+                            else MetricsRegistry())
         self.drift: Optional[DriftMonitor] = None
         if drift_threshold is not None and self.plan_cache is not None:
             self.drift = DriftMonitor(
@@ -250,7 +328,8 @@ class ServingEngine:
                 else StepTimer(),
                 threshold=drift_threshold,
                 min_samples=drift_min_samples,
-                recalibrate=drift_recalibrate)
+                recalibrate=drift_recalibrate,
+                metrics=self.metrics)
         # cron-style background re-calibration: when the stored profile
         # for this host goes stale, re-run the microbenchmarks off the
         # critical path (step() polls; the check is throttled)
@@ -263,7 +342,7 @@ class ServingEngine:
                 device=self.device, dtype=dtype,
                 max_age_s=recalibrate_max_age_s,
                 refresher=self.drift.refresher if self.drift else None,
-                timer=self.telemetry)
+                timer=self.telemetry, metrics=self.metrics)
             self.recalibrator.calibrate_fn = partial(
                 self._calibrate, self.recalibrator.name)
         # plans reach the model only when the DEP executor can act on them
@@ -321,12 +400,17 @@ class ServingEngine:
             self._graphs = DecodeGraphs(
                 self._step, lambda: CudaGraph(pool, stream, generator),
                 self.stats, stream=stream)
+        self._h_ttft = self._h_tpot = None
+        self._h_decode = self._h_prefill = None
+        if self.metrics is not None:
+            self._register_metrics(self.metrics)
 
     @property
     def caches(self):
         return self.kv.caches
 
     def submit(self, req: Request):
+        self.stats.ensure_started()
         self.waiting.append(req)
 
     def _sync(self) -> None:
@@ -334,11 +418,86 @@ class ServingEngine:
             torch.cuda.synchronize(self.device)
 
     def _finish(self, req: Request, state: RequestState, now: float) -> None:
-        """The single request-termination site: stamps the terminal
-        state and finish time."""
+        """The single request-termination site (finished / length-capped
+        / rejected): stamps the terminal state, records the lifecycle
+        spans and the TTFT/TPOT observations."""
         req.state = state
         req.finish_t = now
         self.finished.append(req)
+        if self.tracer is not None:
+            self.tracer.request_lifecycle(req, finish_t=now)
+        if self.metrics is not None:
+            self.metrics.counter(
+                "repro_engine_requests_total",
+                "requests by terminal state",
+                labels={"state": state.value}).inc()
+            if req.ttft is not None:
+                self._h_ttft.observe(req.ttft)
+            if req.tpot is not None:
+                self._h_tpot.observe(req.tpot)
+
+    # ------------------------------------------------------------------
+    # observability (repro_torch.obs): metrics registration, phase spans
+    # ------------------------------------------------------------------
+    def _register_metrics(self, m: MetricsRegistry) -> None:
+        """Wire every stat surface the engine owns into one registry:
+        latency histograms observed at event sites, the existing counter
+        surfaces as polled snapshot sources, and one registry-level
+        ``reset()`` that clears all of them. No source holds the engine:
+        the engine holds the registry, and a cycle through it would keep
+        a dropped engine's weights on the card until the collector ran."""
+        self._h_ttft = m.histogram(
+            "repro_engine_ttft_seconds", "time to first token")
+        self._h_tpot = m.histogram(
+            "repro_engine_tpot_seconds", "mean time per output token")
+        self._h_decode = m.histogram(
+            "repro_engine_decode_step_seconds", "decode step wall time")
+        self._h_prefill = m.histogram(
+            "repro_engine_prefill_chunk_seconds",
+            "prefill chunk wall time")
+        m.register_source("repro_engine", partial(
+            _engine_snapshot, self.stats, self.waiting, self.slots))
+        m.register_reset(self.stats.reset)
+        if self.plan_cache is not None:
+            m.register_source("repro_plan_cache",
+                              self.plan_cache.stats.as_dict)
+        if self.telemetry is not None:
+            m.register_source("repro_telemetry", self.telemetry.snapshot)
+            m.register_reset(self.telemetry.reset)
+        if self._paged:
+            m.register_source("repro_paging", self.kv.paging_summary)
+            m.register_reset(self.kv.paging.reset)
+        if self.drift is not None:
+            m.register_source("repro_drift",
+                              partial(_drift_snapshot, self.drift))
+
+    def reset_stats(self) -> None:
+        """The warmup boundary: one call clears every stat surface. With
+        a metrics registry this routes through ``MetricsRegistry.reset()``
+        (counters, histograms, and the registered reset hooks); without
+        one it clears the same surfaces directly."""
+        if self.metrics is not None:
+            self.metrics.reset()
+        else:
+            self.stats.reset()
+            if self.telemetry is not None:
+                self.telemetry.reset()
+            if self._paged:
+                self.kv.paging.reset()
+        if self.tracer is not None:
+            self.tracer.clear()
+
+    @contextmanager
+    def _phase(self, name: str, **args):
+        """Phase span + active-tracer scope around a step phase. With no
+        tracer this adds nothing to the path (no contextvar touch), so
+        the executor walk is the bare loop."""
+        if self.tracer is None:
+            yield
+            return
+        with use_tracer(self.tracer), \
+                self.tracer.span(name, track="engine", **args):
+            yield
 
     def _ensure_caches(self) -> None:
         """Make the caches; with the graph on, warm it up first: the step
@@ -409,6 +568,10 @@ class ServingEngine:
                  plan: Optional[Plan], predicted_scale: float = 1.0) -> None:
         """One measured model call against its plan's modelled makespan
         (pro-rated by ``predicted_scale``) and per-primitive split."""
+        if phase == "decode" and self._h_decode is not None:
+            self._h_decode.observe(measured_s)
+        elif phase == "prefill" and self._h_prefill is not None:
+            self._h_prefill.observe(measured_s)
         predicted = None
         breakdown = None
         if plan is not None and plan.makespan > 0.0:
@@ -502,14 +665,17 @@ class ServingEngine:
                 lengths.append(Lp)
                 token_rows.append(feed[:Lp])
             t0 = time.perf_counter()
-            _, prefilled = self.model.prefill(
-                self.params, toks.to(self.device),
-                seq_budget=self.max_context, plan=program)
-            # under paged KV the token ids key the prefix cache: shared
-            # full blocks map to already-resident pages and skip the copy
-            self.kv.merge_prefill(slots, prefilled, lengths,
-                                  tokens=token_rows)
-            self._sync()
+            with self._phase("prefill_chunk", bucket=group.bucket,
+                             reqs=len(reqs)):
+                _, prefilled = self.model.prefill(
+                    self.params, toks.to(self.device),
+                    seq_budget=self.max_context, plan=program)
+                # under paged KV the token ids key the prefix cache: shared
+                # full blocks map to already-resident pages and skip the
+                # copy
+                self.kv.merge_prefill(slots, prefilled, lengths,
+                                      tokens=token_rows)
+                self._sync()
             dt = time.perf_counter() - t0
             self.stats.prefill_s += dt
             self.stats.prefill_calls += 1
@@ -523,6 +689,7 @@ class ServingEngine:
                 self._activate(slot, req, prefilled=Lp)
 
     def _activate(self, slot: int, req: Request, prefilled: int):
+        self.stats.ensure_started()
         if req.admit_t is None:
             req.admit_t = time.perf_counter()
         feed = req.resume_tokens
@@ -643,7 +810,8 @@ class ServingEngine:
         if self.recalibrator is not None:
             # throttled staleness check; calibration runs on the worker
             self.recalibrator.maybe_recalibrate()
-        self._admit()
+        with self._phase("admit"):
+            self._admit()
         live = [i for i, r in enumerate(self.slots) if r is not None]
         if not live:
             return False
@@ -654,6 +822,7 @@ class ServingEngine:
             if not live:
                 # capacity actions (preempt/cap) happened; not idle
                 return True
+        self.stats.ensure_started()
         # the decode plan is solved on the ledger's live composition and
         # re-resolved only when it changes
         occ = self.kv.occupancy()
@@ -663,9 +832,11 @@ class ServingEngine:
             self.stats.programs.append(("decode", program))
         use_topk = any(r is not None and r.top_k > 0 for r in self.slots)
         t0 = time.perf_counter()
-        # dead slots decode as length 0
-        nxt = self._decode_step(self.kv.lengths(), use_topk, program)
-        toks = nxt.tolist()                # waits for the device
+        with self._phase("decode_step", step=self.stats.steps,
+                         live=len(live)):
+            # dead slots decode as length 0
+            nxt = self._decode_step(self.kv.lengths(), use_topk, program)
+            toks = nxt.tolist()                # waits for the device
         dt = time.perf_counter() - t0
         self.stats.decode_s += dt
         # the observe edge of the profiling loop: a sustained residual

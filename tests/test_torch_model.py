@@ -95,7 +95,9 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="groups"):
         ExecutionContext(moe_impl="dep")
     from repro_torch.runtime import ServingEngine
-    for arg in ("tracer", "metrics", "replicate_hot_k"):
+    # placement (ROADMAP Queue 1 item 7); tracer= and metrics= are ported
+    for arg in ("replicate_hot_k", "rebalance_threshold",
+                "track_expert_load"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(get_smoke_config("qwen2-moe-a2.7b"), device="cpu",
                           **{arg: 1})

@@ -2,11 +2,12 @@
 """Rehearse chip_smoke.py's calibrate and serve phases on the CPU, at
 smoke size.
 
-The calibrate, serve, paged, pressure, dep, drift, xlstm and hybrid
+The calibrate, serve, paged, pressure, dep, drift, obs, xlstm and hybrid
 phases run as on the card, with the smoke configs in place of the full
-ones, every engine on the CPU, the calibration on the CPU at f32 over the
-reference's sweeps (the plain versions in place of the kernels), and the
-dep phase's expert group on gloo (one rank). An engine
+ones (the obs phase's entry point too), every engine on the CPU, the
+calibration on the CPU at f32 over the reference's sweeps (the plain
+versions in place of the kernels), and the dep and obs phases' expert
+group on gloo (one rank). An engine
 that would capture its decode step gets ``EagerGraph``,
 a stand-in for ``decode_graph.CudaGraph`` whose replay runs the captured
 step again and copies its outputs into the captured ones, so that the
@@ -14,7 +15,11 @@ graph path's bookkeeping (one warm-up before the serve, one capture per
 key, a replay per step, launches added per replay)
 and chip_smoke's checks of it run. The kernel wrappers count their CPU
 calls here, as their CUDA calls count on the card; the profiles and
-timings are skipped (they read device time). This finds wrong paths,
+timings are skipped (they read device time; a skipped decode profile
+reports the card's host calls per graph step, 1 ``cudaGraphLaunch`` and
+2 ``cudaLaunchKernel``, so that the checks after it run). The obs
+phase's layer trace takes the host clock (no CUDA events on the CPU).
+This finds wrong paths,
 shapes and checks before a chip call; it measures nothing.
 
 Run from the repository root:  python3 tools/rehearse_chip_smoke.py
@@ -40,6 +45,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.mlstm_scan import ops as mlstm_ops  # noqa: E402
 from repro_torch.kernels.moe_gemm import ops as gemm_ops  # noqa: E402
 from repro_torch.kernels.rg_lru import ops as rglru_ops  # noqa: E402
+from repro_torch.launch import serve_moe  # noqa: E402
 from repro_torch.models import moe, rglru, ssm  # noqa: E402
 from repro_torch.runtime import ServingEngine  # noqa: E402
 from repro_torch.runtime.decode_graph import DecodeGraphs  # noqa: E402
@@ -103,9 +109,10 @@ def main() -> int:
             (gemm_ops, moe, "moe_gemm"), (mlstm_ops, ssm, "mlstm_scan"),
             (rglru_ops, rglru, "rg_lru_scan")):
         setattr(model_module, name, counting(ops_module, name))
-    chip_smoke.get_config = get_smoke_config
-    chip_smoke.ServingEngine = engine
-    chip_smoke.profile_decode = lambda *a, **k: None
+    chip_smoke.get_config = serve_moe.get_config = get_smoke_config
+    chip_smoke.ServingEngine = serve_moe.ServingEngine = engine
+    chip_smoke.profile_decode = lambda *a, **k: {"cudaGraphLaunch": 1,
+                                                 "cudaLaunchKernel": 2}
     chip_smoke.profile_prefill = lambda *a, **k: None
     chip_smoke.time_dep_chunks = lambda *a, **k: None
     chip_smoke.time_dep_alltoall = lambda *a, **k: None
@@ -115,7 +122,7 @@ def main() -> int:
     torch.cuda.memory_allocated = lambda *a, **k: 0
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
     torch.cuda.max_memory_reserved = lambda *a, **k: 0
-    chip_smoke.CAL_DEVICE = "cpu"
+    chip_smoke.CAL_DEVICE = chip_smoke.OBS_DEVICE = "cpu"
     chip_smoke.CAL_DTYPE = torch.float32
     t0 = time.perf_counter()
     os.makedirs(os.path.join(ROOT, ".repro-profiles"), exist_ok=True)
@@ -124,6 +131,8 @@ def main() -> int:
         profile, _ = chip_smoke.phase_calibrate(store_dir)
         chip_smoke.phase_serve()
         chip_smoke.phase_serve_dep(profile, store_dir)
+        chip_smoke.phase_obs(profile, store_dir)
+        torch.distributed.destroy_process_group()
         chip_smoke.phase_serve_xlstm()
         chip_smoke.phase_serve_hybrid()
     print(f"rehearsal: the calibrate phase and every serve phase passed on "
