@@ -86,6 +86,28 @@
               least one re-calibration and one re-solve land before the
               serve ends; drift events, re-solves, re-calibrations and
               the programs first captured mid-serve are printed;
+     placement  on the dep phase's model, requests and profile (NCCL, one
+              rank): a load-tracking engine (capacity widening off)
+              against an untracked one, the same greedy tokens and graph
+              keys but collect_stats, the untracked step still 1
+              cudaGraphLaunch and 2 cudaLaunchKernel, the tracked one no
+              more launches or syncs (its extra host calls printed) and
+              a paired decode-step timing; an engine
+              with 2 hot experts serves half the requests, re-places
+              (``rebalance_now``) and serves the rest: epoch 1, every
+              skew-keyed plan at it, the expert GEMM 24 x (sum(r1·r2) +
+              the REP task's r1) at every step, 11 teacher-forced steps
+              bitwise against an eager twin given its tracker state and
+              placement, the placed layer (REP, the widened capacity)
+              within GEMM_TOL of the capacity path, the expert GEMM
+              against its plain version at every (E, C) of that serve
+              (REP's E=2 too; served and scaled weights, with controls),
+              the REP GEMM's ms per launch at E=2; then a two-rank permutation and the uniform
+              placement applied in place on the untracked engine: every
+              expert tensor at its address holding the placement's rows,
+              and the graphs captured before replayed bitwise against the
+              eager step; expert_load(), each plan's skew and capacity
+              scale, dropped against routed assignments, tokens/s and TPOT;
      obs      the port's entry point, ``repro_torch.launch.serve_moe``,
               serves the same model (--full --dep, 16 requests, 8 slots,
               max_context 1024, the calibrate phase's profile) with
@@ -121,7 +143,9 @@
               it; profiled over 3 decode steps (graph and eager) and one
               3000-token prefill call;
   7. report   one JSON line with every kernel's numbers (launches from the
-              dep path for the kernels of qwen2-moe's dense KV), the
+              dep path for the kernels of qwen2-moe's dense KV, and per
+              serve path in ``launches_by_path``: the placement path's
+              expert GEMM counts the REP task's launches), the
               card's name and power limit, and as the last line
               {"ok": true, "device": ...}.
 
@@ -190,6 +214,8 @@ from repro_torch.kernels.rg_lru.ref import rg_lru_scan_ref  # noqa: E402
 from repro_torch.models import ExecutionContext, build_model  # noqa: E402
 from repro_torch.launch import serve_moe  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.placement import (Placement, SkewSummary,  # noqa: E402
+                                   rebalance)
 from repro_torch.obs import (attribute_overlap, interval_subtract,  # noqa: E402
                              interval_total, interval_union, lane_intervals,
                              parse_prometheus, trace_dep_execution,
@@ -198,6 +224,7 @@ from repro_torch.profiling import (ProfileKey, ProfileStore,  # noqa: E402
                                    calibrate)
 from repro_torch.profiling.microbench import sweeps_for  # noqa: E402
 from repro_torch.runtime import Request, RequestState, ServingEngine  # noqa: E402
+from repro_torch.runtime.decode_graph import GraphKey  # noqa: E402
 from repro_torch.runtime.engine import prefill_split  # noqa: E402
 from repro_torch.sched import FinDEPPolicy, PlanCache  # noqa: E402
 
@@ -1962,6 +1989,7 @@ def compare_decode(engines, cfg, steps: int = 8, rounds: int = 2) -> None:
     med = {name: float(np.median(t)) for name, t in times.items()}
     print(f"[compare {cfg.name}] decode step ms, turns {'/'.join(names)} "
           "alternating: " + json.dumps({"median": med, "turns": times}))
+    return med
 
 
 # ---------------------------------------------------------------------------
@@ -1985,23 +2013,30 @@ def dep_policy(cfg, profile):
 def exp_launches(programs, layers: int) -> int:
     """Expert-GEMM launches of the model calls that walked ``programs``
     (("prefill" or "decode", ExecProgram) pairs): one per MoE layer and
-    (stream, chunk)."""
-    return layers * sum(p.graph.r1 * p.graph.r2 for _, p in programs)
+    (stream, chunk), and, under a placement that replicates hot experts,
+    one REP launch per MoE layer and stream."""
+    return layers * sum(p.graph.r1 * p.graph.r2
+                        + (p.graph.r1 if p.graph.hot_experts else 0)
+                        for _, p in programs)
 
 
-def dep_expect(cfg):
+def dep_expect(cfg, since=None):
     """Launches of a DEP serve: attention as on the dense path, the
-    expert GEMM once per layer and (stream, chunk) of each call's
-    program."""
+    expert GEMM as ``exp_launches`` of each call's program. ``since`` (an
+    engine's ``EngineStats``) counts only the calls after this point."""
     L = cfg.num_layers
-    return lambda st: {"decode_attention": L * st.steps,
-                       "flash_attention": L * st.prefill_calls,
-                       "moe_gemm": exp_launches(st.programs, L)}
+    steps, calls, n = ((since.steps, since.prefill_calls,
+                        len(since.programs)) if since is not None
+                       else (0, 0, 0))
+    return lambda st: {"decode_attention": L * (st.steps - steps),
+                       "flash_attention": L * (st.prefill_calls - calls),
+                       "moe_gemm": exp_launches(st.programs[n:], L)}
 
 
 def exp_per_step(cfg, path: str):
     """A ``run_stepwise`` check: every step launched the expert GEMM
-    ``num_layers`` x the sum of r1·r2 over its model calls' programs."""
+    ``exp_launches`` of its model calls' programs (``num_layers`` x the
+    sum of r1·r2, and r1 more where REP runs)."""
     def check(before, after, programs):
         n = after["moe_gemm"] - before["moe_gemm"]
         want = exp_launches(programs, cfg.num_layers)
@@ -2092,14 +2127,17 @@ def forced_program() -> ExecProgram:
 
 class GemmWidths:
     """While entered, records the capacity width C of every expert-GEMM
-    call of the model (``models.moe`` calls the wrapper through its
-    module global; a graph capture calls it, a replay does not)."""
+    call of the model (``widths``) and the (E, C) of every call
+    (``shapes``; REP's E is the hot experts'). ``models.moe`` calls the
+    wrapper through its module global; a graph capture calls it, a
+    replay does not."""
 
     def __enter__(self):
-        self.widths = set()
+        self.widths, self.shapes = set(), set()
         self._wrapped = moe_lib.moe_gemm
 
         def record(x, *args, **kw):
+            self.shapes.add((int(x.shape[0]), int(x.shape[1])))
             self.widths.add(int(x.shape[1]))
             return self._wrapped(x, *args, **kw)
         moe_lib.moe_gemm = record
@@ -2153,15 +2191,14 @@ def check_dep_layer(params, cfg, groups, programs, device) -> None:
               f"capacity {cap}: {verdict}")
 
 
-def check_dep_widths(p, widths, device) -> None:
-    """The expert-GEMM kernel against its plain version at every width C
-    the DEP path gave it, bf16 at ``GEMM_TOL``: on the served expert
-    weights (what the serve ran), and on weights at ``check_moe_gemm``'s
-    scale (outputs ~0.6) beside its controls, which must fail the limit
-    in every row they change, so that the limit can see a fault at each
-    width. Prints each comparison's worst ratio; any above 1 fails."""
-    ex = p["experts"]
-    E, M, H = ex["gate"].shape
+def check_dep_widths(weights, shapes, device, path: str = "dep") -> None:
+    """The expert-GEMM kernel against its plain version at every shape
+    (E, C) the DEP path gave it, bf16 at ``GEMM_TOL``: on the served
+    weights of E experts (``weights[E]``: the stacked experts, or the REP
+    task's hot experts), and on weights at ``check_moe_gemm``'s scale
+    (outputs ~0.6) beside its controls, which must fail the limit in every
+    row they change, so that the limit can see a fault at each shape.
+    Prints each comparison's worst ratio; any above 1 fails."""
     gen = torch.Generator(device=device)
     gen.manual_seed(4)
 
@@ -2169,25 +2206,34 @@ def check_dep_widths(p, widths, device) -> None:
         return (torch.randn(shape, generator=gen, device=device)
                 * scale).to(torch.bfloat16)
 
-    scaled = (draw((E, M, H), M ** -0.5), draw((E, M, H), M ** -0.5),
-              draw((E, H, M), H ** -0.5))
+    missing = {e for e, _ in shapes} - set(weights)
+    if missing:
+        fail(f"{path}: no served weights for the expert GEMM at E in "
+             f"{sorted(missing)}")
     worst = {}
-    for c in widths:
-        x = draw((E, c, M))
-        for label, ws in (("served", (ex["gate"], ex["up"], ex["down"])),
-                          ("scaled", scaled)):
-            name = f"dep width E={E} C={c} M={M} H={H} {label} weights"
-            got, want = moe_gemm(x, *ws), moe_gemm_ref(x, *ws)
-            compare(name, got, want, torch.bfloat16,
-                    GEMM_TOL[torch.bfloat16])
-            worst[f"C={c} {label}"] = _worst(got.float(), want.float(),
-                                             GEMM_TOL[torch.bfloat16])
-            if label == "scaled":
-                check_moe_gemm_controls(name, got, x, *ws, want)
-            del got, want
-    print(f"[dep layer] expert GEMM against its plain version at every DEP "
-          f"width {sorted(widths)}: worst {max(worst.values()):.3f} of "
-          "GEMM_TOL " + json.dumps(worst))
+    for E in sorted({e for e, _ in shapes}):
+        ex = weights[E]
+        _, M, H = ex["gate"].shape
+        scaled = (draw((E, M, H), M ** -0.5), draw((E, M, H), M ** -0.5),
+                  draw((E, H, M), H ** -0.5))
+        for c in sorted(c for e, c in shapes if e == E):
+            x = draw((E, c, M))
+            for label, ws in (("served",
+                               (ex["gate"], ex["up"], ex["down"])),
+                              ("scaled", scaled)):
+                name = (f"{path} width E={E} C={c} M={M} H={H} {label} "
+                        "weights")
+                got, want = moe_gemm(x, *ws), moe_gemm_ref(x, *ws)
+                compare(name, got, want, torch.bfloat16,
+                        GEMM_TOL[torch.bfloat16])
+                worst[f"E={E} C={c} {label}"] = _worst(
+                    got.float(), want.float(), GEMM_TOL[torch.bfloat16])
+                if label == "scaled":
+                    check_moe_gemm_controls(name, got, x, *ws, want)
+                del got, want
+    print(f"[{path} layer] expert GEMM against its plain version at every "
+          f"(E, C) the path gave it {sorted(shapes)}: worst "
+          f"{max(worst.values()):.3f} of GEMM_TOL " + json.dumps(worst))
 
 
 def back_to_back_ms(fn, calls: int = 20, iters: int = 5) -> float:
@@ -2479,7 +2525,8 @@ def phase_serve_dep(profile, store_dir: str):
         check_dep_layer(params, cfg, groups, eng.stats.programs, eng.device)
     widths = sorted(rec.widths)
     p = params["layers"][0]["moe"]
-    check_dep_widths(p, widths, eng.device)
+    E = p["experts"]["gate"].shape[0]
+    check_dep_widths({E: p["experts"]}, {(E, c) for c in widths}, eng.device)
     time_dep_chunks(p, widths, eng.device)
     time_dep_alltoall(groups, widths, cfg.d_model,
                       p["experts"]["gate"].shape[0], eng.device)
@@ -2495,6 +2542,415 @@ def phase_serve_dep(profile, store_dir: str):
         fail(f"dep: {left:.2f} GB still allocated after the phase: an "
              "engine outlived it")
     torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: expert-load telemetry and placement
+# ---------------------------------------------------------------------------
+
+#: the placement engine's re-placement threshold (the reference example's);
+#: at one rank the worst rank's load is at most its share, so it never
+#: trips and ``rebalance_now()`` re-places
+REBALANCE_THRESHOLD = 1.25
+#: hot experts the placement engine replicates (the REP task's E)
+HOT_K = 2
+
+
+def tpot_ms(reqs) -> float:
+    return float(np.mean([r.tpot for r in reqs if r.tpot is not None])) * 1e3
+
+
+def copy_tracker(src, dst) -> None:
+    """Give ``dst``'s load tracker the state of ``src``'s, so that ``dst``
+    resolves the same skew, plans and capacity scale from here on."""
+    dst.load_tracker._ewma = src.load_tracker._ewma.copy()
+    dst.load_tracker.observations = src.load_tracker.observations
+
+
+def print_placement(eng, path: str) -> None:
+    """``expert_load()``, and each resolved plan with the skew it was
+    solved under and the capacity scale that skew gives."""
+    print(f"[{path}] expert_load " + json.dumps(eng.expert_load()))
+    for key, plan in eng.resolved_plans().items():
+        skew = key[-1] if isinstance(key[-1], SkewSummary) else None
+        print(f"[{path}] plan {key[:-1] if skew else key}: r1={plan.r1} "
+              f"r2={plan.r2} m_e={plan.m_e:g} {plan.order}; skew {skew}, "
+              f"capacity scale {eng._capacity_scale(skew)}")
+    if eng._graphs is not None:
+        for key in eng._graphs.graphs:
+            print(f"[{path}] decode graph key use_topk={key.use_topk} "
+                  f"program {describe(key.plan)} hot={key.plan.graph.hot_experts} "
+                  f"epoch={key.plan.graph.placement_epoch} cap_scale="
+                  f"{key.cap_scale} collect_stats={key.collect_stats} "
+                  f"placement={'set' if key.placement is not None else None}")
+
+
+def host_timer(fn, times):
+    """``fn`` with the host milliseconds of each call appended to
+    ``times``."""
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return timed
+
+
+def check_tracking(untracked, tracked, cfg) -> None:
+    """(a) The tracked engine (capacity widening off, so tracking is its
+    only difference) against the untracked one, both having served the
+    same requests: the same greedy tokens; the untracked engine's graph
+    keys those of its programs with no placement, scale 1 and no stats,
+    the tracked engine's the same with stats; a profiled decode step of
+    the untracked engine makes 1 cudaGraphLaunch and 2 cudaLaunchKernel,
+    one of the tracked engine no more launches and no more syncs.
+    Prints both engines' host calls per step, paired decode-step medians,
+    the plan solves in the paired turns, and the tracked engine's host
+    time per step in the tracker's EWMA, the stats readbacks and the
+    skew summary."""
+    ku, kt = set(untracked._graphs.graphs), set(tracked._graphs.graphs)
+    if not ku or any(k != GraphKey(k.use_topk, k.plan) for k in ku):
+        fail(f"placement: untracked graph keys {ku} carry placement "
+             "fields")
+    if {k._replace(collect_stats=False) for k in kt} != ku \
+            or not all(k.collect_stats for k in kt):
+        fail(f"placement: tracked keys {kt} are not the untracked keys "
+             f"{ku} with collect_stats")
+    rows = {name: profile_decode(e, np.random.RandomState(5), cfg,
+                                 f"placement {name}")
+            for name, e in (("untracked", untracked), ("tracked", tracked))}
+    calls = (rows["untracked"]["cudaGraphLaunch"],
+             rows["untracked"]["cudaLaunchKernel"])
+    if calls != (1, 2):
+        fail(f"placement: the untracked engine's decode step makes "
+             f"{calls} (cudaGraphLaunch, cudaLaunchKernel), want (1, 2)")
+    extra = {k: rows["tracked"][k] - rows["untracked"][k]
+             for k in ("cudaGraphLaunch", "cudaLaunchKernel",
+                       "cudaMemcpyAsync", "cudaStreamSynchronize")}
+    if extra["cudaStreamSynchronize"] or extra["cudaLaunchKernel"] \
+            or extra["cudaGraphLaunch"]:
+        fail(f"placement: the tracked decode step makes {json.dumps(extra)} "
+             "host calls beyond the untracked one's: its statistics must "
+             "leave the graph with no launch or sync of their own")
+    before = {name: (e.plan_cache.stats.misses,
+                     e.plan_cache.stats.solve_time_total, e.stats.steps)
+              for name, e in (("untracked", untracked), ("tracked", tracked))}
+    host_ms = {"tracker_ewma": [], "observe_load": [], "skew": []}
+    for obj, attr, key in ((tracked.load_tracker, "observe", "tracker_ewma"),
+                           (tracked, "_observe_load", "observe_load"),
+                           (tracked, "_current_skew", "skew")):
+        setattr(obj, attr, host_timer(getattr(obj, attr), host_ms[key]))
+    med = compare_decode({"untracked": untracked, "tracked": tracked}, cfg)
+    # the instance wrappers hold bound methods: drop them (no cycle)
+    del (tracked.load_tracker.observe, tracked._observe_load,
+         tracked._current_skew)
+    steps = tracked.stats.steps - before["tracked"][2]
+    split = {k: sum(v) / steps for k, v in host_ms.items()}
+    split["readbacks"] = split["observe_load"] - split["tracker_ewma"]
+    print("[placement] tracked engine's host ms per decode step in the "
+          "paired turns (observations include its prefill calls'; "
+          "readbacks = observe_load - tracker_ewma): " + json.dumps(split))
+    solves = {}
+    for name, e in (("untracked", untracked), ("tracked", tracked)):
+        misses, solve_s, steps = before[name]
+        solves[name] = dict(
+            plan_misses=e.plan_cache.stats.misses - misses,
+            solve_ms=(e.plan_cache.stats.solve_time_total - solve_s) * 1e3,
+            engine_steps=e.stats.steps - steps)
+    print(f"[placement] tracked engine: {len(kt)} graph keys, the untracked "
+          f"ones with collect_stats; host calls per decode step beyond the "
+          f"untracked engine's {json.dumps(extra)}; paired decode-step "
+          f"median tracked / untracked {med['tracked']:.3f} / "
+          f"{med['untracked']:.3f} ms = "
+          f"{med['tracked'] / med['untracked']:.4f}; plan solves during the "
+          "paired turns (a new skew fingerprint is a new plan key) "
+          + json.dumps(solves))
+
+
+def check_placed_layer(eng, params, cfg, groups) -> None:
+    """Layer 0 of the served weights under the placed engine's placement
+    (the REP task over its hot experts) and its largest capacity scale,
+    for every program the engine walked after the re-placement, against
+    ``moe_apply_capacity`` at the same capacity: within ``GEMM_TOL``. Both
+    sides reach the same expert-GEMM kernel, so this holds the REP wiring;
+    ``check_dep_widths`` holds the kernel at every (E, C) the serve gave
+    it."""
+    p = params["layers"][0]["moe"]
+    lp = eng._device_placement.layer(0)
+    scale = max(k.cap_scale for k in eng._graphs.graphs)
+    shapes = {"decode": (8, 1), "prefill": (2, 512)}
+    gen = torch.Generator(device=eng.device)
+    gen.manual_seed(11)
+    cases = dict.fromkeys((ph, prog) for ph, prog in eng.stats.programs
+                          if prog.graph.hot_experts)
+    for phase, prog in cases:
+        B, S = shapes[phase]
+        x = torch.randn((B, S, cfg.d_model), generator=gen,
+                        device=eng.device).to(torch.bfloat16)
+        cap = moe_lib.expert_capacity(B * S, cfg.moe,
+                                      multiple_of=prog.capacity_multiple,
+                                      scale=scale)
+        got = moe_apply_dep(p, x, cfg.moe, groups, plan=prog, with_aux=False,
+                            capacity_scale=scale, **lp._asdict())[0]
+        want = moe_lib.moe_apply_capacity(p, x, cfg.moe, capacity=cap)[0]
+        ratio = _worst(got.float(), want.float(), GEMM_TOL[torch.bfloat16])
+        if not torch.isfinite(got).all() or ratio > 1:
+            fail(f"placement layer {phase} {describe(prog)}: {ratio:.3f} of "
+                 "GEMM_TOL from the capacity path")
+        print(f"[placement layer] {phase} x{list(x.shape)} {describe(prog)} "
+              f"hot={prog.graph.hot_experts}, capacity {cap} (scale "
+              f"{scale}): within GEMM_TOL of the capacity path (worst "
+              f"{ratio:.3f}, {'bitwise' if torch.equal(got, want) else 'not bitwise'})")
+
+
+def time_rep_gemm(eng, shapes) -> None:
+    """The REP task's expert-GEMM time per launch at each width it ran
+    (E = the hot experts), on the placement's hot weights of layer 0:
+    CUDA events around one call and around 20 back-to-back calls, beside
+    the bound."""
+    hw = eng._device_placement.hot_weights[0]
+    E, M, H = hw["gate"].shape
+    gen = torch.Generator(device=eng.device)
+    gen.manual_seed(12)
+    res = {}
+    for e, c in sorted(shapes):
+        if e != E:
+            continue
+        x = torch.randn((E, c, M), generator=gen, device=eng.device).to(
+            torch.bfloat16)
+        b, _ = bound_ms((2 * E * c * M + 3 * E * M * H) * 2,
+                        6.0 * E * c * M * H, torch.bfloat16)
+
+        def call():
+            return moe_gemm(x, hw["gate"], hw["up"], hw["down"])
+        res[c] = [time_ms(call), back_to_back_ms(call), b]
+    print(f"[placement] REP expert GEMM ms per launch at E={E} (C: [events "
+          "one call, events over 20 back-to-back calls, bound]): "
+          + json.dumps(res))
+
+
+def expert_fingerprints(params):
+    """Per MoE layer and expert tensor, one exact int64 sum of each
+    expert's raw 16-bit words: equal rows give equal sums."""
+    return {(i, k): t.view(torch.int16).sum(dim=(1, 2), dtype=torch.int64)
+            for i, layer in enumerate(params["layers"]) if "moe" in layer
+            for k, t in layer["moe"]["experts"].items()}
+
+
+def check_permutation(eng, cfg) -> None:
+    """(c) On an engine holding live slots and captured graphs: install a
+    non-identity two-rank placement with ``_apply_placement`` (as the
+    reference's own test does without a mesh), then the uniform one,
+    which undoes it. After each, every expert tensor is at its address
+    and holds the placement's rows (exactly in the first and last MoE
+    layer, by per-expert fingerprints in all), and the hot weights are
+    the replicated experts' rows. Then each graph captured before the
+    permutation is replayed and held bitwise against the eager step on
+    the same state (caches, tokens and generator put back between)."""
+    E = cfg.moe.num_experts
+    layers = eng.params["layers"]
+    moe = [i for i, layer in enumerate(layers) if "moe" in layer]
+    keys = list(eng._graphs.graphs)
+    ptrs = {(i, k): t.data_ptr() for i in moe
+            for k, t in layers[i]["moe"]["experts"].items()}
+    exact = {i: {k: t.clone() for k, t in layers[i]["moe"]["experts"].items()}
+             for i in (moe[0], moe[-1])}
+    fps = expert_fingerprints(eng.params)
+    loads = np.random.RandomState(6).permutation(E) + 1.0
+    pl = rebalance(loads, 2, replicate_hot_k=HOT_K, epoch=1)
+    if pl.perm == tuple(range(E)):
+        fail("placement: the two-rank placement is the identity")
+    for placement in (pl, Placement.uniform(E, 2, epoch=2)):
+        eng._apply_placement(placement)
+        inv = torch.as_tensor(np.argsort(placement.perm), device=eng.device)
+        for (i, k), ptr in ptrs.items():
+            t = layers[i]["moe"]["experts"][k]
+            if t.data_ptr() != ptr:
+                fail(f"placement: layer {i} {k} moved")
+            if i in exact and not torch.equal(t, exact[i][k][inv]):
+                fail(f"placement: layer {i} {k} does not hold the rows of "
+                     f"perm {placement.perm}")
+        after = expert_fingerprints(eng.params)
+        for key, fp in fps.items():
+            if not torch.equal(after[key], fp[inv]):
+                fail(f"placement: layer {key[0]} {key[1]} fingerprints do "
+                     "not follow the permutation")
+        dp = eng._device_placement
+        for i in moe:
+            for k, t in layers[i]["moe"]["experts"].items():
+                hot = dp.hot_weights[i]
+                if placement.hot_experts and not torch.equal(
+                        hot[k], t[[placement.perm[e]
+                                   for e in placement.replicated]]):
+                    fail(f"placement: layer {i} {k} hot weights are not the "
+                         "replicated experts' rows")
+        print(f"[placement] {'applied' if placement is pl else 'undone'}: "
+              f"perm {list(placement.perm)}, hot {placement.replicated}, "
+              f"epoch {placement.epoch}: {len(ptrs)} expert tensors in "
+              "place, rows as the placement says")
+    for key in keys:
+        snap = [{n: t.clone() for n, t in c.items()} for c in eng.kv.caches]
+        tokens, rng = eng.last_tokens.clone(), eng.generator.get_state()
+
+        def restore():
+            for c, saved in zip(eng.kv.caches, snap):
+                for n, t in c.items():
+                    t.copy_(saved[n])
+            eng.last_tokens.copy_(tokens)
+            eng.generator.set_state(rng)
+        graph_logits = eng._graphs(key)[1].clone()
+        restore()
+        eager_logits = eng._step(key)[1]
+        restore()
+        if not torch.equal(graph_logits, eager_logits):
+            fail(f"placement: the graph of {describe(key.plan)} "
+                 f"use_topk={key.use_topk} captured before the permutation "
+                 "is not bitwise the eager step after it")
+        del snap
+    print(f"[placement] {len(keys)} graph(s) captured before the "
+          "permutation replay bitwise equal to the eager step after it and "
+          "its inverse")
+
+
+def phase_placement(profile):
+    """Expert-load telemetry and placement on full qwen2-moe-a2.7b (bf16,
+    seed 0), the dep phase's requests, the calibrate phase's profile and
+    an NCCL expert group of one rank. (a) ``check_tracking``: a tracked
+    engine against an untracked one. (b) An engine with ``HOT_K`` hot
+    experts and a re-placement threshold serves half the requests, re-places
+    (``rebalance_now``) and serves the rest: epoch 1, ``HOT_K`` hot
+    experts, every skew-keyed plan at the new epoch, the expert GEMM
+    ``exp_launches`` (REP included) at every step, the steps after the
+    re-placement teacher-forced bitwise against an eager twin given the
+    same tracker state and placement, and the placed layer against the
+    capacity path (``check_placed_layer``), and the expert GEMM against its
+    plain version at every (E, C) of (b)'s serve, REP's included
+    (``check_dep_widths``). (c) ``check_permutation``.
+    Prints ``expert_load()``, each plan's skew and capacity scale, the REP
+    GEMM's time, tokens/s and TPOT of (a) and (b), a decode profile of
+    the placed engine and paired decode-step medians of the placed,
+    tracked and untracked engines. Returns the launch counts of (b)'s
+    serve after the re-placement."""
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2-moe-a2.7b")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    groups = DepGroups.single(DEP_BACKEND)
+
+    def engine(params=None, **kw):
+        return ServingEngine(cfg, params=params, num_slots=8,
+                             max_context=1024, dtype=torch.bfloat16, seed=0,
+                             plan_policy=dep_policy(cfg, profile),
+                             ep_group=groups, **kw)
+
+    untracked = engine()
+    params = untracked.params
+    tracked = engine(params, track_expert_load=True, max_capacity_scale=1.0)
+    served = {}
+    routed = []             # (assignments, dropped) of each tracked call
+    observe = tracked._observe_load
+
+    def count_routed(host):
+        routed.append((float(host[:-1].sum()), int(host[-1])))
+        observe(host)
+    tracked._observe_load = count_routed
+    for name, eng in (("untracked", untracked), ("tracked", tracked)):
+        reqs = mixed_requests(cfg)
+        serve(eng, reqs, cfg, f"placement {name}", dep_expect(cfg),
+              step_check=exp_per_step(cfg, f"placement {name}"))
+        served[name] = reqs
+        print(f"[placement {name}] TPOT mean {tpot_ms(reqs):.2f} ms")
+    del tracked._observe_load, observe      # no cycle through the engine
+    pairs = list(zip(served["untracked"], served["tracked"]))
+    bad = [i for i, (a, b) in enumerate(pairs)
+           if a.temperature == 0 and a.output != b.output]
+    if bad:
+        fail(f"placement: greedy requests {bad} differ between the tracked "
+             "and the untracked engine")
+    same = sum(a.output == b.output for a, b in pairs if a.temperature > 0)
+    # a decode step routes every slot's token, a prefill call its bucket
+    step = tracked.num_slots * cfg.moe.top_k * cfg.num_layers
+    share = {phase: [sum(d for r, d in routed if (r == step) == dec),
+                     sum(r for r, d in routed if (r == step) == dec)]
+             for phase, dec in (("decode", True), ("prefill", False))}
+    print(f"[placement] tracked vs untracked: all greedy requests give the "
+          f"same tokens; {same}/{len(pairs) // 2} sampled ones too; "
+          f"dropped assignments {tracked.stats.dropped_tokens}; "
+          "[dropped, routed] over the layers by phase " + json.dumps(share))
+    print_placement(tracked, "placement tracked")
+    check_tracking(untracked, tracked, cfg)
+
+    eng = engine(params, replicate_hot_k=HOT_K,
+                 rebalance_threshold=REBALANCE_THRESHOLD)
+    reqs = mixed_requests(cfg)
+    with GemmWidths() as rec:
+        serve(eng, reqs[:8], cfg, "placement before",
+              dep_expect(cfg, eng.stats),
+              step_check=exp_per_step(cfg, "placement before"))
+        t0 = time.perf_counter()
+        pl = eng.rebalance_now()
+        print(f"[placement] rebalance_now: {pl} in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        if pl.epoch != 1 or pl.hot_experts != HOT_K:
+            fail(f"placement: epoch {pl.epoch} with {pl.hot_experts} hot "
+                 f"experts after rebalance_now, want 1 and {HOT_K}")
+        counts = serve(eng, reqs[8:], cfg, "placement after",
+                       dep_expect(cfg, eng.stats),
+                       step_check=exp_per_step(cfg, "placement after"))
+    print(f"[placement] TPOT mean before {tpot_ms(reqs[:8]):.2f} ms, after "
+          f"{tpot_ms(reqs[8:]):.2f} ms")
+    stale = [k for k in eng.resolved_plans()
+             if isinstance(k[-1], SkewSummary) and k[-1].epoch != pl.epoch]
+    if stale:
+        fail(f"placement: plan keys of an older epoch after the "
+             f"re-placement: {stale}")
+    rep = [p for _, p in eng.stats.programs if p.graph.hot_experts]
+    if not rep or any(p.graph.hot_experts != HOT_K for p in rep):
+        fail("placement: no program after the re-placement runs REP")
+    print_placement(eng, "placement")
+    if pl.perm != tuple(range(cfg.moe.num_experts)):
+        fail("placement: a one-rank placement moved experts")
+    eager = engine(params, replicate_hot_k=HOT_K,
+                   rebalance_threshold=REBALANCE_THRESHOLD,
+                   decode_graph=False)
+    eager._apply_placement(pl)
+    copy_tracker(eng, eager)
+    teacher_forced("placement", eng, eager, cfg,
+                   forced_prompts(cfg.vocab_size))
+    del eager
+    profile_decode(eng, np.random.RandomState(5), cfg, "placement placed")
+    med = compare_decode({"untracked": untracked, "tracked": tracked,
+                          "placed": eng}, cfg)
+    print(f"[placement] paired decode-step medians placed (REP over "
+          f"{HOT_K} experts, capacity scale up to 4) / tracked / untracked "
+          f"{med['placed']:.3f} / {med['tracked']:.3f} / "
+          f"{med['untracked']:.3f} ms")
+    del tracked
+    check_placed_layer(eng, params, cfg, groups)
+    experts = params["layers"][0]["moe"]["experts"]
+    check_dep_widths({experts["gate"].shape[0]: experts,
+                      HOT_K: eng._device_placement.hot_weights[0]},
+                     rec.shapes, eng.device, "placement")
+    time_rep_gemm(eng, rec.shapes)
+    del eng, experts
+    torch.cuda.empty_cache()
+
+    eng = untracked
+    rng = np.random.RandomState(5)
+    for _ in range(eng.num_slots):
+        eng.submit(Request(prompt=list(rng.randint(0, cfg.vocab_size,
+                                                   size=300)),
+                           max_new_tokens=4))
+    eng.step()
+    check_permutation(eng, cfg)
+    del eng, untracked, params
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() / 1e9
+    if left > 0.5:
+        fail(f"placement: {left:.2f} GB still allocated after the phase: an "
+             "engine outlived it")
+    torch.cuda.empty_cache()
+    print(f"[placement] phase passed in {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -2912,7 +3368,8 @@ def profile_decode(eng, rng, cfg, path: str, steps: int = 3) -> dict:
     if busy_ms <= 0:
         fail(f"profile {path}: the profiler recorded no kernel on the card")
     host_calls = {name: sum(e.name == name for e in prof.events()) / steps
-                  for name in ("cudaGraphLaunch", "cudaLaunchKernel")}
+                  for name in ("cudaGraphLaunch", "cudaLaunchKernel",
+                               "cudaMemcpyAsync", "cudaStreamSynchronize")}
     # the card's idle time inside the window: short gaps between device
     # ops (launch latency) apart from long ones (the host between steps)
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -3105,6 +3562,7 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             counts = phase_serve()
             counts["dep"] = phase_serve_dep(profile, store_dir)
+            counts["placement"] = phase_placement(profile)
             phase_obs(profile, store_dir)
             torch.distributed.destroy_process_group()
             counts["xlstm"] = phase_serve_xlstm()
@@ -3116,6 +3574,8 @@ def main(argv=None) -> int:
         path = KERNEL_PATH[e["name"]]
         launches = counts.get(path, {}).get(e["name"], 0)
         e = dict(e, route="cuda", launches=launches, launches_path=path,
+                 launches_by_path={p: c[e["name"]] for p, c in counts.items()
+                                   if c.get(e["name"])},
                  calibrate_launches=cal_counts.get(e["name"], 0), ok=True)
         report.append(e)
         lib = ("none" if e["library_ms"] is None

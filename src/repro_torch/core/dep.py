@@ -41,6 +41,11 @@ E2A on the comm stream around their ``all_to_all_single`` (after the
 wait for the compute stream), the other tasks on the compute stream.
 With no tracer the walk is the bare loop.
 
+A placement (``repro_torch.placement.Placement``) reaches the walk as
+device tensors made once per placement, outside any step
+(``DevicePlacement``): a step, and so a CUDA graph, copies nothing from
+the host for it.
+
 Two dispatch modes, as in the reference:
   * "sequence" (prefill; any call at an expert group of one rank): each
     peer routes its own slice of the sequence and the buffers are
@@ -53,7 +58,7 @@ from __future__ import annotations
 
 from contextlib import nullcontext
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -64,6 +69,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import mlp_apply
 # module-level so the no-tracer walk pays no per-call import lookup
 from repro_torch.obs.trace import active_tracer
+from repro_torch.placement import Placement
 
 
 @dataclass(eq=False)
@@ -140,6 +146,55 @@ class DepGroups:
         if ev is None:
             ev = self._events[(name, index)] = torch.cuda.Event()
         return ev
+
+
+class LayerPlacement(NamedTuple):
+    """One MoE layer's placement arguments of ``moe_apply_dep``: the
+    ``Placement``, its logical -> buffer-row ``expert_map`` [E_pad] and
+    replicated experts' rows ``hot_rows`` [n_hot] (int64, on the layer's
+    device; None without replicas) and the layer's ``hot_weights``."""
+
+    placement: Placement
+    expert_map: torch.Tensor
+    hot_rows: Optional[torch.Tensor]
+    hot_weights: Optional[dict]
+
+
+@dataclass(frozen=True, eq=False)
+class DevicePlacement:
+    """A ``Placement`` with the device tensors the DEP walk reads, made
+    once when the placement is installed (``build``): ``expert_map`` and
+    ``hot_rows`` as in ``LayerPlacement``, and per layer of the model the
+    replicated experts' weights gathered from that layer's stacked
+    (already permuted) experts, None for a layer without them. Compared
+    by identity: a decode graph keyed on it holds its tensors."""
+
+    placement: Placement
+    expert_map: torch.Tensor
+    hot_rows: Optional[torch.Tensor]
+    hot_weights: Tuple[Optional[dict], ...]
+
+    @classmethod
+    def build(cls, placement: Placement, layers,
+              device: torch.device) -> "DevicePlacement":
+        """``layers`` is the model's ``params["layers"]`` list."""
+        perm = placement.perm
+        expert_map = torch.tensor(perm, dtype=torch.long, device=device)
+        hot_rows = None
+        hot = [None] * len(layers)
+        if placement.hot_experts:
+            hot_rows = torch.tensor([perm[e] for e in placement.replicated],
+                                    dtype=torch.long, device=device)
+            for i, layer in enumerate(layers):
+                experts = layer.get("moe", {}).get("experts")
+                if experts is not None:
+                    hot[i] = {k: v.index_select(0, hot_rows)
+                              for k, v in experts.items()}
+        return cls(placement, expert_map, hot_rows, tuple(hot))
+
+    def layer(self, index: int) -> LayerPlacement:
+        return LayerPlacement(self.placement, self.expert_map,
+                              self.hot_rows, self.hot_weights[index])
 
 
 class _Streams:
@@ -411,9 +466,25 @@ def _graph_replicated_experts(program: tg.ExecProgram, local_buf,
     return out, shared_out
 
 
+def _token_group(groups: DepGroups, sequence: bool):
+    """The group over which this rank's tokens are one shard of the
+    layer's: the data axes (which shard the batch) and, in sequence
+    mode, the expert axis; None when no other rank holds other tokens.
+    The reference's ``psum`` over ``tok_axes``."""
+    over_data = groups.world_size > groups.expert_size
+    over_expert = sequence and groups.expert_size > 1
+    if over_data and over_expert:
+        return groups.world
+    if over_data:
+        return groups.data
+    return groups.expert if over_expert else None
+
+
 def moe_apply_dep(params, x, mcfg: MoEConfig, groups: DepGroups,
                   num_experts_padded: int = 0, plan=None, placement=None,
-                  hot_weights=None, with_aux: bool = True):
+                  hot_weights=None, expert_map=None, hot_rows=None,
+                  with_aux: bool = True, return_stats: bool = False,
+                  capacity_scale: float = 1.0):
     """Schedule-driven MoE layer on one rank. ``x`` [Bl, Sl, M] is this
     rank's tokens in the reference's layout: its data shard, and in
     sequence mode its slice of the sequence over the expert axis.
@@ -431,9 +502,14 @@ def moe_apply_dep(params, x, mcfg: MoEConfig, groups: DepGroups,
     to the buffer row of ``placement.perm``; its replicated hot experts
     run the REP task on ``hot_weights`` ([n_hot, ...] in
     ``placement.replicated`` order, held by every rank) in sequence mode.
-    Returns (y [Bl, Sl, M], aux), aux being the device mean of the load
-    balance loss, or None with ``with_aux=False`` (which skips its
-    all_reduce)."""
+    ``expert_map`` and ``hot_rows`` are the placement's device tensors
+    (``DevicePlacement``), which the caller passes with it.
+    ``capacity_scale`` widens the dispatch capacity (1.0: the uniform
+    sizing). Returns (y [Bl, Sl, M], aux), aux being the device mean of
+    the load balance loss, or None with ``with_aux=False`` (which skips
+    its all_reduce); with ``return_stats`` also a ``moe.MoEStats`` of the
+    layer's tokens on every rank (``load`` in logical expert ids, summed
+    with ``dropped`` over the ranks that shard the tokens)."""
     Bl, Sl, M = x.shape
     mo = groups.expert_size
     E_pad = num_experts_padded or mcfg.num_experts
@@ -448,27 +524,34 @@ def moe_apply_dep(params, x, mcfg: MoEConfig, groups: DepGroups,
         raise ValueError(f"placement of {placement.num_experts} experts on "
                          f"{placement.num_ranks} ranks, layer of {E_pad} "
                          f"on {mo}")
-    expert_map = hot_rows = None
     if placement is not None:
-        expert_map = torch.as_tensor(placement.perm, device=x.device)
-        if placement.hot_experts and sequence:
-            if hot_weights is None:
-                raise ValueError("a placement with replicated experts "
-                                 "needs their hot_weights")
-            hot_rows = torch.as_tensor(
-                [placement.perm[e] for e in placement.replicated],
-                device=x.device)
+        if expert_map is None:
+            raise ValueError("a placement needs its device tensors "
+                             "(DevicePlacement)")
+        if not (placement.hot_experts and sequence):
+            hot_rows = hot_weights = None
+        elif hot_weights is None:
+            raise ValueError("a placement with replicated experts needs "
+                             "their hot_weights")
     else:
-        hot_weights = None
+        expert_map = hot_rows = hot_weights = None
     xf = x.reshape(-1, M)
     T_loc = xf.shape[0]
     # the GATE task: router dispatch into capacity buffers aligned so
     # each of the r1·r2 (stream, chunk) slices is a multiple of the m_e
     # the solver modeled; capacity only rounds up
     cap = moe_lib.expert_capacity(T_loc, mcfg, E_pad,
-                                  multiple_of=program.capacity_multiple)
+                                  multiple_of=program.capacity_multiple,
+                                  scale=capacity_scale)
     info = moe_lib.moe_dispatch({"router": params["router"]}, xf, mcfg, cap,
                                 E_pad, expert_map=expert_map)
+    stats = None
+    if return_stats:
+        group = _token_group(groups, sequence)
+        if group is not None:
+            dist.all_reduce(info.load, group=group)
+            dist.all_reduce(info.dropped, group=group)
+        stats = moe_lib.MoEStats(load=info.load, dropped=info.dropped)
     shared = params.get("shared")
     shared_fn = None if shared is None else (lambda xs: mlp_apply(shared,
                                                                  xs))
@@ -499,4 +582,5 @@ def moe_apply_dep(params, x, mcfg: MoEConfig, groups: DepGroups,
         aux = info.aux.clone()
         dist.all_reduce(aux, group=groups.world)
         aux = aux / groups.world_size
-    return y.reshape(Bl, Sl, M), aux
+    y = y.reshape(Bl, Sl, M)
+    return (y, aux, stats) if return_stats else (y, aux)

@@ -7,9 +7,18 @@ default, or a baseline via --policy) and admission policy
 
 The same flags and the same printed summary as the reference: tokens/s,
 TTFT mean and p90, TTFT and TPOT p50/p99 from the metrics registry's
-histograms, the resolved plans, paging, telemetry and drift. The
-planner's cost models come from ``repro_torch.profiling`` (--calibrate,
---profile NAME, --profile-store DIR, --drift-threshold X).
+histograms, the resolved plans (with the skew each was solved under),
+the expert load, paging, telemetry and drift. The planner's cost models
+come from ``repro_torch.profiling`` (--calibrate, --profile NAME,
+--profile-store DIR, --drift-threshold X).
+
+Expert placement (``repro_torch.placement``), as in the reference:
+
+  --replicate-hot-k K      replicate the K hottest experts onto every EP
+                           rank when a re-balance lands (the REP task)
+  --rebalance-threshold X  re-solve the expert -> rank map in the
+                           background when the worst rank's observed
+                           load exceeds X times the uniform share
 
 Observability (``repro_torch.obs``):
 
@@ -29,9 +38,6 @@ Flags of the port's own:
                    one rank (NCCL on a CUDA device, gloo on the CPU): the
                    counterpart of the reference engine's ``mesh=``
   --max-context N  KV positions per slot (the reference's 256)
-
-Expert placement (--replicate-hot-k, --rebalance-threshold) is not
-ported yet (ROADMAP Queue 1 item 7): a non-default value raises.
 
 Run:  python -m repro_torch.launch.serve_moe --device cpu --requests 4
       python -m repro_torch.launch.serve_moe --full --dep \\
@@ -88,10 +94,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "at this |residual| (e.g. 0.5)")
     ap.add_argument("--replicate-hot-k", type=int, default=0,
                     help="replicate the K hottest experts onto every EP "
-                         "rank (not ported yet: ROADMAP Queue 1 item 7)")
+                         "rank at each re-balance (0 = no replication)")
     ap.add_argument("--rebalance-threshold", type=float, default=None,
-                    help="background expert re-placement threshold (not "
-                         "ported yet: ROADMAP Queue 1 item 7)")
+                    help="background expert re-placement when the worst "
+                         "rank's load exceeds this multiple of the "
+                         "uniform share (e.g. 1.25; None = never)")
     ap.add_argument("--attn-impl", choices=("decode_kernel", "xla"),
                     default="decode_kernel",
                     help="decode attention: the split-KV decode kernel "
@@ -172,12 +179,6 @@ def build_engine(args, **overrides) -> ServingEngine:
             os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
         groups = DepGroups.single("nccl" if device.type == "cuda"
                                   else "gloo")
-    # placement is not ported: a non-default value reaches the engine,
-    # which raises (ROADMAP Queue 1 item 7)
-    placement = {k: v for k, v in (("replicate_hot_k", args.replicate_hot_k),
-                                   ("rebalance_threshold",
-                                    args.rebalance_threshold))
-                 if v not in (0, None)}
     kw = dict(num_slots=args.slots, max_context=args.max_context,
               plan_policy=policy, admission=args.admission,
               token_budget=args.token_budget, calibrate=args.calibrate,
@@ -188,7 +189,8 @@ def build_engine(args, **overrides) -> ServingEngine:
               tracer=bool(args.trace_out), interleave=args.interleave,
               ep_group=groups,
               dtype=torch.bfloat16 if args.full else torch.float32,
-              device=device, **placement)
+              device=device, replicate_hot_k=args.replicate_hot_k,
+              rebalance_threshold=args.rebalance_threshold)
     kw.update(overrides)
     return ServingEngine(cfg, **kw)
 
@@ -265,14 +267,26 @@ def report(args, served: Served) -> None:
         plans = dict(entries)
         for key in prefills:
             phase, bucket, batch = key[:3]
+            skew = f" skew={key[3]!r}" if len(key) > 3 else ""
             p = plans[key]
             print(f"  {phase:>7} bucket={bucket:<5} batch={batch}: "
-                  f"m_a={p.m_a} r1={p.r1} r2={p.r2} {p.order}")
+                  f"m_a={p.m_a} r1={p.r1} r2={p.r2} {p.order}{skew}")
         for key in decodes:
             phase, occ = key[:2]
+            skew = f" skew={key[2]!r}" if len(key) > 2 else ""
             p = plans[key]
             print(f"  {phase:>7} {occ!r}: "
-                  f"m_a={p.m_a} r1={p.r1} r2={p.r2} {p.order}")
+                  f"m_a={p.m_a} r1={p.r1} r2={p.r2} {p.order}{skew}")
+
+    load = eng.expert_load()
+    if load is not None:
+        pl = eng.placement
+        print(f"\nexpert load: imbalance {load['imbalance']:.2f}x uniform "
+              f"(worst rank {load['rank_imbalance']:.2f}x), "
+              f"{eng.stats.dropped_tokens} assignments dropped, "
+              f"placement epoch {int(load['epoch'])}"
+              + (f" (hot experts {pl.replicated})"
+                 if pl is not None and pl.replicated else ""))
 
     paging = eng.paging_stats()
     if paging is not None:

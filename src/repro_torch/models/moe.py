@@ -107,6 +107,12 @@ class MoEStats(NamedTuple):
     load: torch.Tensor        # [E] float32
     dropped: torch.Tensor     # []  int32
 
+    def packed(self) -> torch.Tensor:
+        """``load`` flattened, then ``dropped``, in one float32 tensor (the
+        counts are exact in it), so that one host copy reads both."""
+        return torch.cat([self.load.reshape(-1),
+                          self.dropped.reshape(1).to(self.load.dtype)])
+
 
 # ---------------------------------------------------------------------------
 # execution path 1: exact dense combine (oracle)

@@ -124,13 +124,19 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
     raise ValueError(kind)
 
 
-def _apply_moe(p, cfg: ModelConfig, h, ctx: ExecutionContext, plan=None):
-    """Returns (y, aux); ``plan`` reaches only the DEP path, whose aux
-    (an all_reduce) is skipped: serving discards it."""
+def _apply_moe(p, cfg: ModelConfig, h, ctx: ExecutionContext, plan=None,
+               placement=None, collect_stats: bool = False,
+               capacity_scale: float = 1.0):
+    """Returns (y, aux), or (y, aux, moe.MoEStats) with
+    ``collect_stats``. ``plan``, ``placement`` (the layer's
+    ``dep.LayerPlacement``) and ``capacity_scale`` reach only the DEP
+    path, whose aux (an all_reduce) is skipped: serving discards it."""
     if ctx.moe_impl == "dense":
-        return moe_lib.moe_apply_dense(p["moe"], h, cfg.moe)
+        return moe_lib.moe_apply_dense(p["moe"], h, cfg.moe,
+                                       return_stats=collect_stats)
     if ctx.moe_impl == "capacity":
-        return moe_lib.moe_apply_capacity(p["moe"], h, cfg.moe)
+        return moe_lib.moe_apply_capacity(p["moe"], h, cfg.moe,
+                                          return_stats=collect_stats)
     from repro_torch.core import dep as dep_lib
     if ctx.groups.expert_size > 1 and dep_lib.seq_mode(h.shape[1],
                                                       ctx.groups.expert_size):
@@ -138,19 +144,26 @@ def _apply_moe(p, cfg: ModelConfig, h, ctx: ExecutionContext, plan=None):
             "the model does not split a sequence over the expert axis: its "
             "DEP layers run on an expert group of one rank, or in "
             "replicated-token decode")
-    y, _ = dep_lib.moe_apply_dep(p["moe"], h, cfg.moe, ctx.groups,
-                                 plan=plan, with_aux=False)
-    return y, torch.zeros((), dtype=torch.float32, device=h.device)
+    out = dep_lib.moe_apply_dep(
+        p["moe"], h, cfg.moe, ctx.groups, plan=plan, with_aux=False,
+        return_stats=collect_stats, capacity_scale=capacity_scale,
+        **(placement._asdict() if placement is not None else {}))
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    return (out[0], zero) + tuple(out[2:])
 
 
 def apply_layer(p, cfg: ModelConfig, kind: str, x, positions, cache,
                 mode: str, ctx: ExecutionContext, lengths=None,
-                paged=None, plan=None):
+                paged=None, plan=None, placement=None, stats_sink=None,
+                capacity_scale: float = 1.0):
     """Returns (x, new_cache, aux_loss). ``lengths`` is the decode-mode
     per-slot KV ledger vector shared by every attention layer; ``paged``
     is the decode step's paged-KV addresses (``attn.paged_address``, also
     shared: one table addresses every layer's page pool); ``plan`` is the
-    DEP schedule of every MoE layer."""
+    DEP schedule of every MoE layer, ``placement`` this layer's
+    ``dep.LayerPlacement`` and ``capacity_scale`` its dispatch widening.
+    ``stats_sink`` is an optional list an MoE layer appends its
+    ``moe.MoEStats`` to."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     if kind in ("mlstm", "slstm"):
@@ -186,10 +199,30 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, positions, cache,
     x = x + a
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
     if kind == "attn_moe":
-        y, aux = _apply_moe(p, cfg, h, ctx, plan)
+        y, aux, *st = _apply_moe(p, cfg, h, ctx, plan, placement,
+                                 collect_stats=stats_sink is not None,
+                                 capacity_scale=capacity_scale)
+        if stats_sink is not None:
+            stats_sink.append(st[0])
     else:
         y = mlp_apply(p["mlp"], h)
     return x + y, cache, aux
+
+
+def _stack_moe_stats(sink) -> Optional[moe_lib.MoEStats]:
+    """One ``moe.MoEStats`` of a stats sink: ``load`` stacked to
+    [L_moe, E], ``dropped`` summed over the layers (int32). None for an
+    empty sink (no MoE layer)."""
+    if not sink:
+        return None
+    return moe_lib.MoEStats(
+        load=torch.stack([s.load for s in sink]),
+        dropped=torch.stack([s.dropped for s in sink]).sum(
+            dtype=torch.int32))
+
+
+def _layer_placement(placement, i: int):
+    return placement.layer(i) if placement is not None else None
 
 
 class Model:
@@ -248,14 +281,20 @@ class Model:
         return x.float() @ params["lm_head"]["kernel"].float()
 
     def prefill(self, params, tokens, seq_budget: Optional[int] = None,
-                last_positions=None, plan=None):
+                last_positions=None, plan=None, placement=None,
+                return_moe_stats: bool = False,
+                capacity_scale: float = 1.0):
         """tokens: [B, S] (right-padded when batching several requests).
         ``last_positions`` ([B] int, optional) takes each row's logits at
         its own last real token instead of the padded bucket end. ``plan``
-        is the DEP schedule of this call's MoE layers. Returns
-        (logits [B,1,V], caches of capacity ``seq_budget``). The readout
-        runs only on the positions it returns (the reference computes all
-        S and then gathers: the same values)."""
+        is the DEP schedule of this call's MoE layers, ``placement`` the
+        engine's ``dep.DevicePlacement`` (or None) and ``capacity_scale``
+        their dispatch widening, all three for the DEP path only. Returns
+        (logits [B,1,V], caches of capacity ``seq_budget``), and with
+        ``return_moe_stats`` a stacked ``moe.MoEStats`` ([L_moe, E] loads,
+        total dropped; None without MoE layers). The readout runs only on
+        the positions it returns (the reference computes all S and then
+        gathers: the same values)."""
         cfg = self.cfg
         tokens = tokens.to(self.device)
         B, S = tokens.shape
@@ -263,20 +302,27 @@ class Model:
         x = embedding_apply(params["embed"], tokens, self.dtype)
         positions = torch.arange(S, dtype=torch.int32,
                                  device=self.device)[None].expand(B, S)
+        sink = [] if return_moe_stats else None
         for i, kind in enumerate(self.kinds):
-            x, caches[i], _ = apply_layer(params["layers"][i], cfg, kind, x,
-                                          positions, caches[i], "prefill",
-                                          self.ctx, plan=plan)
+            x, caches[i], _ = apply_layer(
+                params["layers"][i], cfg, kind, x, positions, caches[i],
+                "prefill", self.ctx, plan=plan,
+                placement=_layer_placement(placement, i), stats_sink=sink,
+                capacity_scale=capacity_scale)
         if last_positions is not None:
             pos = torch.as_tensor(last_positions, device=self.device).long()
             x = x[torch.arange(B, device=self.device), pos][:, None]
         else:
             x = x[:, -1:]
         x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+        if return_moe_stats:
+            return self._readout(params, x), caches, _stack_moe_stats(sink)
         return self._readout(params, x), caches
 
     def decode_step(self, params, tokens, caches, lengths=None,
-                    block_tables=None, plan=None):
+                    block_tables=None, plan=None, placement=None,
+                    return_moe_stats: bool = False,
+                    capacity_scale: float = 1.0):
         """tokens: [B, 1] -> (logits [B,1,V], caches). ``lengths`` ([B]
         int32, optional) are the per-slot context lengths from the KV
         ledger, shared by every attention layer (mask source and the
@@ -284,10 +330,11 @@ class Model:
         max_blocks], optional) is the paged-KV page map; one table serves
         every attention layer, since page p of each layer's pool belongs
         to the same logical block, so the step's page addresses are worked
-        out once here. None = dense. ``plan`` is the DEP schedule of
-        every MoE layer. The caches' K/V rows and the mLSTM matrix states
-        are written in place; the returned list holds the advanced
-        indices and the other new recurrent states."""
+        out once here. None = dense. ``plan``, ``placement`` and
+        ``capacity_scale`` are as in ``prefill``. The caches' K/V rows and
+        the mLSTM matrix states are written in place; the returned list
+        holds the advanced indices and the other new recurrent states.
+        ``return_moe_stats`` appends the stacked ``moe.MoEStats``."""
         cfg = self.cfg
         x = embedding_apply(params["embed"], tokens.to(self.device),
                             self.dtype)
@@ -300,10 +347,16 @@ class Model:
                                        first["index"], first["k"].shape[1],
                                        lengths)
         new_caches = []
+        sink = [] if return_moe_stats else None
         for i, kind in enumerate(self.kinds):
-            x, nc, _ = apply_layer(params["layers"][i], cfg, kind, x, None,
-                                   caches[i], "decode", self.ctx,
-                                   lengths=lengths, paged=paged, plan=plan)
+            x, nc, _ = apply_layer(
+                params["layers"][i], cfg, kind, x, None, caches[i],
+                "decode", self.ctx, lengths=lengths, paged=paged, plan=plan,
+                placement=_layer_placement(placement, i), stats_sink=sink,
+                capacity_scale=capacity_scale)
             new_caches.append(nc)
         x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+        if return_moe_stats:
+            return (self._readout(params, x), new_caches,
+                    _stack_moe_stats(sink))
         return self._readout(params, x), new_caches

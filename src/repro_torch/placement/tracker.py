@@ -1,6 +1,7 @@
 """A copy of ``repro.placement.tracker``, kept by the port so that it
-imports nothing of the JAX package; the tests hold the two against
-each other.
+imports nothing of the JAX package, with one change: ``ExpertLoadTracker``
+keeps its per-layer EWMA as one [layers, E] array, so that a step's update
+is not a loop over layers. The tests hold the two against each other.
 
 Expert load telemetry: per-layer EWMA token-load histograms and the
 quantized skew summary the planner and ``PlanCache`` key on.
@@ -83,7 +84,10 @@ class ExpertLoadTracker:
             raise ValueError("smoothing must be in (0, 1]")
         self.num_experts = int(num_experts)
         self.smoothing = float(smoothing)
-        self._ewma: Dict[int, np.ndarray] = {}
+        # [layers, E] EWMA fractions, one row per layer observed so far;
+        # one array (not the reference's dict of rows) so that a step's
+        # update is a few whole-array operations, not a loop over layers
+        self._ewma = np.zeros((0, self.num_experts))
         self.observations = 0
 
     def observe(self, loads) -> None:
@@ -93,29 +97,34 @@ class ExpertLoadTracker:
         if arr.ndim != 2 or arr.shape[1] != self.num_experts:
             raise ValueError(
                 f"expected [L, {self.num_experts}] loads, got {arr.shape}")
+        # each row normalized as ``_normalize`` does; a row with no load
+        # is uniform
+        total = arr.sum(axis=1, keepdims=True)
+        frac = np.where(total > 0.0, arr / np.where(total > 0.0, total, 1.0),
+                        1.0 / self.num_experts)
         a = self.smoothing
-        for layer in range(arr.shape[0]):
-            frac = _normalize(arr[layer])
-            prev = self._ewma.get(layer)
-            self._ewma[layer] = (frac if prev is None
-                                 else a * frac + (1.0 - a) * prev)
+        seen = min(arr.shape[0], self._ewma.shape[0])
+        self._ewma[:seen] = a * frac[:seen] + (1.0 - a) * self._ewma[:seen]
+        if arr.shape[0] > seen:
+            self._ewma = np.concatenate([self._ewma, frac[seen:]])
         self.observations += 1
 
     @property
     def layers(self) -> int:
-        return len(self._ewma)
+        return self._ewma.shape[0]
 
     def layer_loads(self, layer: int) -> Optional[np.ndarray]:
-        arr = self._ewma.get(layer)
-        return None if arr is None else arr.copy()
+        if not 0 <= layer < self.layers:
+            return None
+        return self._ewma[layer].copy()
 
     def aggregate(self) -> np.ndarray:
         """Mean of the per-layer EWMA fractions — the [E] histogram the
         (layer-shared) placement is solved against. Uniform before any
         observation."""
-        if not self._ewma:
+        if not self.layers:
             return np.ones(self.num_experts) / self.num_experts
-        return np.mean(list(self._ewma.values()), axis=0)
+        return np.mean(self._ewma, axis=0)
 
     def imbalance(self) -> float:
         """Hottest expert's load as a multiple of the uniform 1/E share
@@ -124,7 +133,7 @@ class ExpertLoadTracker:
         return float(agg.max() * self.num_experts)
 
     def reset(self) -> None:
-        self._ewma.clear()
+        self._ewma = np.zeros((0, self.num_experts))
         self.observations = 0
 
     def snapshot(self) -> Dict[str, float]:

@@ -12,9 +12,12 @@ same function eagerly when the graph is off and on the CPU, so the CPU
 tests cover what the card captures.
 
 ``DecodeGraphs`` keeps one captured graph per ``GraphKey``: the sampling
-variant and, under DEP, the ``ExecProgram`` the MoE layers walk, so plans
-that lower to the same program share a graph and the captures are bounded
-by the distinct programs. The engine warms the graphs up once, before any
+variant and, under DEP, the ``ExecProgram`` the MoE layers walk, the
+expert placement and the dispatch capacity scale, so plans that lower to
+the same program share a graph and the captures are bounded by the
+distinct programs; and whether the step returns the MoE layers' routing
+statistics, as outputs of the step at fixed addresses, which the engine
+reads after the step's token readback. The engine warms the graphs up once, before any
 cache is live: the step runs eagerly on caches it then drops, for the
 keys it can name up front, which loads the kernel library and makes the
 libraries' handles and workspaces and the DEP communicator, comm stream
@@ -27,8 +30,9 @@ capture calls themselves are taken back out of the counts.
 """
 from __future__ import annotations
 
+import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from functools import partial
 from typing import (Any, Callable, Dict, Iterable, NamedTuple, Optional,
                     Tuple)
@@ -43,11 +47,18 @@ class GraphKey(NamedTuple):
     """The static key of one captured decode step, laid out like the
     reference's ``static_argnames`` ("plan", "use_topk", "placement",
     "cap_scale", "collect_stats"): ``plan`` is the DEP ``ExecProgram``
-    (hashable; None when DEP is off). Expert placement and MoE statistics
-    are not ported yet, so their fields are not here."""
+    (hashable; None when DEP is off); ``placement`` the engine's
+    ``core.dep.DevicePlacement`` (compared by identity, so a graph holds
+    the tensors it was captured on; None without one); ``cap_scale`` the
+    DEP dispatch capacity scale; ``collect_stats`` whether the step also
+    returns the stacked MoE statistics. The defaults capture the step of
+    an engine that tracks no expert load."""
 
     use_topk: bool
     plan: Optional[Any] = None
+    placement: Optional[Any] = None
+    cap_scale: float = 1.0
+    collect_stats: bool = False
 
 
 class StagedBuffer:
@@ -89,21 +100,26 @@ def commit_states(caches, new_caches) -> None:
 
 
 def decode_step(model, params, caches, tokens, lengths, table, temps,
-                top_ks, generator, use_topk: bool, plan=None):
+                top_ks, generator, key: GraphKey):
     """One engine decode step over every slot. ``tokens`` ([N, 1] int64),
     ``lengths`` ([N] int32), ``table`` (int32 [N, max_blocks] under paged
     KV, else None), ``temps`` and ``top_ks`` are the engine's static
-    buffers; ``plan`` is the DEP program of the MoE layers. The step reads
-    no value on the host and ends with the states in ``caches``' own
-    tensors and the sampled tokens in ``tokens``. Returns (next tokens
-    int64 [N], logits [N, 1, V])."""
-    logits, new_caches = model.decode_step(params, tokens, caches,
-                                           lengths=lengths,
-                                           block_tables=table, plan=plan)
+    buffers; ``key`` the step's static arguments. The step reads no value
+    on the host and ends with the states in ``caches``' own tensors and
+    the sampled tokens in ``tokens``. Returns (next tokens int64 [N],
+    logits [N, 1, V]), and with ``key.collect_stats`` also the MoE
+    layers' statistics packed for one host copy (``MoEStats.packed``:
+    float32 [L_moe * E + 1])."""
+    logits, new_caches, *stats = model.decode_step(
+        params, tokens, caches, lengths=lengths, block_tables=table,
+        plan=key.plan, placement=key.placement, capacity_scale=key.cap_scale,
+        return_moe_stats=key.collect_stats)
     commit_states(caches, new_caches)
     nxt = sample(generator, logits[:, -1], temps,
-                 top_ks if use_topk else 0)
+                 top_ks if key.use_topk else 0)
     tokens.copy_(nxt[:, None])
+    if stats:
+        return nxt, logits, stats[0].packed()
     return nxt, logits
 
 
@@ -118,8 +134,29 @@ def bind_step(model, params, kv, tokens, lengths, temps, top_ks,
     def step(key: GraphKey):
         table = kv.table_array() if paged else None
         return decode_step(model, params, kv.caches, tokens, lengths, table,
-                           temps, top_ks, generator, key.use_topk, key.plan)
+                           temps, top_ks, generator, key)
     return step
+
+
+#: the decode graphs' capture stream of each device, shared by every
+#: engine as ``torch.cuda.graph`` shares its default capture stream: each
+#: stream that runs cuBLAS holds a 32 MiB workspace for the life of the
+#: process, so a stream per engine would leak that much per engine
+_CAPTURE_STREAMS: Dict[torch.device,
+                       Tuple[torch.cuda.Stream, threading.Lock]] = {}
+
+
+def capture_stream(
+        device: torch.device) -> Tuple[torch.cuda.Stream, threading.Lock]:
+    """The capture stream of ``device`` and the lock that every engine's
+    work on it (warm-ups, captures) holds: a capture records whatever runs
+    on its stream, so two engines capturing from two threads at once
+    would record into each other's graphs."""
+    entry = _CAPTURE_STREAMS.get(device)
+    if entry is None:
+        entry = _CAPTURE_STREAMS[device] = (torch.cuda.Stream(device),
+                                            threading.Lock())
+    return entry
 
 
 class CudaGraph:
@@ -171,7 +208,8 @@ class DecodeGraphs:
     runs the step and returns its outputs; ``new_graph()`` makes an object
     with ``capture(fn)`` (records ``fn`` and returns its outputs) and
     ``replay()``: ``CudaGraph`` on the card. ``stream`` is the capture
-    stream, where the warm-up runs too. ``stats`` (the engine's
+    stream, where the warm-up runs too, and ``lock`` the lock held while
+    either runs (``capture_stream``'s). ``stats`` (the engine's
     ``EngineStats``) counts captures, replays and their set-up time.
 
     A key is captured at its first call and replayed from then on, that
@@ -180,10 +218,12 @@ class DecodeGraphs:
 
     def __init__(self, step: Callable[[GraphKey], Tuple],
                  new_graph: Callable[[], Any], stats,
-                 stream: torch.cuda.Stream = None):
+                 stream: torch.cuda.Stream = None,
+                 lock: Optional[threading.Lock] = None):
         self._step = step
         self._new_graph = new_graph
         self._stream = stream
+        self._lock = lock if lock is not None else nullcontext()
         self.stats = stats
         self.graphs: Dict[GraphKey, _Captured] = {}
 
@@ -206,10 +246,10 @@ class DecodeGraphs:
         launches are not counted. The step changes the state it runs on,
         so the caller runs this on state that it then drops."""
         t0 = time.perf_counter()
-        with _uncounted(), self._on_capture_stream():
+        with self._lock, _uncounted(), self._on_capture_stream():
             for key in keys:
                 self._step(key)
-        self._sync()
+            self._sync()
         self.stats.graph_s += time.perf_counter() - t0
 
     def __call__(self, key: GraphKey) -> Tuple:
@@ -221,15 +261,22 @@ class DecodeGraphs:
         self.stats.graph_replays += 1
         return captured.outputs
 
+    def drop(self, keys: Iterable[GraphKey]) -> None:
+        """Release the graphs of ``keys``, which no later step meets (an
+        older placement's): their memory goes back to the pool."""
+        for key in keys:
+            del self.graphs[key]
+
     def _capture(self, key: GraphKey) -> _Captured:
         t0 = time.perf_counter()
         graph = self._new_graph()
-        with _uncounted() as launches:
-            outputs = graph.capture(partial(self._step, key))
+        with self._lock:
+            with _uncounted() as launches:
+                outputs = graph.capture(partial(self._step, key))
+            self._sync()
         captured = _Captured(graph, outputs, launches)
         self.graphs[key] = captured
         self.stats.graph_captures += 1
-        self._sync()
         self.stats.graph_s += time.perf_counter() - t0
         return captured
 

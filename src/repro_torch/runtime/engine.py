@@ -56,11 +56,26 @@ sources, all cleared by ``reset_stats()``; ``tracer`` (a
 spans, each finished request's lifecycle and, scoped around the model
 calls, the DEP walk's task emissions (under the decode graph once per
 capture; a replay runs no Python). Neither launches a kernel nor reads
-the device. Expert placement is not ported yet; its arguments raise
-(``_NOT_PORTED``).
+the device.
+
+Expert placement (``repro_torch.placement``) closes the observe -> place
+-> plan loop as in the reference: with ``track_expert_load`` every
+prefill call and decode step also returns its MoE layers' routing loads
+and dropped assignments (outputs of the captured step, copied to the
+host with no sync of their own: the token readback's covers the copy),
+which feed an ``ExpertLoadTracker`` and
+``EngineStats.dropped_tokens``; plans are resolved under the tracker's
+quantized ``SkewSummary`` and, under DEP, the dispatch capacity widens
+to the observed hottest expert. ``replicate_hot_k`` and
+``rebalance_threshold`` re-place the experts (on the refresh worker, or
+at once with ``rebalance_now()``); a new placement is installed between
+steps by permuting every MoE layer's stacked expert weights in place, so
+no captured graph's operand moves, and its replicated hot experts run as
+the DEP walk's REP task.
 """
 from __future__ import annotations
 
+import math
 import threading
 import time
 import warnings
@@ -73,7 +88,7 @@ import torch
 
 from repro_torch import DeviceLike, generator_for, resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.dep import as_exec_program
+from repro_torch.core.dep import DevicePlacement, as_exec_program
 from repro_torch.core.perf_model import HardwareProfile, get_profile
 from repro_torch.core.solver import Plan
 from repro_torch.core.taskgraph import ATTN, LoweringSpec, lower
@@ -81,26 +96,21 @@ from repro_torch.models import build_model
 from repro_torch.models.transformer import ExecutionContext
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import TraceRecorder, use_tracer
+from repro_torch.placement import (ExpertLoadTracker, Placement, SkewSummary,
+                                   capacity_scale, max_rank_load, rebalance)
 from repro_torch.profiling import (DriftMonitor, PeriodicRecalibrator,
-                                   ProfileKey, ProfileStore, StepTimer)
+                                   PlanRefresher, ProfileKey, ProfileStore,
+                                   StepTimer)
 from repro_torch.profiling import calibrate as run_calibration
 from repro_torch.runtime.batching import BatchScheduler, PrefillGroup, StepPlan
 from repro_torch.runtime.decode_graph import (CudaGraph, DecodeGraphs,
                                               GraphKey, StagedBuffer,
-                                              bind_step)
+                                              bind_step, capture_stream)
 from repro_torch.runtime.kv import KVCacheManager
 from repro_torch.runtime.paging import PagedKVCacheManager
 from repro_torch.runtime.request import Request, RequestState
 from repro_torch.sched import PlanCache, SchedulePolicy
 from repro_torch.sched.occupancy import bucket_length
-
-#: arguments of the reference's engine that the port does not take yet,
-#: with the ROADMAP Queue 1 item that brings each
-_NOT_PORTED = {
-    "replicate_hot_k": 7, "rebalance_threshold": 7, "track_expert_load": 7,
-    "rebalance_min_observations": 7, "max_capacity_scale": 7,
-}
-
 
 def _calibrate_off_graphs(lock: threading.Lock, stream, name: str, **kw):
     """``profiling.calibrate`` (fast sweeps; the card's on a CUDA device)
@@ -144,8 +154,8 @@ class EngineStats:
     prefill_tokens: int = 0
     decode_tokens: int = 0
     steps: int = 0
-    # token assignments lost to expert-capacity overflow: counted by the
-    # reference's expert-load telemetry (ROADMAP Queue 1 item 7), so 0
+    # token assignments lost to expert-capacity overflow (counted when
+    # expert-load telemetry is on; stays 0 otherwise)
     dropped_tokens: int = 0
     prefill_calls: int = 0
     # wall time of the model calls, each ending in a device sync
@@ -225,7 +235,16 @@ class ServingEngine:
     Observability, as in the reference: ``tracer`` is a ``TraceRecorder``
     (or True for a fresh one; None or False for none, the default);
     ``metrics`` a ``MetricsRegistry`` (shared across engines), None for a
-    fresh private one (the default), or False for none."""
+    fresh private one (the default), or False for none.
+
+    Expert placement, as in the reference: ``track_expert_load`` (None:
+    on when placement is asked for) feeds the MoE layers' routing loads
+    to ``load_tracker``; ``replicate_hot_k`` hot experts are replicated
+    and ``rebalance_threshold`` re-places the experts when the worst
+    rank's load exceeds that multiple of its share (after
+    ``rebalance_min_observations``); ``max_capacity_scale`` caps the
+    skew-widened DEP dispatch capacity. Re-placement needs DEP: without
+    it the engine warns and only tracks."""
 
     def __init__(self, cfg: ModelConfig, params=None, *, num_slots: int = 4,
                  max_context: int = 4096,
@@ -252,13 +271,11 @@ class ServingEngine:
                  drift_recalibrate: bool = True,
                  recalibrate_max_age_s: Optional[float] = None,
                  tracer=None, metrics=None,
-                 **not_ported):
-        for name in not_ported:
-            if name not in _NOT_PORTED:
-                raise TypeError(f"unexpected argument {name!r}")
-            raise NotImplementedError(
-                f"{name}= is not ported yet (ROADMAP Queue 1 item "
-                f"{_NOT_PORTED[name]})")
+                 replicate_hot_k: int = 0,
+                 rebalance_threshold: Optional[float] = None,
+                 track_expert_load: Optional[bool] = None,
+                 rebalance_min_observations: int = 3,
+                 max_capacity_scale: float = 4.0):
         if interleave not in ("off", "streams"):
             raise ValueError(f"interleave must be 'off' or 'streams', "
                              f"got {interleave!r}")
@@ -358,6 +375,9 @@ class ServingEngine:
                                  device=self.device)
         self.params = params if params is not None else self.model.init(
             generator_for(self.device, seed))
+        self._init_placement(replicate_hot_k, rebalance_threshold,
+                             track_expert_load, rebalance_min_observations,
+                             max_capacity_scale, ep_group)
         self.num_slots = num_slots
         self.max_context = max_context
         self.generator = generator_for(self.device, seed + 1)
@@ -383,8 +403,12 @@ class ServingEngine:
                                   device=self.device)
         self._lengths = StagedBuffer((num_slots,), torch.int32, self.device)
         # the last decode step's logits [num_slots, 1, V] (a graph's own
-        # output buffer when the graph is on)
+        # output buffer when the graph is on) and, with expert-load
+        # tracking, the host tensor its packed MoE statistics are copied
+        # into (valid after the step's token readback)
         self.last_logits: Optional[torch.Tensor] = None
+        self.last_moe_stats: Optional[torch.Tensor] = None
+        self._stats_host: Optional[torch.Tensor] = None   # pinned, on CUDA
         self.waiting: List[Request] = []
         self.finished: List[Request] = []
         self.stats = EngineStats()
@@ -395,15 +419,64 @@ class ServingEngine:
                                self._paged)
         self._graphs: Optional[DecodeGraphs] = None
         if self.decode_graph:
-            stream = torch.cuda.Stream(self.device)
+            stream, lock = capture_stream(self.device)
             pool = torch.cuda.graph_pool_handle()
             self._graphs = DecodeGraphs(
                 self._step, lambda: CudaGraph(pool, stream, generator),
-                self.stats, stream=stream)
+                self.stats, stream=stream, lock=lock)
         self._h_ttft = self._h_tpot = None
         self._h_decode = self._h_prefill = None
         if self.metrics is not None:
             self._register_metrics(self.metrics)
+
+    def _init_placement(self, replicate_hot_k, rebalance_threshold,
+                        track_expert_load, rebalance_min_observations,
+                        max_capacity_scale, ep_group) -> None:
+        """The expert placement subsystem (observe -> place -> plan): gate
+        loads feed an EWMA tracker; a threshold breach re-solves the
+        expert -> rank map (+ hot replicas) on the refresh worker; the new
+        layout is installed between steps by permuting the stacked expert
+        weights in place."""
+        self.replicate_hot_k = max(int(replicate_hot_k), 0)
+        self.rebalance_threshold = rebalance_threshold
+        self.rebalance_min_observations = int(rebalance_min_observations)
+        self._max_capacity_scale = float(max_capacity_scale)
+        placement_wanted = (self.replicate_hot_k > 0
+                            or rebalance_threshold is not None)
+        if track_expert_load is None:
+            track_expert_load = placement_wanted
+        self._track_load = bool(track_expert_load and self.cfg.is_moe)
+        if placement_wanted and not self._track_load:
+            warnings.warn(
+                "replicate_hot_k/rebalance_threshold need expert-load "
+                "telemetry (an MoE model); placement is disabled",
+                stacklevel=3)
+            placement_wanted = False
+        self.load_tracker = (ExpertLoadTracker(self.cfg.moe.num_experts)
+                             if self._track_load else None)
+        # the skew of the tracker's latest state under the active
+        # placement: {(observations, placement): skew}, one entry
+        self._skews: Dict[Tuple[int, Optional[Placement]],
+                          Optional[SkewSummary]] = {}
+        self._ep_ranks = ep_group.expert_size if self._dep_active else 1
+        self.placement: Optional[Placement] = None
+        # the active placement's device tensors (built once per placement)
+        self._device_placement: Optional[DevicePlacement] = None
+        self._pending_placement: Optional[Placement] = None
+        self._placement_enabled = placement_wanted and self._dep_active
+        if placement_wanted and not self._dep_active:
+            warnings.warn(
+                "replicate_hot_k/rebalance_threshold act on the DEP "
+                "executor (ep_group + MoE); load telemetry stays on but no "
+                "re-placement will run", stacklevel=3)
+        self._placement_refresher: Optional[PlanRefresher] = None
+        self._owns_placement_refresher = False
+        if self._placement_enabled:
+            if self.drift is not None:
+                self._placement_refresher = self.drift.refresher
+            else:
+                self._placement_refresher = PlanRefresher(self.plan_cache)
+                self._owns_placement_refresher = True
 
     @property
     def caches(self):
@@ -464,6 +537,11 @@ class ServingEngine:
         if self.telemetry is not None:
             m.register_source("repro_telemetry", self.telemetry.snapshot)
             m.register_reset(self.telemetry.reset)
+        if self.load_tracker is not None:
+            m.register_source("repro_expert_load",
+                              self.load_tracker.snapshot)
+            m.register_reset(self.load_tracker.reset)
+            m.register_reset(self._skews.clear)
         if self._paged:
             m.register_source("repro_paging", self.kv.paging_summary)
             m.register_reset(self.kv.paging.reset)
@@ -482,6 +560,9 @@ class ServingEngine:
             self.stats.reset()
             if self.telemetry is not None:
                 self.telemetry.reset()
+            if self.load_tracker is not None:
+                self.load_tracker.reset()
+                self._skews.clear()
             if self._paged:
                 self.kv.paging.reset()
         if self.tracer is not None:
@@ -511,8 +592,10 @@ class ServingEngine:
             rng = self.generator.get_state()
             program = as_exec_program(None) if self._dep_active else None
             with self._device_lock:
-                self._graphs.warm_up([GraphKey(use_topk, program)
-                                      for use_topk in (False, True)])
+                self._graphs.warm_up([
+                    GraphKey(use_topk, program,
+                             collect_stats=self._track_load)
+                    for use_topk in (False, True)])
             self.generator.set_state(rng)
             self.last_tokens.zero_()
             self.kv.caches = None
@@ -591,28 +674,37 @@ class ServingEngine:
             self.drift.close()
         if self.recalibrator is not None:
             self.recalibrator.close()
+        if self._owns_placement_refresher:
+            self._placement_refresher.close()
 
     # ------------------------------------------------------------------
     # scheduling
     # ------------------------------------------------------------------
     def _resolve_plan(self, phase: str, seq_bucket: Optional[int] = None,
                       batch_per_device: Optional[int] = None,
-                      occupancy=None) -> Optional[Plan]:
+                      occupancy=None,
+                      skew: Optional[SkewSummary] = None) -> Optional[Plan]:
         if self.plan_cache is None:
             return None
         return self.plan_cache.get(phase, seq_bucket, batch_per_device,
-                                   occupancy=occupancy)
+                                   occupancy=occupancy, skew=skew)
 
     def _exec_program(self, plan: Optional[Plan],
                       streams: Optional[int] = None):
         """The ``ExecProgram`` the DEP executor walks for ``plan``
         (hashable, so plans that lower to the same program share one
-        decode graph). ``streams`` overrides the stream split: a prefill
-        call covers the lowered chunk's micro-batches; decode uses the
-        plan's r1. None when DEP is off (after validation, if on)."""
+        decode graph; keyed also by the active placement's replica count
+        and epoch, so a re-placement keys fresh ones). ``streams``
+        overrides the stream split: a prefill call covers the lowered
+        chunk's micro-batches; decode uses the plan's r1. None when DEP is
+        off (after validation, if on)."""
         if plan is None or (not self._dep_active and not self.validate):
             return None
-        program = plan.exec_program(streams=streams,
+        hot, epoch = 0, 0
+        if self.placement is not None:
+            hot, epoch = self.placement.hot_experts, self.placement.epoch
+        program = plan.exec_program(streams=streams, hot_experts=hot,
+                                    placement_epoch=epoch,
                                     interleave=self.interleave)
         if self.validate:
             self._check_program(program)
@@ -629,6 +721,154 @@ class ServingEngine:
         if violations:
             raise AnalysisError(violations)
         self._validated_programs.add(program)
+
+    # ------------------------------------------------------------------
+    # expert placement (observe -> place -> plan)
+    # ------------------------------------------------------------------
+    _PLACEMENT_KEY = ("__placement__",)
+
+    def _current_skew(self) -> Optional[SkewSummary]:
+        """The quantized skew fingerprint plans are resolved under; None
+        when telemetry is off or routing is (still) uniform. Computed once
+        per tracker observation and placement."""
+        if self.load_tracker is None:
+            return None
+        key = (self.load_tracker.observations, self.placement)
+        if key not in self._skews:
+            s = self.load_tracker.summary(placement=self.placement,
+                                          num_ranks=self._ep_ranks)
+            self._skews.clear()
+            self._skews[key] = None if s.is_uniform else s
+        return self._skews[key]
+
+    def _capacity_scale(self, skew: Optional[SkewSummary]) -> float:
+        """The DEP dispatch's capacity multiplier, rounded up to a power
+        of two (bounds the graph keys) and capped at
+        ``max_capacity_scale`` (bounds the buffers)."""
+        if skew is None or not self._dep_active:
+            return 1.0
+        raw = capacity_scale(skew, self.cfg.moe.capacity_factor)
+        if raw <= 1.0:
+            return 1.0
+        return float(min(2.0 ** math.ceil(math.log2(raw)),
+                         self._max_capacity_scale))
+
+    def rank_imbalance(self) -> float:
+        """Worst EP rank's cold (non-replicated) load as a multiple of
+        the uniform share under the active placement (1.0 = flat)."""
+        if self.load_tracker is None:
+            return 1.0
+        pl = self.placement if self.placement is not None else \
+            Placement.uniform(self.cfg.moe.num_experts, self._ep_ranks)
+        return max_rank_load(pl, self.load_tracker.aggregate()) \
+            * self._ep_ranks
+
+    def _solve_placement(self) -> None:
+        """Refresh-worker job: greedy re-placement against the tracked
+        loads, staged for ``step()`` to install between steps."""
+        epoch = (self.placement.epoch if self.placement else 0) + 1
+        self._pending_placement = rebalance(
+            self.load_tracker.aggregate(), self._ep_ranks,
+            replicate_hot_k=self.replicate_hot_k, epoch=epoch)
+
+    def _maybe_rebalance(self) -> bool:
+        """Schedule a background re-placement when the active layout's
+        rank imbalance breaches ``rebalance_threshold``: one episode in
+        flight, never blocking a step."""
+        if (not self._placement_enabled
+                or self.rebalance_threshold is None
+                or self._pending_placement is not None):
+            return False
+        if (self.load_tracker.observations
+                < self.rebalance_min_observations):
+            return False
+        if self.rank_imbalance() <= self.rebalance_threshold:
+            return False
+        return self._placement_refresher.request_job(
+            self._PLACEMENT_KEY, self._solve_placement)
+
+    def rebalance_now(self) -> Optional[Placement]:
+        """Synchronous re-placement: solve against the tracked loads and
+        install the result now."""
+        if not self._placement_enabled:
+            return None
+        self._solve_placement()
+        pending, self._pending_placement = self._pending_placement, None
+        self._apply_placement(pending)
+        return self.placement
+
+    def _apply_placement(self, new: Placement) -> None:
+        """Install a placement, holding the device lock (no capture or
+        calibration runs meanwhile): permute every MoE layer's stacked
+        expert weights in place so that physical row ``new.perm[e]`` holds
+        logical expert ``e`` (no weight tensor moves, so every captured
+        graph's operands stay valid), build the placement's device
+        tensors once, release the graphs of an older placement's tensors,
+        and invalidate plan-cache entries of older epochs."""
+        old = self.placement if self.placement is not None else \
+            Placement.uniform(new.num_experts, new.num_ranks)
+        # new_phys[p] = logical[inv_new[p]] = old_phys[old.perm[inv_new[p]]]
+        inv_new = sorted(range(new.num_experts), key=new.perm.__getitem__)
+        gather = [old.perm[p] for p in inv_new]
+        with self._device_lock:
+            if gather != list(range(new.num_experts)):
+                idx = torch.tensor(gather, dtype=torch.long,
+                                   device=self.device)
+                for layer in self.params["layers"]:
+                    for t in layer.get("moe", {}).get("experts", {}).values():
+                        t.copy_(t.index_select(0, idx))
+            stale = self._device_placement
+            self.placement = new
+            self._device_placement = DevicePlacement.build(
+                new, self.params["layers"], self.device)
+            if self._graphs is not None and stale is not None:
+                self._graphs.drop([k for k in self._graphs.graphs
+                                   if k.placement is stale])
+        if self.metrics is not None:
+            self.metrics.counter(
+                "repro_rebalance_applied_total",
+                "expert re-placements installed between steps").inc()
+        if self.plan_cache is not None:
+            for key in list(self.plan_cache.entries()):
+                tail = key[-1]
+                if isinstance(tail, SkewSummary) and tail.epoch != new.epoch:
+                    self.plan_cache.invalidate(key)
+
+    def expert_load(self) -> Optional[Dict[str, float]]:
+        """Expert-load telemetry snapshot (None when tracking is off)."""
+        if self.load_tracker is None:
+            return None
+        return dict(observations=float(self.load_tracker.observations),
+                    imbalance=self.load_tracker.imbalance(),
+                    rank_imbalance=self.rank_imbalance(),
+                    dropped_tokens=float(self.stats.dropped_tokens),
+                    epoch=float(self.placement.epoch
+                                if self.placement else 0),
+                    hot_experts=float(self.placement.hot_experts
+                                      if self.placement else 0))
+
+    def _read_stats(self, packed: torch.Tensor) -> torch.Tensor:
+        """Start the copy of one model call's packed MoE statistics
+        (``MoEStats.packed``) to the host. On the card it goes into a
+        pinned buffer without a sync, issued before the call's own sync
+        (the token readback, the prefill's ``_sync``), which then covers
+        it. Returns the host tensor, valid after that sync."""
+        if packed.device.type != "cuda":
+            return packed
+        if self._stats_host is None or \
+                self._stats_host.shape != packed.shape:
+            self._stats_host = torch.empty(packed.shape, dtype=packed.dtype,
+                                           pin_memory=True)
+        self._stats_host.copy_(packed, non_blocking=True)
+        return self._stats_host
+
+    def _observe_load(self, host: torch.Tensor) -> None:
+        """One model call's MoE statistics, as ``_read_stats`` gave them and
+        read after the call's sync, into the tracker and the drop count."""
+        arr = host.numpy()
+        self.load_tracker.observe(
+            arr[:-1].reshape(-1, self.load_tracker.num_experts))
+        self.stats.dropped_tokens += int(arr[-1])
 
     def resolved_plans(self) -> Dict[Any, Plan]:
         """Every resolution so far: prefill plans keyed (phase, bucket,
@@ -647,11 +887,19 @@ class ServingEngine:
                 self.kv.reset_slot(slot)
                 self._activate(slot, req, prefilled=0)
             return
+        skew = self._current_skew()
         plan = self._resolve_plan("prefill", group.bucket,
-                                  len(group.requests))
+                                  len(group.requests), skew=skew)
         plan_key = ("prefill", group.bucket, len(group.requests))
+        if skew is not None:
+            plan_key = plan_key + (skew,)
         chunk, n_mb = prefill_split(plan, len(group.requests))
         program = self._exec_program(plan, streams=n_mb)
+        moe_kw = {}
+        if self._track_load:
+            moe_kw = dict(return_moe_stats=True,
+                          capacity_scale=self._capacity_scale(skew),
+                          placement=self._device_placement)
         for ofs in range(0, len(group.requests), chunk):
             reqs = group.requests[ofs:ofs + chunk]
             slots = group.slots[ofs:ofs + chunk]
@@ -667,16 +915,20 @@ class ServingEngine:
             t0 = time.perf_counter()
             with self._phase("prefill_chunk", bucket=group.bucket,
                              reqs=len(reqs)):
-                _, prefilled = self.model.prefill(
+                _, prefilled, *mstats = self.model.prefill(
                     self.params, toks.to(self.device),
-                    seq_budget=self.max_context, plan=program)
+                    seq_budget=self.max_context, plan=program, **moe_kw)
                 # under paged KV the token ids key the prefix cache: shared
                 # full blocks map to already-resident pages and skip the
                 # copy
                 self.kv.merge_prefill(slots, prefilled, lengths,
                                       tokens=token_rows)
+                if mstats:
+                    host = self._read_stats(mstats[0].packed())
                 self._sync()
             dt = time.perf_counter() - t0
+            if mstats:
+                self._observe_load(host)
             self.stats.prefill_s += dt
             self.stats.prefill_calls += 1
             # plan.makespan models one full chunk; pro-rate the prediction
@@ -735,18 +987,27 @@ class ServingEngine:
         drive the attention mask and the ragged kernel's loop bound) and,
         under paged KV, a changed block table into the static buffers, then
         replay the key's graph or run the step eagerly. ``program`` is the
-        step's DEP program. Returns the next tokens [N]; they are also in
-        ``last_tokens``."""
+        step's DEP program; the placement and the capacity scale are the
+        engine's at this step. Returns the next tokens [N]; they are also
+        in ``last_tokens``, the logits in ``last_logits`` and, with
+        expert-load tracking, the MoE statistics' host copy in
+        ``last_moe_stats`` (started here, complete once the caller has
+        read the tokens)."""
         self._lengths.load(lengths)
         if self._paged:
             self.kv.table_array()      # copies the table if it changed
-        key = GraphKey(use_topk=use_topk, plan=program)
+        key = GraphKey(use_topk, program,
+                       self._device_placement if self._dep_active else None,
+                       self._capacity_scale(self._current_skew()),
+                       self._track_load)
         if self._graphs is None:
-            nxt, self.last_logits = self._step(key)
-            return nxt
-        capture = key not in self._graphs.graphs
-        with self._device_lock if capture else nullcontext():
-            nxt, self.last_logits = self._graphs(key)
+            out = self._step(key)
+        else:
+            capture = key not in self._graphs.graphs
+            with self._device_lock if capture else nullcontext():
+                out = self._graphs(key)
+        nxt, self.last_logits, *stats = out
+        self.last_moe_stats = self._read_stats(stats[0]) if stats else None
         return nxt
 
     # ------------------------------------------------------------------
@@ -823,10 +1084,17 @@ class ServingEngine:
                 # capacity actions (preempt/cap) happened; not idle
                 return True
         self.stats.ensure_started()
+        # a placement staged by the refresh worker lands between steps,
+        # before this step's plan is resolved: its epoch keys the program
+        if self._pending_placement is not None:
+            pending, self._pending_placement = self._pending_placement, None
+            self._apply_placement(pending)
         # the decode plan is solved on the ledger's live composition and
-        # re-resolved only when it changes
+        # the routing skew, and re-resolved only when either changes
         occ = self.kv.occupancy()
-        plan = self._resolve_plan("decode", occupancy=occ)
+        skew = self._current_skew()
+        plan = self._resolve_plan("decode", occupancy=occ, skew=skew)
+        plan_key = ("decode", occ) if skew is None else ("decode", occ, skew)
         program = self._exec_program(plan)
         if program is not None:
             self.stats.programs.append(("decode", program))
@@ -841,7 +1109,12 @@ class ServingEngine:
         self.stats.decode_s += dt
         # the observe edge of the profiling loop: a sustained residual
         # breach re-solves this occupancy's plan on the refresh worker
-        self._observe("decode", ("decode", occ), dt, plan)
+        self._observe("decode", plan_key, dt, plan)
+        if self.last_moe_stats is not None:
+            # the observe edge of the placement loop: a rank-imbalance
+            # breach stages a background re-placement
+            self._observe_load(self.last_moe_stats)
+            self._maybe_rebalance()
         self.kv.note_decode(live)
         now = time.perf_counter()
         for i in live:

@@ -32,6 +32,11 @@ E_PAD = 4
 #: (mode, order, r1, r2); every case at m_e = 3
 CASES = list(itertools.product(("seq", "dec"), ("ASAS", "AASS"), (1, 2, 4),
                                (1, 2, 4)))
+#: the stats cases: capacity factor 0.5 widened by capacity_scale 2.0,
+#: r1 = 1 at m_e = 1, r2 = 2 chunks in sequence mode and 1 in decode (two
+#: tokens a rank, whose capacity of 1 a shared expert overflows)
+STATS_CF, STATS_SCALE = 0.5, 2.0
+
 #: a non-identity placement of the 4 experts on 2 ranks: rank 0 owns
 #: experts 1 and 2, rank 1 experts 0 and 3 (perm (2, 0, 1, 3)); expert 0
 #: is the replicated hot one
@@ -119,6 +124,17 @@ for hot in (0, 1):
     prog = ExecProgram(lower_exec(2, "ASAS", 1, hot_experts=hot, r1=2),
                        "streams")
     out[f"placed-{hot}"] = run(phys, xs["seq"], prog, pl)[0]
+tight = dataclasses.replace(mcfg, capacity_factor=float(inputs["stats_cf"]))
+for mode, x in xs.items():
+    with mesh:
+        y, _, st = jax.jit(lambda p, x: dep.moe_apply_dep(
+            p, x, tight, ctx, 4,
+            plan=ExecProgram(lower_exec(2 if mode == "seq" else 1, "ASAS",
+                                        1), "off"),
+            return_stats=True,
+            capacity_scale=float(inputs["stats_scale"])))(params, x)
+    out[f"stats-{mode}"], out[f"stats-{mode}-load"] = y, st.load
+    out[f"stats-{mode}-dropped"] = st.dropped
 np.savez(f"{d}/golden.npz", **{k: np.asarray(v) for k, v in out.items()})
 """
 
@@ -166,12 +182,20 @@ for hot in (0, 1):
     phys = {k: v[inv] for k, v in params["experts"].items()}
     placed = dict(params, experts={k: v[2 * m:2 * m + 2]
                                    for k, v in phys.items()})
-    hot_w = ({k: v[[pl.perm[e] for e in pl.replicated]]
-              for k, v in phys.items()} if hot else None)
+    lp = dep.DevicePlacement.build(pl, [{"moe": {"experts": phys}}],
+                                   torch.device("cpu")).layer(0)
     prog = ExecProgram(lower_exec(2, "ASAS", 1, hot_experts=hot, r1=2),
                        "streams")
-    out[f"placed-{hot}"] = run(placed, xs["seq"], prog, placement=pl,
-                               hot_weights=hot_w)[0]
+    out[f"placed-{hot}"] = run(placed, xs["seq"], prog, **lp._asdict())[0]
+tight = dataclasses.replace(mcfg, capacity_factor=float(inputs["stats_cf"]))
+for mode, x in xs.items():
+    y, _, st = dep.moe_apply_dep(
+        local, x, tight, groups, 4,
+        plan=ExecProgram(lower_exec(2 if mode == "seq" else 1, "ASAS", 1),
+                         "off"), return_stats=True,
+        capacity_scale=float(inputs["stats_scale"]))
+    out[f"stats-{mode}"], out[f"stats-{mode}-load"] = y, st.load
+    out[f"stats-{mode}-dropped"] = st.dropped
 # the control: the A2E receive permute left transposed
 dep._a2e_layout = lambda recv: recv.reshape(
     recv.shape[1], recv.shape[0] * recv.shape[2], recv.shape[3])
@@ -207,7 +231,8 @@ def runs(tmp_path_factory):
              xs=rng.randn(4, 8, 256).astype(np.float32),
              xd=rng.randn(4, 1, 256).astype(np.float32),
              cases=np.array(CASES, dtype=object).astype(str),
-             assignment=np.array(ASSIGNMENT), **dict(_flatten(params)))
+             assignment=np.array(ASSIGNMENT), stats_cf=STATS_CF,
+             stats_scale=STATS_SCALE, **dict(_flatten(params)))
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     golden = subprocess.Popen(
         [sys.executable, "-c", _GOLDEN, str(d)],
@@ -256,6 +281,24 @@ def test_rep_splice_bitwise_equal_to_wire(runs):
     for name, y in (("placed-0", wire), ("placed-1", rep)):
         assert np.abs(y - golden[name]).max() < TOL
         assert np.abs(y - golden["dense-seq"]).max() < TOL
+
+
+@pytest.mark.parametrize("mode", ["seq", "dec"])
+def test_stats_and_capacity_scale_match_reference(runs, mode):
+    """``return_stats`` with ``capacity_scale``: every rank holds the
+    reference's global load histogram (logical ids) and dropped count,
+    summed over the ranks that shard the tokens (the data axis, and in
+    sequence mode the expert axis too); some assignments drop, and the
+    output matches the reference's at 1e-5."""
+    golden, shards = runs
+    want_load = golden[f"stats-{mode}-load"]
+    want_dropped = int(golden[f"stats-{mode}-dropped"])
+    assert want_dropped > 0
+    for s in shards:
+        assert np.array_equal(s[f"stats-{mode}-load"], want_load)
+        assert int(s[f"stats-{mode}-dropped"]) == want_dropped
+    y = _assemble(shards, f"stats-{mode}", mode)
+    assert np.abs(y - golden[f"stats-{mode}"]).max() < TOL
 
 
 def test_transposed_a2e_permute_fails(runs):

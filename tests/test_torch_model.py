@@ -5,6 +5,8 @@ logits and the same greedy tokens (f32, CPU). The JAX side runs
 the Pallas kernel in interpret mode); the port runs its flash prefill and
 its decode kernel's plain version, so the one deliberate routing
 difference is held against the reference here."""
+import warnings
+
 import numpy as np
 import pytest
 
@@ -95,12 +97,20 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="groups"):
         ExecutionContext(moe_impl="dep")
     from repro_torch.runtime import ServingEngine
-    # placement (ROADMAP Queue 1 item 7); tracer= and metrics= are ported
+    # the placement arguments are ported: each builds an engine that
+    # tracks expert load; without DEP the two that ask for re-placement
+    # warn, as the reference does without a mesh, and none raises
     for arg in ("replicate_hot_k", "rebalance_threshold",
                 "track_expert_load"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine(get_smoke_config("qwen2-moe-a2.7b"), device="cpu",
-                          **{arg: 1})
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eng = ServingEngine(get_smoke_config("qwen2-moe-a2.7b"),
+                                device="cpu", **{arg: 1})
+        assert eng.load_tracker is not None
+        assert eng.expert_load()["epoch"] == 0.0
+        warned = [str(w.message) for w in caught
+                  if "no re-placement will run" in str(w.message)]
+        assert len(warned) == (arg != "track_expert_load")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_smoke_config("qwen2-1.5b").reduced(
             attention="mla", mla_kv_lora_rank=32),

@@ -707,9 +707,19 @@ def test_serve_moe_writes_a_valid_trace_and_metrics(group, tmp_path, dep,
 
 @pytest.mark.parametrize("flag", [["--replicate-hot-k", "2"],
                                   ["--rebalance-threshold", "1.5"]])
-def test_serve_moe_placement_flags_raise_until_ported(flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        serve_moe.main(["--device", "cpu", "--requests", "1"] + flag)
+def test_serve_moe_placement_flags_raise_until_ported(flag, capsys):
+    """The placement flags are ported: each reaches the engine, which
+    serves, tracks expert load and (without --dep, as the reference
+    without a mesh) warns that no re-placement will run; the summary
+    prints the expert load."""
+    with pytest.warns(UserWarning, match="no re-placement will run"):
+        out = serve_moe.main(["--device", "cpu", "--requests", "1"] + flag)
+    assert len(out.finished) == 1
+    eng = out.engine
+    assert (eng.replicate_hot_k, eng.rebalance_threshold) == (
+        (2, None) if flag[0] == "--replicate-hot-k" else (0, 1.5))
+    assert eng.load_tracker.observations > 0
+    assert "expert load: imbalance" in capsys.readouterr().out
 
 
 def test_serve_moe_tokens_match_the_engine(served, tmp_path):

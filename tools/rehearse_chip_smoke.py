@@ -2,12 +2,12 @@
 """Rehearse chip_smoke.py's calibrate and serve phases on the CPU, at
 smoke size.
 
-The calibrate, serve, paged, pressure, dep, drift, obs, xlstm and hybrid
-phases run as on the card, with the smoke configs in place of the full
+The calibrate, serve, paged, pressure, dep, drift, placement, obs, xlstm
+and hybrid phases run as on the card, with the smoke configs in place of the full
 ones (the obs phase's entry point too), every engine on the CPU, the
 calibration on the CPU at f32 over the reference's sweeps (the plain
-versions in place of the kernels), and the dep and obs phases' expert
-group on gloo (one rank). An engine
+versions in place of the kernels), and the dep, placement and obs phases'
+expert group on gloo (one rank). An engine
 that would capture its decode step gets ``EagerGraph``,
 a stand-in for ``decode_graph.CudaGraph`` whose replay runs the captured
 step again and copies its outputs into the captured ones, so that the
@@ -111,10 +111,12 @@ def main() -> int:
         setattr(model_module, name, counting(ops_module, name))
     chip_smoke.get_config = serve_moe.get_config = get_smoke_config
     chip_smoke.ServingEngine = serve_moe.ServingEngine = engine
-    chip_smoke.profile_decode = lambda *a, **k: {"cudaGraphLaunch": 1,
-                                                 "cudaLaunchKernel": 2}
+    chip_smoke.profile_decode = lambda *a, **k: {
+        "cudaGraphLaunch": 1, "cudaLaunchKernel": 2, "cudaMemcpyAsync": 0,
+        "cudaStreamSynchronize": 0}
     chip_smoke.profile_prefill = lambda *a, **k: None
     chip_smoke.time_dep_chunks = lambda *a, **k: None
+    chip_smoke.time_rep_gemm = lambda *a, **k: None
     chip_smoke.time_dep_alltoall = lambda *a, **k: None
     chip_smoke.DEP_BACKEND = "gloo"
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
@@ -131,6 +133,7 @@ def main() -> int:
         profile, _ = chip_smoke.phase_calibrate(store_dir)
         chip_smoke.phase_serve()
         chip_smoke.phase_serve_dep(profile, store_dir)
+        chip_smoke.phase_placement(profile)
         chip_smoke.phase_obs(profile, store_dir)
         torch.distributed.destroy_process_group()
         chip_smoke.phase_serve_xlstm()
