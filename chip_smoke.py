@@ -20,10 +20,16 @@
               fails, and the mLSTM scan's chunkwise route to f32 limits
               that a state entering late or a mask one step too wide
               fails (shown by controls); m and the RG-LRU scan's f32
-              output must be bitwise the plain versions';
+              output must be bitwise the plain versions'; then each
+              backbone path's shapes, held and timed the same way: flash
+              at 8 x 512 (mla: H = Kv = 16, D = 128; qwen3: H = 64, Kv =
+              4, D = 64), split-KV decode at qwen3's g = 16, D = 64 (8 x
+              1024), the expert GEMM at E = 64, H = 1408 and E = 128, M
+              = 4096, H = 1536 at the decode and prefill C;
   3. small    a smoke-size model on the card (kernels) against the same
               model on the CPU (plain versions): prefill and decode logits
-              and greedy tokens;
+              and greedy tokens (deepseek-v2-lite's MLA through the flash
+              kernel at prefill);
      ring     recurrentgemma-9b at full width cut to one (rec, rec, attn)
               group, f32 weights: teacher-forced decode across the local
               attention ring's wrap against prefill of the longer prompt;
@@ -127,6 +133,26 @@
               layer's, each A2E/E2A span at least its copy's bytes
               bound; per-kind device ms, executed against scheduled
               exposed comm and the comm-under-EXP share are printed;
+     mla, qwen3  the paper's two backbones at full width, bf16 weights
+              from seed 0, the same 16 requests, 8 slots, max_context
+              1024: deepseek-v2-lite whole (27 layers, MLA, 64 experts
+              top-6 + 2 shared) and qwen3-moe cut to 8 of its 48 layers
+              (GQA 64/4, 128 experts top-8). The capacity engine serves,
+              then a DEP engine on the same weights (FinDEP on the
+              calibrate phase's profile, the NCCL group of one rank),
+              each with the launches checked at every step (expert GEMM
+              L x (steps + prefill calls), or L x sum(r1·r2) under DEP;
+              flash L per prefill call; split-KV decode L per step, none
+              under MLA), held against an eager twin (greedy tokens, 11
+              teacher-forced steps bitwise) and profiled (decode step,
+              8 x 300 prefill); a paired decode timing of capacity graph,
+              capacity eager and DEP graph; the expert GEMM against its
+              plain version at every (E, C) either serve gave it, with
+              controls; under MLA the decode recompute (the w_ukv GEMM
+              over the whole latent cache, + kpe, the masked SDPA) timed
+              per layer and per step beside the expert GEMM; parameters
+              against ModelConfig.num_params(), tokens/s, decode step and
+              prefill-call ms, peak GB and wall seconds printed;
   5. xlstm    ServingEngine with the full xlstm-1.3b config (48 layers,
               42 mLSTM through the mLSTM scan kernels, 6 sLSTM): 16
               requests, 8 slots, max_context 1024, with the graph; held
@@ -142,12 +168,13 @@
               eager engine (a teacher-forced ring wraps) and timed beside
               it; profiled over 3 decode steps (graph and eager) and one
               3000-token prefill call;
-  7. report   one JSON line with every kernel's numbers (launches from the
-              dep path for the kernels of qwen2-moe's dense KV, and per
-              serve path in ``launches_by_path``: the placement path's
-              expert GEMM counts the REP task's launches), the
-              card's name and power limit, and as the last line
-              {"ok": true, "device": ...}.
+  7. report   every phase's wall seconds and the total; one JSON line with
+              every kernel's numbers (launches from the dep path for the
+              kernels of qwen2-moe's dense KV, and per serve path in
+              ``launches_by_path``: the placement path's expert GEMM
+              counts the REP task's launches; the backbone paths' shapes
+              under ``backbones``), the card's name and power limit, and
+              as the last line {"ok": true, "device": ...}.
 
 Any failure ends the run with a traceback and a non-zero exit. Without a
 CUDA device it exits non-zero and prints no result.
@@ -226,6 +253,7 @@ from repro_torch.profiling.microbench import sweeps_for  # noqa: E402
 from repro_torch.runtime import Request, RequestState, ServingEngine  # noqa: E402
 from repro_torch.runtime.decode_graph import GraphKey  # noqa: E402
 from repro_torch.runtime.engine import prefill_split  # noqa: E402
+from repro_torch.sched.occupancy import bucket_length  # noqa: E402
 from repro_torch.sched import FinDEPPolicy, PlanCache  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, full 700 W limit)
@@ -1395,8 +1423,8 @@ def check_rg_lru(gen):
 # ---------------------------------------------------------------------------
 
 def phase_small() -> None:
-    for arch in ("qwen2-moe-a2.7b", "qwen2-1.5b", "xlstm-1.3b",
-                 "recurrentgemma-9b"):
+    for arch in ("qwen2-moe-a2.7b", "qwen2-1.5b", "deepseek-v2-lite",
+                 "xlstm-1.3b", "recurrentgemma-9b"):
         cfg = get_smoke_config(arch)
         ctx = ExecutionContext(attn_impl="decode_kernel")
         cpu = build_model(cfg, ctx=ctx, dtype=torch.float32, device="cpu")
@@ -1674,7 +1702,7 @@ def run_stepwise(eng, check):
             return eng.finished[start:]
 
 
-def serve(eng, reqs, cfg, path: str, expect, step_check=None):
+def serve(eng, reqs, cfg, path: str, expect, step_check=None, into=None):
     """Drive ``reqs`` through ``eng`` with the launch counts set to 0 just
     before and read just after (and ``step_check``, if given, after every
     step: ``run_stepwise``); check that every request finished with 32
@@ -1682,7 +1710,8 @@ def serve(eng, reqs, cfg, path: str, expect, step_check=None):
     often as ``expect(eng.stats)`` says (a kernel absent from it must not
     launch). An engine with the decode graph must replay it at every
     decode step and capture no key twice (one capture per graph it
-    holds); an eager one must capture nothing."""
+    holds); an eager one must capture nothing. The printed numbers also
+    go into the dict ``into``, if given."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start_gb = torch.cuda.memory_allocated() / 1e9
@@ -1735,6 +1764,8 @@ def serve(eng, reqs, cfg, path: str, expect, step_check=None):
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
                launches=counts)
+    if into is not None:
+        into.update(res)
     print(f"[{path}] {tokens} tokens for {len(finished)} requests in "
           f"{wall:.2f} s -> {res['tokens_per_s']:.1f} tokens/s; TTFT mean "
           f"{res['ttft_mean_ms']:.0f} ms, p90 {res['ttft_p90_ms']:.0f} ms; "
@@ -1752,14 +1783,27 @@ def serve(eng, reqs, cfg, path: str, expect, step_check=None):
     return counts
 
 
-def moe_expect(cfg, decode_kernel: str):
-    """Launches of the qwen2-moe serve: per layer one decode attention
-    and one expert GEMM per decode step, one flash attention and one
-    expert GEMM per prefill call."""
+def decode_kernel_of(cfg):
+    """The decode-attention kernel a dense-KV serve of ``cfg`` launches:
+    none under MLA, which decodes through the plain masked SDPA over the
+    K/V it recomputes from the latent cache (as the reference does)."""
+    return None if cfg.mla_kv_lora_rank else "decode_attention"
+
+
+def moe_expect(cfg, decode_kernel):
+    """Launches of a capacity MoE serve: per layer one decode attention
+    (``decode_kernel``; None launches none) and one expert GEMM per
+    decode step, one flash attention and one expert GEMM per prefill
+    call."""
     L = cfg.num_layers
-    return lambda st: {decode_kernel: L * st.steps,
-                       "flash_attention": L * st.prefill_calls,
-                       "moe_gemm": L * (st.steps + st.prefill_calls)}
+
+    def expect(st):
+        want = {"flash_attention": L * st.prefill_calls,
+                "moe_gemm": L * (st.steps + st.prefill_calls)}
+        if decode_kernel:
+            want[decode_kernel] = L * st.steps
+        return want
+    return expect
 
 
 #: prompt lengths of the teacher-forced graph-against-eager phases: mixed,
@@ -2021,28 +2065,45 @@ def exp_launches(programs, layers: int) -> int:
 
 
 def dep_expect(cfg, since=None):
-    """Launches of a DEP serve: attention as on the dense path, the
-    expert GEMM as ``exp_launches`` of each call's program. ``since`` (an
-    engine's ``EngineStats``) counts only the calls after this point."""
+    """Launches of a DEP serve: attention as on the dense path (no decode
+    kernel under MLA), the expert GEMM as ``exp_launches`` of each call's
+    program. ``since`` (an engine's ``EngineStats``) counts only the calls
+    after this point."""
     L = cfg.num_layers
+    dec = decode_kernel_of(cfg)
     steps, calls, n = ((since.steps, since.prefill_calls,
                         len(since.programs)) if since is not None
                        else (0, 0, 0))
-    return lambda st: {"decode_attention": L * (st.steps - steps),
-                       "flash_attention": L * (st.prefill_calls - calls),
-                       "moe_gemm": exp_launches(st.programs[n:], L)}
+
+    def expect(st):
+        want = {"flash_attention": L * (st.prefill_calls - calls),
+                "moe_gemm": exp_launches(st.programs[n:], L)}
+        if dec:
+            want[dec] = L * (st.steps - steps)
+        return want
+    return expect
 
 
-def exp_per_step(cfg, path: str):
-    """A ``run_stepwise`` check: every step launched the expert GEMM
-    ``exp_launches`` of its model calls' programs (``num_layers`` x the
-    sum of r1·r2, and r1 more where REP runs)."""
+def launches_per_step(eng, path: str, expect):
+    """A ``run_stepwise`` check: every step launched each kernel exactly
+    as ``expect`` says of that step's own decode steps, prefill calls and
+    DEP programs (a kernel absent from it must not launch). It holds the
+    engine's stats, not the engine, which a phase frees before its end."""
+    st = eng.stats
+    seen = [st.steps, st.prefill_calls]
+
     def check(before, after, programs):
-        n = after["moe_gemm"] - before["moe_gemm"]
-        want = exp_launches(programs, cfg.num_layers)
-        if n != want:
-            fail(f"{path}: step {check.steps}: the expert GEMM launched {n} "
-                 f"times, its programs ask for {want}")
+        step = argparse.Namespace(steps=st.steps - seen[0],
+                                  prefill_calls=st.prefill_calls - seen[1],
+                                  programs=list(programs))
+        want = expect(step)
+        for name in after:
+            n = after[name] - before[name]
+            if n != want.get(name, 0):
+                fail(f"{path}: step {check.steps} ({step.steps} decode "
+                     f"steps, {step.prefill_calls} prefill calls): {name} "
+                     f"launched {n} times, expected {want.get(name, 0)}")
+        seen[:] = [st.steps, st.prefill_calls]
         check.steps += 1
     check.steps = 0
     return check
@@ -2496,12 +2557,12 @@ def phase_serve_dep(profile, store_dir: str):
     params = eng.params
     reqs = mixed_requests(cfg)
     expect = dep_expect(cfg)
-    step_check = exp_per_step(cfg, "dep")
+    step_check = launches_per_step(eng, "dep", expect)
     with GemmWidths() as rec:
         counts = serve(eng, reqs, cfg, "dep", expect, step_check=step_check)
-        print(f"[dep] the expert GEMM launched {cfg.num_layers} x "
-              f"sum(r1*r2) of each step's programs at all "
-              f"{step_check.steps} steps")
+        print(f"[dep] every kernel launched as its step asked at all "
+              f"{step_check.steps} steps: the expert GEMM {cfg.num_layers} "
+              "x sum(r1*r2) of the step's programs")
         print_plans(eng, "dep")
         print_plans_beside(eng, cfg, "dep")
         print_telemetry(eng, "dep")
@@ -2857,7 +2918,8 @@ def phase_placement(profile):
     for name, eng in (("untracked", untracked), ("tracked", tracked)):
         reqs = mixed_requests(cfg)
         serve(eng, reqs, cfg, f"placement {name}", dep_expect(cfg),
-              step_check=exp_per_step(cfg, f"placement {name}"))
+              step_check=launches_per_step(eng, f"placement {name}",
+                                           dep_expect(cfg)))
         served[name] = reqs
         print(f"[placement {name}] TPOT mean {tpot_ms(reqs):.2f} ms")
     del tracked._observe_load, observe      # no cycle through the engine
@@ -2886,7 +2948,8 @@ def phase_placement(profile):
     with GemmWidths() as rec:
         serve(eng, reqs[:8], cfg, "placement before",
               dep_expect(cfg, eng.stats),
-              step_check=exp_per_step(cfg, "placement before"))
+              step_check=launches_per_step(eng, "placement before",
+                                           dep_expect(cfg)))
         t0 = time.perf_counter()
         pl = eng.rebalance_now()
         print(f"[placement] rebalance_now: {pl} in "
@@ -2896,7 +2959,8 @@ def phase_placement(profile):
                  f"experts after rebalance_now, want 1 and {HOT_K}")
         counts = serve(eng, reqs[8:], cfg, "placement after",
                        dep_expect(cfg, eng.stats),
-                       step_check=exp_per_step(cfg, "placement after"))
+                       step_check=launches_per_step(eng, "placement after",
+                                                    dep_expect(cfg)))
     print(f"[placement] TPOT mean before {tpot_ms(reqs[:8]):.2f} ms, after "
           f"{tpot_ms(reqs[8:]):.2f} ms")
     stale = [k for k in eng.resolved_plans()
@@ -3194,6 +3258,314 @@ def phase_obs(profile, store_dir: str) -> None:
              "engine outlived it")
     torch.cuda.empty_cache()
     print(f"[obs] phase passed in {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: the paper's two backbones (MLA; 128 experts)
+# ---------------------------------------------------------------------------
+
+#: qwen3-moe layers served on one card: each holds 2.45 B parameters
+#: (128 x 3 x 4096 x 1536 expert weights), so 8 of its 48 layers and the
+#: 151936-token embedding and head come to 20.9 B (41.7 GB in bf16)
+QWEN3_LAYERS = 8
+
+
+def backbone_config(path: str):
+    """The config of a backbone path: "mla" serves deepseek-v2-lite whole,
+    "qwen3" serves qwen3-moe at full width cut to ``QWEN3_LAYERS``."""
+    if path == "mla":
+        return get_config("deepseek-v2-lite")
+    return dataclasses.replace(get_config("qwen3-moe"),
+                               num_layers=QWEN3_LAYERS)
+
+
+def check_flash_shape(gen, label: str, B: int, S: int, H: int, Kv: int,
+                      D: int) -> dict:
+    """bf16 flash at a serve path's prefill shape against its plain
+    version (``FLASH_TOL``, beside the off-by-one controls); the kernel,
+    the plain version (CUDA events: its device events per call vary
+    with the shape) and ``F.scaled_dot_product_attention`` (K/V repeated
+    to H heads beforehand) timed, and the card's bound."""
+    dtype = torch.bfloat16
+    q = randn(gen, (B, S, H, D), dtype)
+    k = randn(gen, (B, S, Kv, D), dtype)
+    v = randn(gen, (B, S, Kv, D), dtype)
+    name = f"{label} B={B} S={S} H={H} Kv={Kv} D={D} bf16"
+    got = flash_attention(q, k, v)
+    err = compare(name, got, flash_attention_ref(q, k, v), dtype,
+                  FLASH_TOL[dtype])
+    ctrl = check_flash_controls(name, got, q, k, v)
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).repeat_interleave(H // Kv, dim=1)
+              .contiguous() for t in (k, v))
+    ms, dev = timed(lambda: flash_attention(q, k, v), "flash_attention_")
+    plain = time_ms(lambda: flash_attention_ref(q, k, v), iters=5)
+    lib, lib_dev = timed(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    flops = 4.0 * B * H * D * S * (S + 1) / 2
+    nbytes = (2 * B * S * H * D + 2 * B * S * Kv * D) * 2
+    b, by = bound_ms(nbytes, flops, dtype)
+    print(f"  {name}: kernel {ms:.4f} ms events, {dev:.4f} ms device "
+          f"({flops / dev / 1e9:.1f} TFLOP/s); plain {plain:.3f} ms events; "
+          f"F.scaled_dot_product_attention {lib:.4f} / {lib_dev:.4f} ms; "
+          f"bound {b:.4f} ms ({by})")
+    return dict(shape=name, max_abs_err=err, control_worst_ratio=ctrl,
+                ms=ms, device_ms=dev, plain_ms=plain, library_ms=lib,
+                library_device_ms=lib_dev, bound_ms=b, bound_by=by)
+
+
+def check_decode_shape(gen, label: str, H: int, Kv: int, D: int) -> dict:
+    """bf16 split-KV decode at a serve path's decode shape (8 rows, C =
+    1024) against its plain version (``DECODE_TOL``, beside the controls)
+    at mixed lengths and at ~300 positions, the decode profile's; timed
+    at ~300 (``time_decode``)."""
+    dtype, B, C = torch.bfloat16, 8, 1024
+    mixed = np.array([0, 1, C, 37, 500, 1000, 33, 613])
+    serve_lens = np.random.RandomState(5).randint(290, 311, size=B)
+    errs = {}
+    for tag, lens in (("mixed", mixed), ("~300", serve_lens)):
+        lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q, k, v = _decode_inputs(gen, B, H, Kv, D, C, dtype)
+        name = f"{label} B={B} H={H} Kv={Kv} D={D} C={C} {tag} bf16"
+        out = decode_attention(q, k, v, lt)
+        errs[tag] = compare(name, out, decode_attention_ref(q, k, v, lt),
+                            dtype, DECODE_TOL[dtype])
+        check_decode_controls(name, out, q, k, v, lt)
+    timing = time_decode(name, q, k, v, lt)
+    return dict(timing, shape=name, max_abs_err=errs["~300"],
+                mixed_max_abs_err=errs["mixed"],
+                lengths=serve_lens.tolist())
+
+
+def time_gemm_shapes(gen, path: str, cfg, S: int) -> dict:
+    """The expert GEMM at the path's (E, M, H), on weights at
+    ``check_moe_gemm``'s scale, at its two regimes: a decode step of 8
+    slots and the 8 x S prefill call, each against its plain version
+    (``GEMM_TOL``, beside the controls) and timed beside the plain version
+    (CUDA events) and ``torch.bmm`` x3 + SiLU, with the card's bound."""
+    E, M, H = cfg.moe.num_experts, cfg.d_model, cfg.moe.expert_ffn_dim
+    wg = randn(gen, (E, M, H), torch.bfloat16, M ** -0.5)
+    wu = randn(gen, (E, M, H), torch.bfloat16, M ** -0.5)
+    wd = randn(gen, (E, H, M), torch.bfloat16, H ** -0.5)
+    out = {}
+    for regime, tokens in (("decode", 8), ("prefill", 8 * S)):
+        C = moe_lib.expert_capacity(tokens, cfg.moe)
+        x = randn(gen, (E, C, M), torch.bfloat16)
+        name = f"{path} {regime} E={E} C={C} M={M} H={H} bf16"
+        got, want = moe_gemm(x, wg, wu, wd), moe_gemm_ref(x, wg, wu, wd)
+        err = compare(name, got, want, torch.bfloat16,
+                      GEMM_TOL[torch.bfloat16])
+        ctrl = check_moe_gemm_controls(name, got, x, wg, wu, wd, want)
+        del got, want
+        ms, dev = timed(lambda: moe_gemm(x, wg, wu, wd), "moe_gemm_")
+        plain = time_ms(lambda: moe_gemm_ref(x, wg, wu, wd), iters=5)
+        lib, lib_dev = timed(lambda: torch.bmm(
+            F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd))
+        flops = 6.0 * E * C * M * H
+        nbytes = (2 * E * C * M + 3 * E * M * H) * 2
+        b, by = bound_ms(nbytes, flops, torch.bfloat16)
+        print(f"  {name}: kernel {ms:.3f} ms events, {dev:.4f} ms device "
+              f"({nbytes / dev / 1e9:.3f} TB/s, {flops / dev / 1e9:.1f} "
+              f"TFLOP/s); plain {plain:.3f} ms events; torch.bmm x3 "
+              f"{lib:.3f} / {lib_dev:.4f} ms; bound {b:.4f} ms ({by})")
+        out[regime] = dict(shape=name, max_abs_err=err,
+                           control_worst_ratio=ctrl, ms=ms,
+                           device_ms=dev, plain_ms=plain, library_ms=lib,
+                           library_device_ms=lib_dev, bound_ms=b,
+                           bound_by=by)
+        del x
+    del wg, wu, wd
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_backbone_kernels(gen) -> dict:
+    """Each backbone path's kernels at the shapes its serve gives them:
+    flash at the 8 x 300 prefill's bucket (MLA: H = Kv), split-KV decode
+    at 8 slots (GQA only: MLA decodes through the plain SDPA) and the
+    expert GEMM at decode and prefill; each against its plain version
+    beside its controls, timed. Runs in the kernel phase, before the
+    serve phases' profiles, while the profiler keeps every device event
+    of a short trace (late in a run it drops some). Returns {path:
+    {kernel name: entry}}."""
+    out = {}
+    for path in ("mla", "qwen3"):
+        cfg = backbone_config(path)
+        print(f"[kernels] {path} ({cfg.name}) shapes")
+        H, D = cfg.num_heads, cfg.head_dim
+        Kv = H if cfg.mla_kv_lora_rank else cfg.num_kv_heads
+        S = bucket_length(300)
+        out[path] = {
+            "flash_attention": check_flash_shape(gen, f"{path} prefill", 8,
+                                                 S, H, Kv, D),
+            "moe_gemm": time_gemm_shapes(gen, path, cfg, S)}
+        if decode_kernel_of(cfg):
+            out[path]["decode_attention"] = check_decode_shape(
+                gen, f"{path} decode", H, Kv, D)
+    return out
+
+
+def time_mla_recompute(attn_params, cfg, decode_row: dict) -> dict:
+    """One MLA layer's decode-step attention on the card at the mla
+    path's decode shape (8 slots, C = 1024, ~300 live positions): the
+    ``w_ukv`` GEMM over the whole latent cache, the recompute with
+    ``kpe`` added (``attention._cached_kv``) and the plain masked SDPA
+    over its output; time per layer (CUDA events around 20 back-to-back
+    calls) and x ``num_layers`` per step, beside the expert GEMM's per
+    step from the decode profile, and the card's bound for the GEMM (the
+    latent read, [B, C, 2 H D] written)."""
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models.layers import dense_apply
+    B, C, L = 8, 1024, cfg.num_layers
+    r, H, D = cfg.mla_kv_lora_rank, cfg.num_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    cache = {"ckv": randn(gen, (B, C, r), torch.bfloat16),
+             "kpe": randn(gen, (B, C, D), torch.bfloat16)}
+    q = randn(gen, (B, 1, H, D), torch.bfloat16)
+    lens = torch.tensor(np.random.RandomState(5).randint(290, 311, size=B),
+                        dtype=torch.int32, device="cuda")
+    mask = (torch.arange(C, device="cuda")[None, None, :]
+            < lens[:, None, None])
+    k_all, v_all = attn_lib._cached_kv(attn_params, cfg, cache,
+                                       torch.bfloat16)
+    parts = {
+        "w_ukv GEMM": lambda: dense_apply(attn_params["w_ukv"],
+                                          cache["ckv"]),
+        "recompute (GEMM, split, + kpe)": lambda: attn_lib._cached_kv(
+            attn_params, cfg, cache, torch.bfloat16),
+        "SDPA (f32 logits, mask)": lambda: attn_lib._sdpa(q, k_all, v_all,
+                                                          mask),
+    }
+    out = {}
+    for label, fn in parts.items():
+        ms = back_to_back_ms(fn)
+        out[label] = dict(ms=ms, step_ms=ms * L)
+    nbytes = (B * C * r + r * 2 * H * D + B * C * 2 * H * D) * 2
+    b, by = bound_ms(nbytes, 2.0 * B * C * r * 2 * H * D, torch.bfloat16)
+    out["w_ukv GEMM"].update(bound_ms=b, bound_by=by)
+    print(f"[mla recompute] one layer at B={B} C={C} r={r} H={H} D={D} "
+          f"bf16, ms per layer (x{L} per decode step): " + ", ".join(
+              f"{label} {v['ms']:.4f} ({v['step_ms']:.2f})"
+              for label, v in out.items())
+          + f"; the w_ukv GEMM's bound {b:.4f} ms ({by}); the expert GEMM "
+          f"{decode_row.get('moe_gemm_ms', float('nan')):.2f} ms and all "
+          f"kernels {decode_row.get('kernel_ms', float('nan')):.2f} ms per "
+          "graph step in the decode profile")
+    return out
+
+
+def phase_backbone(path: str, profile):
+    """One of the paper's backbones at full width on the card, bf16
+    weights from seed 0, 8 slots, max_context 1024, ``mixed_requests``:
+    "mla" serves deepseek-v2-lite (27 layers, MLA, 64 experts top-6 + 2
+    shared), "qwen3" qwen3-moe cut to ``QWEN3_LAYERS`` layers (GQA 64/4,
+    128 experts top-8). The capacity engine serves, then a DEP engine on
+    the same weights (FinDEP on the calibrate phase's profile, the NCCL
+    group of one rank). Each: launches checked at every step (the expert
+    GEMM L x (steps + prefill calls) on capacity and L x Σ r1·r2 on DEP,
+    flash L per prefill call, split-KV decode L per step under GQA and
+    none under MLA), graph against eager (greedy tokens, 11
+    teacher-forced steps bitwise), a decode and a prefill profile; a
+    paired decode timing of the three engines; the expert GEMM against
+    its plain version at every (E, C) both serves gave it; under MLA the
+    decode recompute timed. Returns the launch counts of the two serves
+    (and under MLA the recompute's times)."""
+    cfg = backbone_config(path)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    groups = DepGroups.single(DEP_BACKEND)
+    t0 = time.perf_counter()
+    cap = ServingEngine(cfg, num_slots=8, max_context=1024,
+                        dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    params = cap.params
+    n_params = sum(t.numel() for t in _leaves(params))
+    m = cfg.moe
+    attn_desc = (f"MLA kv_lora_rank {cfg.mla_kv_lora_rank}"
+                 if cfg.mla_kv_lora_rank
+                 else f"GQA {cfg.num_heads}/{cfg.num_kv_heads}")
+    print(f"[{path}] {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, "
+          f"{attn_desc}, {m.num_experts} experts top-{m.top_k} (H "
+          f"{m.expert_ffn_dim}) + {m.num_shared_experts} shared, vocab "
+          f"{cfg.vocab_size}; {n_params / 1e9:.3f} B params drawn in bf16 "
+          f"on the card in {time.perf_counter() - t0:.1f} s "
+          f"(ModelConfig.num_params() says {cfg.num_params() / 1e9:.3f} B)")
+
+    def dep_engine(**kw):
+        return ServingEngine(cfg, params=params, num_slots=8,
+                             max_context=1024, dtype=torch.bfloat16, seed=0,
+                             plan_policy=dep_policy(cfg, profile),
+                             ep_group=groups, **kw)
+
+    prompts = np.random.RandomState(8).randint(0, cfg.vocab_size,
+                                               size=(8, 300))
+    counts, results = {}, {}
+    dep_path = f"{path} dep"
+    with GemmWidths() as rec:
+        expect = moe_expect(cfg, decode_kernel_of(cfg))
+        reqs = mixed_requests(cfg)
+        results[path] = {}
+        counts[path] = serve(cap, reqs, cfg, path, expect,
+                             step_check=launches_per_step(cap, path, expect),
+                             into=results[path])
+        decode_row = profile_decode(cap, np.random.RandomState(5), cfg,
+                                    path)
+        profile_prefill(cap, prompts, path)
+        eager = ServingEngine(cfg, params=params, num_slots=8,
+                              max_context=1024, dtype=torch.bfloat16, seed=0,
+                              decode_graph=False)
+        against_eager(path, cap, eager, cfg, reqs,
+                      lambda: mixed_requests(cfg), expect,
+                      forced_prompts(cfg.vocab_size))
+
+        dep = dep_engine()
+        expect = dep_expect(cfg)
+        reqs = mixed_requests(cfg)
+        step_check = launches_per_step(dep, dep_path, expect)
+        results[dep_path] = {}
+        counts[dep_path] = serve(dep, reqs, cfg, dep_path, expect,
+                                 step_check=step_check,
+                                 into=results[dep_path])
+        print(f"[{dep_path}] every kernel launched as its step asked at all "
+              f"{step_check.steps} steps: the expert GEMM {cfg.num_layers} "
+              "x sum(r1*r2) of the step's programs")
+        print_plans(dep, dep_path)
+        profile_decode(dep, np.random.RandomState(5), cfg, dep_path)
+        chunk, _ = prefill_split(dep_policy(cfg, profile).resolve(
+            "prefill", bucket_length(300), 8), 8)
+        profile_prefill(dep, prompts, dep_path, calls=-(-8 // chunk))
+        dep_eager = dep_engine(decode_graph=False)
+        against_eager(dep_path, dep, dep_eager, cfg, reqs,
+                      lambda: mixed_requests(cfg), expect,
+                      forced_prompts(cfg.vocab_size))
+        del dep_eager
+    compare_decode({"capacity graph": cap, "capacity eager": eager,
+                    "dep graph": dep}, cfg)
+    del eager
+    torch.cuda.empty_cache()
+    experts = params["layers"][0]["moe"]["experts"]
+    check_dep_widths({experts["gate"].shape[0]: experts}, rec.shapes,
+                     cap.device, path)
+    recompute = (time_mla_recompute(params["layers"][0]["attn"], cfg,
+                                    decode_row)
+                 if cfg.mla_kv_lora_rank else None)
+    for name, res in results.items():
+        print(f"[{path} summary] {name}: {n_params / 1e9:.3f} B params "
+              f"(num_params() {cfg.num_params() / 1e9:.3f} B), "
+              f"{res['tokens_per_s']:.1f} tokens/s, decode step "
+              f"{res['decode_step_ms']:.2f} ms, prefill call "
+              f"{res['prefill_ms_mean']:.1f} ms, peak "
+              f"{res['peak_mem_gb']:.2f} GB allocated, serve wall "
+              f"{res['wall_s']:.2f} s")
+    del cap, dep, params, experts, rec
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() / 1e9
+    if left > 0.5:
+        fail(f"{path}: {left:.2f} GB still allocated after the phase: an "
+             "engine outlived it")
+    torch.cuda.empty_cache()
+    return counts, recompute
 
 
 def phase_serve_xlstm():
@@ -3543,33 +3915,57 @@ def main(argv=None) -> int:
     print(f"[device] {kind} x{torch.cuda.device_count()}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    phase_build()
+    walls = {}
+
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        walls[name] = time.perf_counter() - t0
+        print(f"[phase] {name}: {walls[name]:.1f} s")
+        return out
+
+    phase("build", phase_build)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    entries = [check_decode(gen), check_decode_paged(gen),
-               check_moe_gemm(gen), check_flash(gen), check_mlstm(gen),
-               check_rg_lru(gen)]
+    entries = phase("kernels", lambda: [
+        check_decode(gen), check_decode_paged(gen), check_moe_gemm(gen),
+        check_flash(gen), check_mlstm(gen), check_rg_lru(gen)])
+    backbones = phase("backbone kernels", check_backbone_kernels, gen)
     torch.cuda.empty_cache()
-    phase_small()
-    phase_ring()
+    phase("small", phase_small)
+    phase("ring", phase_ring)
     counts = {}
     cal_counts = {}
     if not args.no_serve:
         os.makedirs(os.path.join(ROOT, ".repro-profiles"), exist_ok=True)
         with tempfile.TemporaryDirectory(
                 dir=os.path.join(ROOT, ".repro-profiles")) as store_dir:
-            profile, cal_counts = phase_calibrate(store_dir)
+            profile, cal_counts = phase("calibrate", phase_calibrate,
+                                        store_dir)
             torch.cuda.empty_cache()
-            counts = phase_serve()
-            counts["dep"] = phase_serve_dep(profile, store_dir)
-            counts["placement"] = phase_placement(profile)
-            phase_obs(profile, store_dir)
+            counts = phase("serve", phase_serve)
+            counts["dep"] = phase("dep", phase_serve_dep, profile, store_dir)
+            counts["placement"] = phase("placement", phase_placement,
+                                        profile)
+            phase("obs", phase_obs, profile, store_dir)
+            for path in ("mla", "qwen3"):
+                path_counts, recompute = phase(path, phase_backbone, path,
+                                               profile)
+                counts.update(path_counts)
+                if recompute:
+                    print("[mla recompute] " + json.dumps(recompute))
             torch.distributed.destroy_process_group()
-            counts["xlstm"] = phase_serve_xlstm()
-            counts["hybrid"] = phase_serve_hybrid()
+            counts["xlstm"] = phase("xlstm", phase_serve_xlstm)
+            counts["hybrid"] = phase("hybrid", phase_serve_hybrid)
+    print(f"[phase] wall s: {json.dumps(walls)}; total "
+          f"{sum(walls.values()):.1f} s")
 
     report = []
     for e in entries:
+        at = {path: k[e["name"]] for path, k in backbones.items()
+              if e["name"] in k}
+        if at:
+            e = dict(e, backbones=at)
         check_bounds(e["name"], e)
         path = KERNEL_PATH[e["name"]]
         launches = counts.get(path, {}).get(e["name"], 0)

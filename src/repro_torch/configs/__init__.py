@@ -1,6 +1,7 @@
-"""Architecture registry of the port: the architectures it serves, the
-paper's two MoE backbones (which the planner solves for; their MLA and
-128-expert models are not served yet), and the input shapes."""
+"""Architecture registry of the port: the architectures it serves,
+among them the paper's two MoE backbones (DeepSeek-V2-Lite with MLA, and
+Qwen3-MoE with 128 experts, on one card at reduced depth), and the input
+shapes."""
 from __future__ import annotations
 
 import importlib
@@ -15,7 +16,7 @@ _ARCH_MODULES = {
     "qwen2-1.5b": "qwen2_1_5b",
     "xlstm-1.3b": "xlstm_1_3b",
     "recurrentgemma-9b": "recurrentgemma_9b",
-    # the paper's backbones (the planner's Table-5/7 shapes)
+    # the paper's backbones (also the planner's Table-5/7 shapes)
     "deepseek-v2-lite": "deepseek_v2_lite",
     "qwen3-moe": "qwen3_moe",
 }

@@ -1,13 +1,20 @@
-"""GQA attention (PyTorch counterpart of ``repro.models.attention``):
-full-sequence causal attention for prefill and single-token decode over a
-dense ragged KV cache or over page pools through a block table.
+"""Attention (PyTorch counterpart of ``repro.models.attention``): GQA and
+MLA (DeepSeek-V2 latent attention), full-sequence causal attention for
+prefill and single-token decode over a dense ragged KV cache, or (GQA
+only) over page pools through a block table.
 
-KV caches are dicts ``{"k": [B,C,Kv,Dh], "v": [B,C,Kv,Dh], "index": i32}``
-with a scalar index (one sequence) or a per-slot ``[B]`` index vector
-(continuous batching). Unlike the JAX package, decode writes the new K/V
-row into the cache tensors IN PLACE (one row per slot instead of a new
-cache per step); the returned dict holds the same k/v tensors and the
-advanced index.
+KV caches are dicts with a scalar index (one sequence) or a per-slot
+``[B]`` index vector (continuous batching):
+
+  GQA: ``{"k": [B,C,Kv,Dh], "v": [B,C,Kv,Dh], "index": i32}``
+  MLA: ``{"ckv": [B,C,r], "kpe": [B,C,Dh], "index": i32}`` — the latent
+       ``x @ w_dkv`` and the RoPE'd shared key part ``x @ w_kpe``; decode
+       recomputes K/V of every cached position through ``w_ukv`` (MHA,
+       Kv == H), as the reference does.
+
+Unlike the JAX package, decode writes the new row into the cache tensors
+IN PLACE (one row per slot instead of a new cache per step); the
+returned dict holds the same tensors and the advanced index.
 
 Local and sliding attention (``cfg.attention`` "local"/"sliding") keep a
 ring cache capped at the window (``cache_capacity``): the token at
@@ -18,11 +25,13 @@ lengths (which pass C), and always runs the plain masked SDPA, as the
 reference does.
 
 Routing differs from the reference in one deliberate place: with
-``impl="decode_kernel"`` the reference runs prefill through ``_sdpa``
-(``repro/models/attention.py:211-218``), while the port runs it through
-the flash kernel (with the window, if any) — the same function, held
-against ``_sdpa`` by the tests. MLA and sequence-sharded decode are not
-ported yet and raise.
+``impl="decode_kernel"`` (and, for MLA, ``impl="flash"``) the reference
+runs prefill through ``_sdpa`` (``repro/models/attention.py:211-218``),
+while the port runs it through the flash kernel (with the window, if
+any; on MLA's Kv == H tensors) — the same function, held against
+``_sdpa`` by the tests. MLA decode runs the plain masked ``_sdpa`` under
+every impl, as the reference does. Sequence-sharded decode (a mesh) is
+not ported (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -43,12 +52,10 @@ ATTN_IMPLS = ("xla", "flash", "decode_kernel")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.mla_kv_lora_rank:
+    if cfg.attention not in ("full", "sliding", "local", "mla"):
         raise NotImplementedError(
-            "MLA attention is not ported yet (ROADMAP Queue 1 item 8)")
-    if cfg.attention not in ("full", "sliding", "local"):
-        raise NotImplementedError(
-            f"attention={cfg.attention!r} is not ported (ROADMAP Queue 1)")
+            f"attention={cfg.attention!r} is not ported (ROADMAP Queue 1 "
+            "item 8: cross-attention and the audio and vlm families)")
 
 
 def is_ring(cfg: ModelConfig) -> bool:
@@ -61,8 +68,22 @@ def is_ring(cfg: ModelConfig) -> bool:
 # ---------------------------------------------------------------------------
 
 def attention_init(gen, cfg: ModelConfig, dtype=torch.float32):
+    """The reference's parameters: wq, wk, wv, wo (GQA), or wq, w_dkv,
+    w_ukv, w_kpe, wo (MLA); only wq (and GQA's wk, wv) take the config's
+    qkv bias."""
     _check_supported(cfg)
     hd = cfg.head_dim
+    if cfg.mla_kv_lora_rank:
+        r = cfg.mla_kv_lora_rank
+        return {
+            "wq": dense_init(gen, cfg.d_model, cfg.num_heads * hd,
+                             bias=cfg.qkv_bias, dtype=dtype),
+            "w_dkv": dense_init(gen, cfg.d_model, r, dtype=dtype),
+            "w_ukv": dense_init(gen, r, cfg.num_heads * 2 * hd, dtype=dtype),
+            "w_kpe": dense_init(gen, cfg.d_model, hd, dtype=dtype),
+            "wo": dense_init(gen, cfg.num_heads * hd, cfg.d_model,
+                             dtype=dtype),
+        }
     return {
         "wq": dense_init(gen, cfg.d_model, cfg.num_heads * hd,
                          bias=cfg.qkv_bias, dtype=dtype),
@@ -84,10 +105,23 @@ def cache_capacity(cfg: ModelConfig, seq_len: int) -> int:
 def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int,
                   dtype=torch.bfloat16, device=None):
     hd = cfg.head_dim
+    index = torch.zeros((), dtype=torch.int32, device=device)
+    if cfg.mla_kv_lora_rank:
+        return {"ckv": torch.zeros((batch, capacity, cfg.mla_kv_lora_rank),
+                                   dtype=dtype, device=device),
+                "kpe": torch.zeros((batch, capacity, hd), dtype=dtype,
+                                   device=device),
+                "index": index}
     shape = (batch, capacity, cfg.num_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-            "index": torch.zeros((), dtype=torch.int32, device=device)}
+            "index": index}
+
+
+def cache_len(cache) -> int:
+    """Positions a dense or ring cache holds (C), from whichever tensor
+    it has: ``ckv`` (MLA) or ``k``."""
+    return (cache["ckv"] if "ckv" in cache else cache["k"]).shape[1]
 
 
 # ---------------------------------------------------------------------------
@@ -123,10 +157,22 @@ def _sdpa(q, k, v, mask):
 # ---------------------------------------------------------------------------
 
 def _project_qkv(params, cfg: ModelConfig, x, positions):
-    """GQA projections with RoPE; returns q, k, v and the rows to cache."""
+    """Projections with RoPE; returns q, k, v and the rows to cache. MLA
+    gives MHA tensors (Kv == H): k = k_nope + rope(kpe), with kpe shared
+    by every head, and caches the latent ``ckv`` and the RoPE'd ``kpe``."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     q = dense_apply(params["wq"], x).reshape(B, S, cfg.num_heads, hd)
+    if cfg.mla_kv_lora_rank:
+        ckv = dense_apply(params["w_dkv"], x)                    # [B,S,r]
+        kv = dense_apply(params["w_ukv"], ckv)
+        kv = kv.reshape(B, S, cfg.num_heads, 2 * hd)
+        k_nope, v = torch.split(kv, hd, dim=-1)
+        kpe = dense_apply(params["w_kpe"], x)[:, :, None, :]     # [B,S,1,hd]
+        kpe = apply_rope(kpe, positions, cfg.rope_theta)
+        k = k_nope + kpe
+        q = apply_rope(q, positions, cfg.rope_theta)
+        return q, k, v, {"ckv": ckv, "kpe": kpe[:, :, 0, :]}
     k = dense_apply(params["wk"], x).reshape(B, S, cfg.num_kv_heads, hd)
     v = dense_apply(params["wv"], x).reshape(B, S, cfg.num_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -148,6 +194,10 @@ def attention_fullseq(params, cfg: ModelConfig, x, positions,
     window = cfg.sliding_window if is_ring(cfg) else None
     q, k, v, to_cache = _project_qkv(params, cfg, x, positions)
     if impl in ("flash", "decode_kernel"):
+        if cfg.mla_kv_lora_rank:
+            # the kernel reads dense rows: MLA's v is a strided view of
+            # the up-projection
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         out = flash_ops.flash_attention(q, k, v, causal=True, window=window)
     else:
         mask = _causal_mask(positions[0], positions[0], window)
@@ -163,8 +213,9 @@ def _prefill_cache(cache, to_cache, S: int):
     """Write the segment's last min(S, C) K/V rows into slots [0, keep) of
     the cache, in place, and set the index to S. When the segment fills
     the cache and S % C != 0 the rows are rolled by S % C, which keeps the
-    ring invariant: slot s holds the absolute position that is s mod C."""
-    C = cache["k"].shape[1]
+    ring invariant: slot s holds the absolute position that is s mod C.
+    Every tensor of the cache (k and v, or MLA's ckv and kpe) is written."""
+    C = cache_len(cache)
     keep = min(S, C)
     new = dict(cache)
     for name, val in to_cache.items():
@@ -214,6 +265,23 @@ def paged_address(block_table, index, bs: int, lengths=None) -> PagedAddress:
                         lens.contiguous())
 
 
+def _cached_kv(params, cfg: ModelConfig, cache, dtype):
+    """K/V of every cached position in ``dtype``: the cache's k/v, or for
+    MLA the whole latent cache through ``w_ukv`` plus the shared ``kpe``
+    (the reference's decode recompute, ``repro/models/attention.py:406-
+    411``). It reads the fixed-shape cache, never a length, so a captured
+    decode step replays it."""
+    if not cfg.mla_kv_lora_rank:
+        return cache["k"].to(dtype), cache["v"].to(dtype)
+    ckv = cache["ckv"]
+    B, C, _ = ckv.shape
+    hd = cfg.head_dim
+    kv = dense_apply(params["w_ukv"], ckv.to(dtype))
+    k_nope, v = torch.split(kv.reshape(B, C, cfg.num_heads, 2 * hd), hd,
+                            dim=-1)
+    return k_nope + cache["kpe"].to(dtype)[:, :, None, :], v
+
+
 def attention_decode(params, cfg: ModelConfig, x, cache, impl: str = "xla",
                      lengths=None, paged: Optional[PagedAddress] = None):
     """x: [B, 1, M]; cache index == number of tokens already cached.
@@ -224,7 +292,8 @@ def attention_decode(params, cfg: ModelConfig, x, cache, impl: str = "xla",
     from absolute positions. ``paged`` (the step's ``paged_address``)
     switches the cache to the paged layout
     (``repro_torch.runtime.paging``). ``impl="decode_kernel"`` runs the
-    ragged decode kernel on a full-attention cache; a ring cache and any
+    ragged decode kernel on a full-attention GQA cache; a ring cache, an
+    MLA cache (K/V recomputed from the latent, ``_cached_kv``) and any
     other impl run the plain masked SDPA. Returns (out [B,1,M], cache
     with the row written in place)."""
     if paged is not None:
@@ -235,7 +304,7 @@ def attention_decode(params, cfg: ModelConfig, x, cache, impl: str = "xla",
     positions = (index.expand(B)[:, None] if index.dim() == 0
                  else index[:, None]).to(torch.int32)
     q, _, _, to_cache = _project_qkv(params, cfg, x, positions)
-    C = cache["k"].shape[1]
+    C = cache_len(cache)
     ring = is_ring(cfg)
 
     # per-slot scatter of the new row, in place: at index % C in a ring,
@@ -247,8 +316,7 @@ def attention_decode(params, cfg: ModelConfig, x, cache, impl: str = "xla",
         cache[name].index_put_((batch_ix, slot),
                                val[:, 0].to(cache[name].dtype))
     new_cache = dict(cache, index=index + 1)
-    k_all = new_cache["k"].to(x.dtype)
-    v_all = new_cache["v"].to(x.dtype)
+    k_all, v_all = _cached_kv(params, cfg, new_cache, x.dtype)
 
     if ring:
         # slot s holds the latest absolute position p <= index with
@@ -268,7 +336,7 @@ def attention_decode(params, cfg: ModelConfig, x, cache, impl: str = "xla",
     else:
         lens = torch.clamp(positions[:, 0] + 1, max=C)
 
-    if impl == "decode_kernel":
+    if impl == "decode_kernel" and not cfg.mla_kv_lora_rank:
         out = dec_ops.decode_attention(q[:, 0].contiguous(), k_all, v_all,
                                        lens.contiguous())[:, None]
     else:

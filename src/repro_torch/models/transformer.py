@@ -1,6 +1,6 @@
 """Model assembly (PyTorch counterpart of ``repro.models.transformer``) for
-the dense and moe families (a causal transformer with GQA attention and an
-MLP or MoE FFN per layer), the ssm family (xLSTM: mLSTM and sLSTM
+the dense and moe families (a causal transformer with GQA or MLA attention
+and an MLP or MoE FFN per layer), the ssm family (xLSTM: mLSTM and sLSTM
 blocks, whose decode cache is a recurrent state) and the hybrid family
 (RecurrentGemma: RG-LRU blocks and local attention over a ring KV cache,
 each followed by an MLP).
@@ -79,7 +79,8 @@ def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
         return rglru_lib.rglru_block_pattern(cfg)
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1)")
+            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 "
+            "item 8: the audio and vlm families)")
     moe_set = set(cfg.moe_layer_indices())
     return tuple("attn_moe" if i in moe_set else "attn_mlp"
                  for i in range(cfg.num_layers))
@@ -108,8 +109,9 @@ def init_layer(gen, cfg: ModelConfig, kind: str, dtype=torch.float32):
 
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
                      dtype=torch.bfloat16, device=None):
-    """A layer's decode cache: a KV cache for attention layers (a ring of
-    the window under local/sliding attention), a float32 recurrent state
+    """A layer's decode cache: a KV cache for attention layers (k/v, or
+    MLA's latent ckv/kpe; a ring of the window under local/sliding
+    attention), a float32 recurrent state
     (whatever ``dtype``) for mLSTM, sLSTM and RG-LRU layers."""
     if kind in ("attn_mlp", "attn_moe", "attn"):
         return attn.init_kv_cache(cfg, batch,
@@ -341,7 +343,7 @@ class Model:
         if lengths is not None:
             lengths = lengths.to(device=self.device, dtype=torch.int32)
         paged = None
-        if block_tables is not None:
+        if block_tables is not None:     # paged KV is GQA only: k/v
             first = next(c for c in caches if "k" in c)
             paged = attn.paged_address(block_tables.to(self.device),
                                        first["index"], first["k"].shape[1],

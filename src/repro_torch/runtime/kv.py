@@ -4,8 +4,10 @@ surgery (init / batched-prefill merge / reset).
 
 Cache layout, one entry per layer (mirroring ``Model.init_cache``):
   * attention caches are dicts ``{"k": [slots,C,Kv,D], "v": ...,
-    "index": int32 [slots]}`` — the per-slot index is each slot's
-    continuous-batching position;
+    "index": int32 [slots]}`` (MLA: ``{"ckv": [slots,C,r], "kpe":
+    [slots,C,D], "index"}``) — the per-slot index is each slot's
+    continuous-batching position; the surgery below loops over a cache's
+    tensors, whatever their names;
   * recurrent (mLSTM/sLSTM) states are dicts of per-slot float32 state
     rows, with no index.
 Unlike the JAX package, which builds new arrays with ``.at[].set``, this

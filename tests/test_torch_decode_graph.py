@@ -35,7 +35,8 @@ PROMPTS = {"dense": (5, 20, 45), "moe": (5, 20, 45), "ssm": (7, 16, 3),
 
 CASES = [("qwen2-moe-a2.7b", "dense"), ("qwen2-moe-a2.7b", "paged"),
          ("qwen2-1.5b", "dense"), ("qwen2-1.5b", "paged"),
-         ("xlstm-1.3b", "dense"), ("recurrentgemma-9b", "dense")]
+         ("xlstm-1.3b", "dense"), ("recurrentgemma-9b", "dense"),
+         ("deepseek-v2-lite", "dense"), ("qwen3-moe", "dense")]
 
 
 def _engine(cfg, layout="dense", **kw):

@@ -15,23 +15,26 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.models import ExecutionContext as JaxCtx  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models import ExecutionContext, build_model  # noqa: E402
+from test_torch_mla import smoke_pair  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen2-1.5b"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen2-1.5b",
+                                  "deepseek-v2-lite", "qwen3-moe"])
 def test_prefill_and_decode_logits_match(arch):
-    jcfg = jax_smoke(arch)
+    """qwen3-moe runs as its 16-expert top-8 smoke variant; the MLA of
+    deepseek-v2-lite prefills through the port's flash route and decodes
+    through the plain masked SDPA on both sides."""
+    jcfg, cfg = smoke_pair(arch)
     jm = jax_build(jcfg, ctx=JaxCtx(attn_impl="decode_kernel"),
                    dtype=jnp.float32)
     jparams = jm.init(jax.random.PRNGKey(0))
-    cfg = get_smoke_config(arch)
     tm = build_model(cfg, ctx=ExecutionContext(attn_impl="decode_kernel"),
                      dtype=torch.float32, device="cpu")
     tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
@@ -111,7 +114,8 @@ def test_unported_paths_raise():
         warned = [str(w.message) for w in caught
                   if "no re-placement will run" in str(w.message)]
         assert len(warned) == (arg != "track_expert_load")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_smoke_config("qwen2-1.5b").reduced(
-            attention="mla", mla_kv_lora_rank=32),
-            device="cpu").init(torch.Generator())
+    # MLA is ported; the vlm and audio families are not
+    for family in ("vlm", "audio"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+            build_model(get_smoke_config("qwen2-1.5b").reduced(
+                family=family), device="cpu")

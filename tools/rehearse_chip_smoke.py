@@ -2,9 +2,10 @@
 """Rehearse chip_smoke.py's calibrate and serve phases on the CPU, at
 smoke size.
 
-The calibrate, serve, paged, pressure, dep, drift, placement, obs, xlstm
-and hybrid phases run as on the card, with the smoke configs in place of the full
-ones (the obs phase's entry point too), every engine on the CPU, the
+The calibrate, serve, paged, pressure, dep, drift, placement, obs, mla,
+qwen3, xlstm and hybrid phases run as on the card, with the smoke configs
+in place of the full ones (the obs phase's entry point too; the qwen3
+path's smoke config at its 8 layers), every engine on the CPU, the
 calibration on the CPU at f32 over the reference's sweeps (the plain
 versions in place of the kernels), and the dep, placement and obs phases'
 expert group on gloo (one rank). An engine
@@ -15,7 +16,8 @@ graph path's bookkeeping (one warm-up before the serve, one capture per
 key, a replay per step, launches added per replay)
 and chip_smoke's checks of it run. The kernel wrappers count their CPU
 calls here, as their CUDA calls count on the card; the profiles and
-timings are skipped (they read device time; a skipped decode profile
+timings are skipped, the MLA recompute's timing with them (they read
+device time; a skipped decode profile
 reports the card's host calls per graph step, 1 ``cudaGraphLaunch`` and
 2 ``cudaLaunchKernel``, so that the checks after it run). The obs
 phase's layer trace takes the host clock (no CUDA events on the CPU).
@@ -118,6 +120,7 @@ def main() -> int:
     chip_smoke.time_dep_chunks = lambda *a, **k: None
     chip_smoke.time_rep_gemm = lambda *a, **k: None
     chip_smoke.time_dep_alltoall = lambda *a, **k: None
+    chip_smoke.time_mla_recompute = lambda *a, **k: {}
     chip_smoke.DEP_BACKEND = "gloo"
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         setattr(torch.cuda, name, lambda *a, **k: None)
@@ -135,6 +138,8 @@ def main() -> int:
         chip_smoke.phase_serve_dep(profile, store_dir)
         chip_smoke.phase_placement(profile)
         chip_smoke.phase_obs(profile, store_dir)
+        for path in ("mla", "qwen3"):
+            chip_smoke.phase_backbone(path, profile)
         torch.distributed.destroy_process_group()
         chip_smoke.phase_serve_xlstm()
         chip_smoke.phase_serve_hybrid()
