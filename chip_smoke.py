@@ -153,6 +153,27 @@
               per layer and per step beside the expert GEMM; parameters
               against ModelConfig.num_params(), tokens/s, decode step and
               prefill-call ms, peak GB and wall seconds printed;
+     ep       sharded serving: qwen2-moe-a2.7b at full width (seed 0,
+              bf16) on an expert group of two ranks, two spawned
+              processes sharing the card over gloo (NCCL refuses two
+              ranks of one communicator on one card), each drawing and
+              holding 30 of the 60 experts (per-expert fingerprints equal
+              the one-rank model's rows), in lock step: the decode graph
+              over gloo is refused; the 16 requests, 8 slots,
+              max_context 1024, eager, FinDEP on the calibrate phase's
+              profile, every request finished and both ranks holding the
+              same tokens, the launches read on each rank (expert GEMM
+              24 x sum(r1·r2)); the expert GEMM against its plain
+              version at every (E = 30, C) of the serve; 11 teacher-forced
+              steps at a capacity factor that drops nothing within
+              ``EP_LOGIT_TOL`` of the one-rank engine (every expert,
+              freed before the ranks start), and a control whose rank 1
+              holds experts [29, 59) beyond it; a cross-rank re-placement
+              (``rebalance_now``: an expert moves each way, two are
+              replicated) in place, then 8 more requests; tokens/s,
+              decode-step and prefill-call ms, A2E/E2A bytes and gloo's
+              ms for them and peak GB per rank printed. The transport is
+              host-staged gloo: no wire is measured;
   5. xlstm    ServingEngine with the full xlstm-1.3b config (48 layers,
               42 mLSTM through the mLSTM scan kernels, 6 sLSTM): 16
               requests, 8 slots, max_context 1024, with the graph; held
@@ -2054,17 +2075,20 @@ def dep_policy(cfg, profile):
                                       PlannerConfig(mem_cap_samples=8)))
 
 
-def exp_launches(programs, layers: int) -> int:
+def exp_launches(programs, layers: int, expert_ranks: int = 1) -> int:
     """Expert-GEMM launches of the model calls that walked ``programs``
     (("prefill" or "decode", ExecProgram) pairs): one per MoE layer and
     (stream, chunk), and, under a placement that replicates hot experts,
-    one REP launch per MoE layer and stream."""
+    one REP launch per MoE layer and stream of a call in sequence mode:
+    every call on one expert rank, only prefill on ``expert_ranks`` > 1
+    (a decode step is replicated-token mode there, which has no REP)."""
     return layers * sum(p.graph.r1 * p.graph.r2
-                        + (p.graph.r1 if p.graph.hot_experts else 0)
-                        for _, p in programs)
+                        + (p.graph.r1 if p.graph.hot_experts and (
+                            phase == "prefill" or expert_ranks == 1) else 0)
+                        for phase, p in programs)
 
 
-def dep_expect(cfg, since=None):
+def dep_expect(cfg, since=None, expert_ranks: int = 1):
     """Launches of a DEP serve: attention as on the dense path (no decode
     kernel under MLA), the expert GEMM as ``exp_launches`` of each call's
     program. ``since`` (an engine's ``EngineStats``) counts only the calls
@@ -2077,7 +2101,8 @@ def dep_expect(cfg, since=None):
 
     def expect(st):
         want = {"flash_attention": L * (st.prefill_calls - calls),
-                "moe_gemm": exp_launches(st.programs[n:], L)}
+                "moe_gemm": exp_launches(st.programs[n:], L,
+                                         expert_ranks)}
         if dec:
             want[dec] = L * (st.steps - steps)
         return want
@@ -2231,7 +2256,8 @@ def check_dep_layer(params, cfg, groups, programs, device) -> None:
         cap = moe_lib.expert_capacity(B * S, cfg.moe,
                                       multiple_of=prog.capacity_multiple)
         got, _ = moe_apply_dep(p, x, cfg.moe, groups, plan=prog,
-                               with_aux=False)
+                               with_aux=False, sequence=True,
+                               batch_sharded=False)     # one rank
         want, _ = moe_lib.moe_apply_capacity(p, x, cfg.moe, capacity=cap)
         g = prog.graph
         exact = g.r2 == 1 and g.r1 * g.shared_segments == 1
@@ -2753,7 +2779,8 @@ def check_placed_layer(eng, params, cfg, groups) -> None:
                                       multiple_of=prog.capacity_multiple,
                                       scale=scale)
         got = moe_apply_dep(p, x, cfg.moe, groups, plan=prog, with_aux=False,
-                            capacity_scale=scale, **lp._asdict())[0]
+                            capacity_scale=scale, sequence=True,
+                            batch_sharded=False, **lp._asdict())[0]
         want = moe_lib.moe_apply_capacity(p, x, cfg.moe, capacity=cap)[0]
         ratio = _worst(got.float(), want.float(), GEMM_TOL[torch.bfloat16])
         if not torch.isfinite(got).all() or ratio > 1:
@@ -3142,7 +3169,8 @@ def check_device_trace(label, program, groups, p, mcfg, x, sched) -> None:
                              device=x.device)
     if tr.host_ahead is False:
         fail(f"obs trace {label}: the card caught up with the host before "
-             "the walk was enqueued: the spans hold waits for the host")
+             f"the walk was enqueued ({tr.enqueue_s * 1e3:.1f} ms on the "
+             "host): the spans hold waits for the host")
     walk = [(t.kind, t.mb, t.chunk) for t in program.walk()
             if t.kind not in ("GATE", "ATTN")]
     got = [(sp.name, sp.arg("mb"), sp.arg("chunk")) for sp in tr.spans]
@@ -3186,7 +3214,7 @@ def check_device_trace(label, program, groups, p, mcfg, x, sched) -> None:
                makespan_scheduled_ms=rep.makespan_modeled * 1e3,
                comm_over_exp=comm_over_exp(tr.spans),
                copy_bound_ms=copy_bound_s * 1e3, wall_s=tr.wall_s,
-               host_ahead=tr.host_ahead)
+               enqueue_ms=tr.enqueue_s * 1e3, host_ahead=tr.host_ahead)
     print(f"[obs trace] {label} {row['program']} x{row['x']}, capacity "
           f"{cap} ({C} a chunk, {row['chunk_mb']:.1f} MB): device ms by "
           "kind " + ", ".join(f"{k} {v:.4f}" for k, v in per_kind.items())
@@ -3337,19 +3365,25 @@ def check_decode_shape(gen, label: str, H: int, Kv: int, D: int) -> dict:
                 lengths=serve_lens.tolist())
 
 
-def time_gemm_shapes(gen, path: str, cfg, S: int) -> dict:
+def time_gemm_shapes(gen, path: str, cfg, S: int, experts: int = 0,
+                     widths=None) -> dict:
     """The expert GEMM at the path's (E, M, H), on weights at
     ``check_moe_gemm``'s scale, at its two regimes: a decode step of 8
     slots and the 8 x S prefill call, each against its plain version
     (``GEMM_TOL``, beside the controls) and timed beside the plain version
-    (CUDA events) and ``torch.bmm`` x3 + SiLU, with the card's bound."""
+    (CUDA events) and ``torch.bmm`` x3 + SiLU, with the card's bound.
+    ``experts`` (a rank's share) and ``widths`` ({regime: C}) override E
+    and the capacities."""
     E, M, H = cfg.moe.num_experts, cfg.d_model, cfg.moe.expert_ffn_dim
+    E = experts or E
     wg = randn(gen, (E, M, H), torch.bfloat16, M ** -0.5)
     wu = randn(gen, (E, M, H), torch.bfloat16, M ** -0.5)
     wd = randn(gen, (E, H, M), torch.bfloat16, H ** -0.5)
     out = {}
-    for regime, tokens in (("decode", 8), ("prefill", 8 * S)):
-        C = moe_lib.expert_capacity(tokens, cfg.moe)
+    widths = widths or {
+        regime: moe_lib.expert_capacity(tokens, cfg.moe)
+        for regime, tokens in (("decode", 8), ("prefill", 8 * S))}
+    for regime, C in widths.items():
         x = randn(gen, (E, C, M), torch.bfloat16)
         name = f"{path} {regime} E={E} C={C} M={M} H={H} bf16"
         got, want = moe_gemm(x, wg, wu, wd), moe_gemm_ref(x, wg, wu, wd)
@@ -3402,6 +3436,13 @@ def check_backbone_kernels(gen) -> dict:
         if decode_kernel_of(cfg):
             out[path]["decode_attention"] = check_decode_shape(
                 gen, f"{path} decode", H, Kv, D)
+    # the ep phase's expert rank: 30 of qwen2-moe's 60 experts, at a
+    # decode step's width and two of its prefill calls' (m_e-aligned)
+    print("[kernels] ep (one expert rank of qwen2-moe-a2.7b) shapes")
+    out["ep"] = {"moe_gemm": time_gemm_shapes(
+        gen, "ep", get_config("qwen2-moe-a2.7b"), 0,
+        experts=get_config("qwen2-moe-a2.7b").moe.num_experts // EP_RANKS,
+        widths=EP_GEMM_WIDTHS)}
     return out
 
 
@@ -3566,6 +3607,422 @@ def phase_backbone(path: str, profile):
              "engine outlived it")
     torch.cuda.empty_cache()
     return counts, recompute
+
+
+# ---------------------------------------------------------------------------
+# ep: sharded serving, two expert ranks sharing the one card
+
+#: the ep phase's layout: one data x ``EP_RANKS`` expert ranks, one process
+#: each. NCCL refuses two ranks of one communicator on one card ("Duplicate
+#: GPU detected", tools/probe_two_ranks_one_card.py), so the two processes
+#: share the card over gloo, which stages every collective through host
+#: memory: no wire is measured here
+EP_RANKS = 2
+EP_BACKEND = "gloo"
+EP_DEVICE = "cuda"
+EP_DTYPE = torch.bfloat16
+#: the limit on the 2-rank engine's teacher-forced logits against the
+#: one-rank engine's: the worst step's ||got - want|| / ||want|| over its
+#: [8, V] logits. bf16: set from the sound readings (module docstring of
+#: the ep phase); the off-by-one-expert control must fail it
+EP_LOGIT_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.3}
+#: a re-balance threshold no load reaches: placement stays enabled (and
+#: loads tracked) and nothing re-places but ``rebalance_now``
+EP_NEVER = 1e9
+#: seconds the parent waits for the ranks
+EP_TIMEOUT_S = 900
+#: the expert GEMM's widths timed at a rank's E = 30 in the kernel phase:
+#: a decode step's (C = 1) and two of the ep serve's prefill widths (on
+#: the measured H100 profile the serve gives C = 1, 2, 24, 50, 204, 408,
+#: 614 and 818)
+EP_GEMM_WIDTHS = {"decode": 1, "prefill": 408, "prefill C=818": 818}
+
+
+def no_drop(cfg):
+    """``cfg`` at the capacity factor E / top_k: every expert's capacity
+    is the call's whole token count, so no assignment drops."""
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+
+
+def forced_logits(eng, cfg, prompts, steps: int = 10) -> torch.Tensor:
+    """``teacher_forced``'s protocol on one engine: admit ``prompts``
+    (even ones greedy, odd ones at T=0.8), decode ``steps`` + 1 steps,
+    every step after the first fed tokens drawn from a seed. Returns each
+    step's logits, float32 [steps + 1, num_slots, V] on the CPU."""
+    for i, p in enumerate(prompts):
+        eng.submit(Request(prompt=list(p), max_new_tokens=steps + 4,
+                           temperature=0.0 if i % 2 == 0 else 0.8))
+    rng = np.random.RandomState(10)
+    out = []
+    for k in range(steps + 1):
+        if k:
+            eng.last_tokens.copy_(torch.from_numpy(rng.randint(
+                0, cfg.vocab_size, size=(eng.num_slots, 1))))
+        eng.step()
+        out.append(eng.last_logits[:, -1].float().cpu())
+    return torch.stack(out)
+
+
+def logit_error(got, want) -> tuple:
+    """(worst step's ||got - want|| / ||want||, max |got - want|, each
+    step's relative error, the share of rows whose argmax agrees)."""
+    d = (got - want).flatten(1)
+    rel = d.norm(dim=1) / want.flatten(1).norm(dim=1)
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean()
+    return (float(rel.max()), float(d.abs().max()),
+            [round(float(x), 5) for x in rel], float(agree))
+
+
+def ep_placement(E: int, E_loc: int) -> Placement:
+    """A cross-rank placement of ``E`` experts on two ranks: experts 0
+    and ``E_loc`` trade ranks (one moves each way), and each rank's last
+    expert is replicated on both (two hot experts: the REP task's GEMM
+    then has the two experts its controls swap)."""
+    assignment = [e // E_loc for e in range(E)]
+    assignment[0], assignment[E_loc] = 1, 0
+    return Placement(E, 2, tuple(assignment),
+                     replicated=(E_loc - 1, E - 1), epoch=1)
+
+
+def shift_control(params, groups, E_loc: int, undo=None):
+    """The off-by-one control's weights: expert rank 1's rows become
+    experts [E_loc - 1, 2·E_loc - 1) (rank 0's last expert first, its own
+    last one dropped), in place. Returns what ``undo`` takes to put them
+    back (rank 1's dropped rows). Both ranks call it."""
+    saved = {}
+    for i, layer in enumerate(params["layers"]):
+        for k, t in layer.get("moe", {}).get("experts", {}).items():
+            if undo is not None:
+                if groups.expert_rank == 1:
+                    t[:-1] = t[1:].clone()
+                    t[-1] = undo[(i, k)]
+                continue
+            row = t[-1].clone()
+            torch.distributed.broadcast(row, src=groups.expert_peer(0),
+                                        group=groups.expert)
+            if groups.expert_rank == 1:
+                saved[(i, k)] = t[-1].clone()
+                t[1:] = t[:-1].clone()
+                t[0] = row
+    return saved
+
+
+class Alltoalls:
+    """While entered, records the bytes each rank sends in every
+    ``all_to_all_single`` (the DEP walk's A2E and E2A)."""
+
+    def __enter__(self):
+        self.sizes = {}
+        self._wrapped = torch.distributed.all_to_all_single
+
+        def record(output, input, *args, **kw):
+            n = input.numel() * input.element_size()
+            self.sizes[n] = self.sizes.get(n, 0) + 1
+            return self._wrapped(output, input, *args, **kw)
+        torch.distributed.all_to_all_single = record
+        return self
+
+    def __exit__(self, *exc):
+        torch.distributed.all_to_all_single = self._wrapped
+
+
+def time_alltoall(sizes, groups, device) -> dict:
+    """Host-clock ms of one ``all_to_all_single`` over the expert group at
+    each byte size (a device sync before and after; median of 3 after a
+    warm-up), every rank in the same order."""
+    res = {}
+    for n in sorted(sizes):
+        send = torch.zeros(n // 2, dtype=torch.bfloat16, device=device)
+        recv = torch.empty_like(send)
+        samples = []
+        for _ in range(4):
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.distributed.all_to_all_single(recv, send,
+                                                group=groups.expert)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        res[n] = float(np.median(samples[1:]))
+        del send, recv
+    return res
+
+
+def check_rows(eng, one_fps, rows, path: str, what: str) -> None:
+    """Each local row ``j`` of every MoE layer's expert tensors holds the
+    one-rank model's expert ``rows[j]`` (per-expert fingerprints)."""
+    idx = torch.tensor(rows)
+    for key, fp in expert_fingerprints(eng.params).items():
+        if not torch.equal(fp.cpu(), one_fps[key][idx]):
+            fail(f"{path}: layer {key[0]} {key[1]}: the rows are not the "
+                 f"one-rank model's experts {rows[0]}..{rows[-1]} ({what})")
+
+
+def ep_rank_work(rank, groups, device, store_dir, profile) -> dict:
+    """One rank of the ep phase (see ``phase_ep``)."""
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-moe-a2.7b")
+    E = cfg.moe.num_experts
+    E_loc = E // EP_RANKS
+    lo = rank * E_loc
+    path = f"ep rank {rank}"
+    one = torch.load(os.path.join(store_dir, "one_rank.pt"))
+    if device.type == "cuda":
+        # a gloo group cannot be captured: the default graph must raise,
+        # before any weight is drawn
+        refused = None
+        try:
+            ServingEngine(cfg, ep_group=groups, device=device, dtype=EP_DTYPE)
+        except ValueError as e:
+            refused = str(e)
+        if refused is None or "decode_graph" not in refused:
+            fail(f"{path}: the decode graph on a gloo group was not refused")
+        print(f"[{path}] the decode graph on a gloo group of {EP_RANKS} "
+              f"ranks is refused: {refused}", flush=True)
+    eng = ServingEngine(cfg, num_slots=8, max_context=1024, dtype=EP_DTYPE,
+                        device=device, seed=0,
+                        plan_policy=dep_policy(cfg, profile),
+                        profile=profile, ep_group=groups, decode_graph=False,
+                        rebalance_threshold=EP_NEVER)
+    init_peak = (torch.cuda.max_memory_allocated() / 1e9
+                 if device.type == "cuda" else 0.0)
+    n_params = sum(t.numel() for t in _leaves(eng.params))
+    check_rows(eng, one["fingerprints"], list(range(lo, lo + E_loc)), path,
+               "after init")
+    print(f"[{path}] holds experts [{lo}, {lo + E_loc}) of {E} in every MoE "
+          f"layer, each row the one-rank model's (fingerprints); "
+          f"{n_params / 1e9:.3f} B params, peak {init_peak:.2f} GB "
+          f"allocated while drawing them", flush=True)
+
+    out = {"params_b": n_params / 1e9}
+    reqs = mixed_requests(cfg)
+    res = {}
+    with GemmWidths() as widths, Alltoalls() as a2a:
+        out["counts"] = serve(eng, reqs, cfg, path,
+                              dep_expect(cfg, expert_ranks=EP_RANKS),
+                              into=res)
+    out["tokens"] = [r.output for r in reqs]
+    out["serve"] = {k: res[k] for k in ("tokens_per_s", "decode_step_ms",
+                                        "prefill_ms_mean", "decode_steps",
+                                        "prefill_calls", "wall_s")}
+    out["programs"] = sorted({describe(p) for _, p in eng.stats.programs})
+    experts = eng.params["layers"][0]["moe"]["experts"]
+    check_dep_widths({E_loc: experts}, widths.shapes, device, path)
+
+    # teacher-forced against the one-rank engine, at no drop
+    def forced(what):
+        t = time.perf_counter()
+        fe = ServingEngine(no_drop(cfg), params=eng.params, num_slots=8,
+                           max_context=1024, dtype=EP_DTYPE, device=device,
+                           seed=0, ep_group=groups, decode_graph=False,
+                           track_expert_load=True)
+        got = forced_logits(fe, cfg, forced_prompts(cfg.vocab_size))
+        if fe.stats.dropped_tokens:
+            fail(f"{path}: {fe.stats.dropped_tokens} assignments dropped in "
+                 f"the {what} teacher-forced run")
+        print(f"[{path}] the {what} teacher-forced run: "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        return logit_error(got, one["logits"])
+
+    limit = EP_LOGIT_TOL[EP_DTYPE]
+    out["forced"] = forced("sound")
+    print(f"[{path}] teacher-forced against the one-rank engine, relative "
+          f"error per step {out['forced'][2]}, argmax agreeing in "
+          f"{out['forced'][3]:.1%} of the rows", flush=True)
+    if out["forced"][0] > limit:
+        fail(f"{path}: teacher-forced logits {out['forced'][0]:.3e} off the "
+             f"one-rank engine's (relative), over the limit {limit}")
+    saved = shift_control(eng.params, groups, E_loc)
+    out["control"] = forced("control")
+    shift_control(eng.params, groups, E_loc, undo=saved)
+    check_rows(eng, one["fingerprints"], list(range(lo, lo + E_loc)), path,
+               "after the control was undone")
+    print(f"[{path}] the control, relative error per step "
+          f"{out['control'][2]}, argmax agreeing in "
+          f"{out['control'][3]:.1%} of the rows", flush=True)
+    if out["control"][0] <= limit:
+        fail(f"{path}: the off-by-one-expert control reads "
+             f"{out['control'][0]:.3e}, within the limit {limit}")
+    print(f"[{path}] 11 teacher-forced steps (capacity factor "
+          f"{no_drop(cfg).moe.capacity_factor}, nothing dropped) against "
+          f"the one-rank engine: worst step {out['forced'][0]:.3e} relative "
+          f"(max |d| {out['forced'][1]:.3e}), limit {limit}; the control "
+          f"(rank 1 holding experts [{E_loc - 1}, {E - 1})) reads "
+          f"{out['control'][0]:.3e} (max |d| {out['control'][1]:.3e})",
+          flush=True)
+
+    # a cross-rank re-placement, in place
+    pl = ep_placement(E, E_loc)
+    layers = eng.params["layers"]
+    ptrs = {(i, k): t.data_ptr() for i, layer in enumerate(layers)
+            if "moe" in layer for k, t in layer["moe"]["experts"].items()}
+    if eng.rebalance_now(pl) != pl:
+        fail(f"{path}: rebalance_now installed {eng.placement}, not {pl}")
+    for (i, k), ptr in ptrs.items():
+        if layers[i]["moe"]["experts"][k].data_ptr() != ptr:
+            fail(f"{path}: layer {i} {k} moved in the re-placement")
+    inv = [int(e) for e in np.argsort(pl.perm)]
+    check_rows(eng, one["fingerprints"], inv[lo:lo + E_loc], path,
+               "after the re-placement")
+    hot = eng._device_placement.hot_weights
+    rep = list(pl.replicated)
+    for i, layer in enumerate(layers):
+        for k in layer.get("moe", {}).get("experts", {}):
+            fp = hot[i][k].view(torch.int16).sum(dim=(1, 2),
+                                                 dtype=torch.int64)
+            if not torch.equal(fp.cpu(), one["fingerprints"][(i, k)][rep]):
+                fail(f"{path}: layer {i} {k}: the hot weights are not "
+                     f"experts {rep}'")
+    print(f"[{path}] re-placed in place: experts 0 and {E_loc} traded ranks, "
+          f"experts {rep} replicated, each from its owner; {len(ptrs)} "
+          f"expert tensors at their addresses hold experts "
+          f"{inv[lo:lo + E_loc]} and the hot weights experts {rep}' "
+          "(fingerprints)", flush=True)
+    reqs = mixed_requests(cfg, seed=1)[:8]
+    res = {}
+    with GemmWidths() as placed:
+        serve(eng, reqs, cfg, f"{path} placed",
+              dep_expect(cfg, since=eng.stats, expert_ranks=EP_RANKS),
+              into=res)
+    out["placed_tokens"] = [r.output for r in reqs]
+    check_dep_widths({E_loc: experts, len(rep): hot[0]}, placed.shapes, device,
+                     f"{path} placed")
+    t = time.perf_counter()
+    gloo_ms = time_alltoall(a2a.sizes, groups, device)
+    print(f"[{path}] timed {len(gloo_ms)} all_to_all sizes in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    out["alltoall"] = {n: (c, gloo_ms[n]) for n, c in a2a.sizes.items()}
+    out["peak_gb"] = max(init_peak, torch.cuda.max_memory_allocated() / 1e9
+                         if device.type == "cuda" else 0.0)
+    out["wall_s"] = time.perf_counter() - t0
+    del eng, experts, hot, layers
+    return out
+
+
+def ep_rank(rank: int, store_dir: str, profile, results, setup=None):
+    """A spawned rank process of the ep phase: joins the gloo group over
+    the ``file://`` store in ``store_dir`` and runs ``ep_rank_work``;
+    puts (rank, its results) on ``results``. ``setup`` (the CPU
+    rehearsal's) runs first."""
+    if setup is not None:
+        setup()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(EP_DEVICE, 0) if EP_DEVICE == "cuda" \
+        else torch.device(EP_DEVICE)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    groups = DepGroups.from_file_store(os.path.join(store_dir, "store"),
+                                       rank, 1, EP_RANKS, EP_BACKEND)
+    try:
+        results.put((rank, ep_rank_work(rank, groups, device, store_dir,
+                                        profile)))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_ep(profile, setup=None) -> dict:
+    """Sharded serving on one card: full qwen2-moe-a2.7b (24 layers, 60
+    experts, bf16, seed 0) on an expert group of two ranks, two spawned
+    processes sharing the card over gloo, each holding 30 experts. First
+    the one-rank engine (every expert, capacity path, eager, capacity
+    factor E / top_k) takes 11 teacher-forced decode steps over
+    ``FORCED_LENGTHS`` and gives its per-expert fingerprints; it is freed
+    before the ranks start. Each rank: its rows are the one-rank model's
+    [r·30, (r+1)·30); the decode graph over gloo is refused; the 16
+    ``mixed_requests`` (8 slots, max_context 1024, eager, FinDEP on the
+    calibrate phase's profile) all finish, the expert GEMM launching
+    24 x Σ r1·r2 (``dep_expect``, read on each rank); the expert GEMM
+    against its plain version at every (E = 30, C) of the serve;
+    11 teacher-forced steps at no drop within ``EP_LOGIT_TOL`` of the
+    one-rank engine's, and a control with rank 1's shard off by one
+    expert beyond it; ``rebalance_now`` with a placement that moves an
+    expert each way and replicates one, in place, then 8 more requests.
+    Both ranks must hold the same tokens. Prints per rank tokens/s,
+    eager decode-step and prefill-call ms, the A2E/E2A bytes and gloo's
+    ms for them, and peak GB. ``setup`` runs first in each rank (the CPU
+    rehearsal's patches). Returns rank 0's serve launch counts."""
+    import multiprocessing
+    import queue
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-moe-a2.7b")
+    one = ServingEngine(no_drop(cfg), num_slots=8, max_context=1024,
+                        dtype=EP_DTYPE, device=EP_DEVICE, seed=0,
+                        decode_graph=False, track_expert_load=True)
+    shared = {"fingerprints": {k: v.cpu() for k, v in
+                               expert_fingerprints(one.params).items()},
+              "logits": forced_logits(one, cfg,
+                                      forced_prompts(cfg.vocab_size))}
+    if one.stats.dropped_tokens:
+        fail(f"ep: the one-rank engine dropped {one.stats.dropped_tokens} "
+             "assignments")
+    del one
+    if EP_DEVICE == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    print(f"[ep] the one-rank engine (every expert, capacity factor "
+          f"{no_drop(cfg).moe.capacity_factor}, nothing dropped): 11 "
+          f"teacher-forced steps in {time.perf_counter() - t0:.1f} s; freed",
+          flush=True)
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    got = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ep-") as store_dir:
+        torch.save(shared, os.path.join(store_dir, "one_rank.pt"))
+        procs = [ctx.Process(target=ep_rank, args=(r, store_dir, profile,
+                                                   results, setup))
+                 for r in range(EP_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + EP_TIMEOUT_S
+        while len(got) < EP_RANKS:
+            try:
+                r, res = results.get(timeout=5)
+                got[r] = res
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode]
+                if dead or time.monotonic() > deadline:
+                    for p in procs:
+                        p.kill()
+                        p.join()
+                    fail(f"ep: a rank failed or timed out (exit codes "
+                         f"{[p.exitcode for p in procs]})")
+        for p in procs:
+            p.join(timeout=120)
+            if p.exitcode != 0:
+                fail(f"ep: a rank exited with {p.exitcode}")
+    for what in ("tokens", "placed_tokens"):
+        if any(got[r][what] != got[0][what] for r in range(EP_RANKS)):
+            fail(f"ep: the ranks' {what} differ")
+    print(f"[ep] both ranks hold the same tokens for all 16 requests and "
+          f"the 8 after the re-placement; programs walked "
+          f"{got[0]['programs']}")
+    for r in range(EP_RANKS):
+        g = got[r]
+        s = g["serve"]
+        a2a = {f"{n / 1e6:.2f} MB x{c}": round(ms, 3)
+               for n, (c, ms) in g["alltoall"].items()}
+        print(f"[ep rank {r}] {g['params_b']:.3f} B params; serve "
+              f"{s['tokens_per_s']:.1f} tokens/s, {s['decode_steps']} eager "
+              f"decode steps at {s['decode_step_ms']:.2f} ms, "
+              f"{s['prefill_calls']} prefill calls at "
+              f"{s['prefill_ms_mean']:.1f} ms; A2E/E2A bytes a rank sends "
+              f"per all_to_all (x calls in the serve): gloo ms for one "
+              f"{a2a}; peak {g['peak_gb']:.2f} GB allocated; rank wall "
+              f"{g['wall_s']:.1f} s; teacher-forced {g['forced'][0]:.3e}, "
+              f"control {g['control'][0]:.3e}")
+    print(f"[ep] transport: host-staged gloo between two processes on one "
+          f"card; no wire is measured, and no overlap claim is made; phase "
+          f"wall {time.perf_counter() - t0:.1f} s")
+    print("[ep] " + json.dumps({str(r): {k: v for k, v in got[r].items()
+                                         if k not in ("tokens",
+                                                      "placed_tokens",
+                                                      "alltoall")}
+                                for r in got}))
+    return got[0]["counts"]
 
 
 def phase_serve_xlstm():
@@ -3955,6 +4412,7 @@ def main(argv=None) -> int:
                 if recompute:
                     print("[mla recompute] " + json.dumps(recompute))
             torch.distributed.destroy_process_group()
+            counts["ep"] = phase("ep", phase_ep, profile)
             counts["xlstm"] = phase("xlstm", phase_serve_xlstm)
             counts["hybrid"] = phase("hybrid", phase_serve_hybrid)
     print(f"[phase] wall s: {json.dumps(walls)}; total "

@@ -23,3 +23,24 @@ def params_from_numpy(tree: Any, device="cpu",
     if t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
+
+
+def shard_experts(params: Any, rank: int, mo: int) -> Any:
+    """Expert rank ``rank``'s share of a converted parameter tree (the
+    reference's ``shard_map`` in-spec ``P(axis)`` on the stacked experts,
+    done by hand): every MoE layer keeps rows ``[rank·E/mo,
+    (rank+1)·E/mo)`` of its stacked experts (copies); every other leaf is
+    the same tensor, as the reference replicates it."""
+    layers = []
+    for layer in params["layers"]:
+        experts = layer.get("moe", {}).get("experts")
+        if experts is not None:
+            E = next(iter(experts.values())).shape[0]
+            if E % mo:
+                raise ValueError(f"{E} experts do not divide over {mo} "
+                                 "ranks")
+            lo, hi = rank * (E // mo), (rank + 1) * (E // mo)
+            layer = dict(layer, moe=dict(layer["moe"], experts={
+                k: v[lo:hi].clone() for k, v in experts.items()}))
+        layers.append(layer)
+    return dict(params, layers=layers)

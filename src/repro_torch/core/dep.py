@@ -46,16 +46,28 @@ device tensors made once per placement, outside any step
 (``DevicePlacement``): a step, and so a CUDA graph, copies nothing from
 the host for it.
 
-Two dispatch modes, as in the reference:
+Two dispatch modes, as in the reference, chosen by the caller from the
+layer's GLOBAL sequence length (``seq_mode``):
   * "sequence" (prefill; any call at an expert group of one rank): each
     peer routes its own slice of the sequence and the buffers are
     exchanged with all_to_all;
   * "replicated" (decode with fewer positions than peers): tokens are
     replicated over the expert axis; each peer runs only its experts and
     the combine is one all_reduce.
+On top of either, the data axes shard the batch when it divides over them
+(``batch_split``). ``split_tokens`` takes a rank's slice of a layer's
+[B, S, M] input and ``gather_tokens`` rebuilds the whole output from the
+ranks' slices, the reference's ``shard_map`` in- and out-specs done by
+hand.
+
+Sharded weights: each rank holds its ``E_pad / mo`` experts.
+``permute_experts`` moves rows between the ranks for a new placement and
+``DevicePlacement.build`` fetches the replicated hot experts from the
+ranks that own them.
 """
 from __future__ import annotations
 
+import os
 from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -76,10 +88,14 @@ from repro_torch.placement import Placement
 class DepGroups:
     """One rank's process groups for DEP: the expert axis (``expert``,
     where this rank is ``expert_rank`` of ``expert_size``), the data axes
-    (``data``) and every device (``world``, for the aux loss). The comm
-    stream and the events that order it against the compute stream are
-    made once, at their first use on a CUDA device, and reused by every
-    call (an engine shares them across steps and graph captures)."""
+    (``data``, where it is ``data_rank``) and every device (``world``, for
+    the aux loss and the token gather). ``backend`` is the groups'
+    ("nccl" or "gloo"); ``control`` is a gloo group over the world for
+    the serving engine's lock-step headers (host tensors; the world
+    itself under gloo), None at world size 1. The comm stream and the
+    events that order it against the compute stream are made once, at
+    their first use on a CUDA device, and reused by every call (an engine
+    shares them across steps and graph captures)."""
 
     expert: object
     expert_rank: int
@@ -87,6 +103,9 @@ class DepGroups:
     data: object
     world: object
     world_size: int
+    data_rank: int = 0
+    backend: str = "gloo"
+    control: object = None
     _stream: Optional[torch.cuda.Stream] = field(default=None, repr=False)
     _events: Dict[Tuple[str, int], torch.cuda.Event] = field(
         default_factory=dict, repr=False)
@@ -105,6 +124,7 @@ class DepGroups:
                              f"{expert_size}")
         rank = dist.get_rank()
         d, m = divmod(rank, expert_size)
+        backend = str(dist.get_backend())
         expert = data = world
         if data_size > 1 and expert_size > 1:
             for dd in range(data_size):
@@ -117,8 +137,13 @@ class DepGroups:
                                     for dd in range(data_size)])
                 if mm == m:
                     data = g
+        control = None
+        if n > 1:
+            control = (world if backend == "gloo"
+                       else dist.new_group(list(range(n)), backend="gloo"))
         return cls(expert=expert, expert_rank=m, expert_size=expert_size,
-                   data=data, world=world, world_size=n)
+                   data=data, world=world, world_size=n, data_rank=d,
+                   backend=backend, control=control)
 
     @classmethod
     def single(cls, backend: str) -> "DepGroups":
@@ -132,6 +157,33 @@ class DepGroups:
             dist.init_process_group(backend, store=dist.HashStore(),
                                     world_size=1, rank=0, device_id=device)
         return cls.build(1, dist.get_world_size())
+
+    @classmethod
+    def from_file_store(cls, directory: str, rank: int, data_size: int,
+                        expert_size: int, backend: str) -> "DepGroups":
+        """This process as rank ``rank`` of a (``data_size`` x
+        ``expert_size``) layout: initializes the default process group
+        over a ``file://`` store in ``directory`` (made if missing; every
+        rank names the same one, fresh for each run; no TCP port is opened
+        for the store) and builds the groups.
+        ``backend`` is the caller's choice: "nccl" when each rank has a
+        card of its own (the current CUDA device), "gloo" on the CPU or
+        when ranks share a card."""
+        if backend not in ("nccl", "gloo"):
+            raise ValueError(f"backend {backend!r}: 'nccl' or 'gloo'")
+        n = data_size * expert_size
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if backend == "nccl" else None)
+        os.makedirs(directory, exist_ok=True)
+        dist.init_process_group(
+            backend, init_method=f"file://{os.path.abspath(directory)}/store",
+            rank=rank, world_size=n, device_id=device)
+        return cls.build(data_size, expert_size)
+
+    def expert_peer(self, m: int) -> int:
+        """The global rank of expert peer ``m`` of this rank's data
+        shard."""
+        return self.data_rank * self.expert_size + m
 
     def stream(self, device: torch.device) -> Optional[torch.cuda.Stream]:
         """The comm stream on a CUDA ``device``; None on the CPU."""
@@ -175,26 +227,92 @@ class DevicePlacement:
     hot_weights: Tuple[Optional[dict], ...]
 
     @classmethod
-    def build(cls, placement: Placement, layers,
-              device: torch.device) -> "DevicePlacement":
-        """``layers`` is the model's ``params["layers"]`` list."""
+    def build(cls, placement: Placement, layers, device: torch.device,
+              groups: Optional[DepGroups] = None) -> "DevicePlacement":
+        """``layers`` is the model's ``params["layers"]`` list, whose
+        stacked experts are already in ``placement``'s physical order:
+        every row on an expert group of one rank, this rank's
+        ``E_pad / mo`` rows of ``groups``' expert axis otherwise. A hot
+        expert's weights then come from the peer that owns its row, one
+        broadcast over the expert group per owner, tensor and layer
+        (every peer calls this, in the same order)."""
         perm = placement.perm
         expert_map = torch.tensor(perm, dtype=torch.long, device=device)
         hot_rows = None
         hot = [None] * len(layers)
         if placement.hot_experts:
-            hot_rows = torch.tensor([perm[e] for e in placement.replicated],
-                                    dtype=torch.long, device=device)
+            rows = [perm[e] for e in placement.replicated]
+            hot_rows = torch.tensor(rows, dtype=torch.long, device=device)
             for i, layer in enumerate(layers):
                 experts = layer.get("moe", {}).get("experts")
                 if experts is not None:
-                    hot[i] = {k: v.index_select(0, hot_rows)
+                    hot[i] = {k: _hot_rows(v, rows, groups)
                               for k, v in experts.items()}
         return cls(placement, expert_map, hot_rows, tuple(hot))
 
     def layer(self, index: int) -> LayerPlacement:
         return LayerPlacement(self.placement, self.expert_map,
                               self.hot_rows, self.hot_weights[index])
+
+
+def _hot_rows(stack: torch.Tensor, rows, groups: Optional[DepGroups]):
+    """The physical ``rows`` of a stacked expert tensor, [len(rows), ...]:
+    taken from ``stack`` itself on an expert group of one rank; else each
+    row from the peer that holds it (``stack`` being this rank's
+    ``E_loc`` rows), broadcast once per owning peer."""
+    if groups is None or groups.expert_size == 1:
+        return stack.index_select(
+            0, torch.tensor(rows, dtype=torch.long, device=stack.device))
+    E_loc = stack.shape[0]
+    out = stack.new_empty((len(rows),) + tuple(stack.shape[1:]))
+    for owner in sorted({r // E_loc for r in rows}):
+        mine = [j for j, r in enumerate(rows) if r // E_loc == owner]
+        buf = stack.new_empty((len(mine),) + tuple(stack.shape[1:]))
+        if owner == groups.expert_rank:
+            buf.copy_(stack[[rows[j] % E_loc for j in mine]])
+        dist.broadcast(buf, src=groups.expert_peer(owner),
+                       group=groups.expert)
+        out[mine] = buf
+    return out
+
+
+def permute_experts(layers, gather, groups: Optional[DepGroups],
+                    device: torch.device) -> None:
+    """Move every MoE layer's stacked expert rows in place so that
+    physical row ``p`` afterwards holds what row ``gather[p]`` held
+    (``gather`` over all ``E_pad`` rows). Each tensor keeps its storage
+    (``copy_`` / ``index_copy_``), so captured graphs keep their operands.
+    On an expert group of several ranks each rank holds rows
+    ``[m·E_loc, (m+1)·E_loc)``: it sends the rows that leave it and
+    receives the rows that arrive, one ``all_to_all_single`` over the
+    expert group per tensor (every peer calls this, in the same order)."""
+    mo = 1 if groups is None else groups.expert_size
+    E_loc = len(gather) // mo
+    me = 0 if groups is None else groups.expert_rank
+    send_rows, in_splits, out_splits, dst = [], [], [], []
+    for q in range(mo):               # what this rank sends to peer q
+        rows = [gather[p] - me * E_loc for p in range(q * E_loc,
+                                                      (q + 1) * E_loc)
+                if gather[p] // E_loc == me]
+        send_rows += rows
+        in_splits.append(len(rows))
+    for src in range(mo):             # what arrives from peer src
+        rows = [p - me * E_loc for p in range(me * E_loc, (me + 1) * E_loc)
+                if gather[p] // E_loc == src]
+        dst += rows
+        out_splits.append(len(rows))
+    send_idx = torch.tensor(send_rows, dtype=torch.long, device=device)
+    dst_idx = torch.tensor(dst, dtype=torch.long, device=device)
+    for layer in layers:
+        for t in layer.get("moe", {}).get("experts", {}).values():
+            flat = t.view(E_loc, -1)
+            moved = flat.index_select(0, send_idx)
+            if mo > 1:
+                recv = torch.empty_like(moved)
+                dist.all_to_all_single(recv, moved, out_splits, in_splits,
+                                       group=groups.expert)
+                moved = recv
+            flat.index_copy_(0, dst_idx, moved)
 
 
 class _Streams:
@@ -231,10 +349,53 @@ class _Streams:
 
 
 def seq_mode(seq_len: int, expert_size: int) -> bool:
-    """The reference's dispatch-mode rule for a global sequence length:
+    """The reference's dispatch-mode rule for a GLOBAL sequence length:
     sequence mode when the sequence splits evenly over the expert axis,
     replicated-token mode otherwise."""
     return seq_len % expert_size == 0 and seq_len >= expert_size
+
+
+def batch_split(batch: int, groups: DepGroups) -> bool:
+    """The reference's batch rule (``batch_pspec``): the data axes shard
+    a GLOBAL batch that divides over them; otherwise every data shard
+    holds the whole batch."""
+    dp = groups.world_size // groups.expert_size
+    return dp > 1 and batch % dp == 0
+
+
+def split_tokens(h: torch.Tensor, groups: DepGroups, sequence: bool,
+                 batch_sharded: bool) -> torch.Tensor:
+    """This rank's slice of a layer's global [B, S, M] tokens: its data
+    shard of the batch when ``batch_sharded``, and in sequence mode its
+    ``S / mo`` positions along the sequence."""
+    B, S, _ = h.shape
+    if batch_sharded:
+        Bl = B // (groups.world_size // groups.expert_size)
+        h = h[groups.data_rank * Bl:(groups.data_rank + 1) * Bl]
+    if sequence and groups.expert_size > 1:
+        Sl = S // groups.expert_size
+        h = h[:, groups.expert_rank * Sl:(groups.expert_rank + 1) * Sl]
+    return h
+
+
+def gather_tokens(y: torch.Tensor, groups: DepGroups, sequence: bool,
+                  batch_sharded: bool) -> torch.Tensor:
+    """The global [B, S, M] output from every rank's ``split_tokens``
+    slice [Bl, Sl, M]: one ``all_gather`` over the ranks that shard the
+    tokens (``_token_group``; nothing when no other rank holds other
+    tokens), whose (data, expert) rank order puts each slice back in
+    place."""
+    group = _token_group(groups, sequence, batch_sharded)
+    if group is None:
+        return y
+    n_d = groups.world_size // groups.expert_size if batch_sharded else 1
+    n_m = groups.expert_size if sequence else 1
+    y = y.contiguous()
+    parts = [torch.empty_like(y) for _ in range(n_d * n_m)]
+    dist.all_gather(parts, y, group=group)
+    Bl, Sl, M = y.shape
+    return torch.stack(parts).view(n_d, n_m, Bl, Sl, M).transpose(1, 2) \
+        .reshape(n_d * Bl, n_m * Sl, M)
 
 
 def as_exec_program(plan) -> tg.ExecProgram:
@@ -466,12 +627,12 @@ def _graph_replicated_experts(program: tg.ExecProgram, local_buf,
     return out, shared_out
 
 
-def _token_group(groups: DepGroups, sequence: bool):
+def _token_group(groups: DepGroups, sequence: bool, batch_sharded: bool):
     """The group over which this rank's tokens are one shard of the
-    layer's: the data axes (which shard the batch) and, in sequence
+    layer's: the data axes (when they shard the batch) and, in sequence
     mode, the expert axis; None when no other rank holds other tokens.
     The reference's ``psum`` over ``tok_axes``."""
-    over_data = groups.world_size > groups.expert_size
+    over_data = batch_sharded and groups.world_size > groups.expert_size
     over_expert = sequence and groups.expert_size > 1
     if over_data and over_expert:
         return groups.world
@@ -484,20 +645,23 @@ def moe_apply_dep(params, x, mcfg: MoEConfig, groups: DepGroups,
                   num_experts_padded: int = 0, plan=None, placement=None,
                   hot_weights=None, expert_map=None, hot_rows=None,
                   with_aux: bool = True, return_stats: bool = False,
-                  capacity_scale: float = 1.0):
+                  capacity_scale: float = 1.0, *, sequence: bool,
+                  batch_sharded: bool):
     """Schedule-driven MoE layer on one rank. ``x`` [Bl, Sl, M] is this
-    rank's tokens in the reference's layout: its data shard, and in
-    sequence mode its slice of the sequence over the expert axis.
+    rank's tokens in the reference's layout (``split_tokens``): its data
+    shard when ``batch_sharded`` (``batch_split`` of the global batch),
+    and in sequence mode its slice of the sequence over the expert axis.
     ``params["experts"]`` holds this rank's ``E_pad / mo`` experts; the
     router and ``params["shared"]`` are replicated. ``plan`` is an
     ``ExecProgram`` (see ``Plan.exec_program``), a ``TaskGraph``, a
     ``Plan`` or None (the unchunked r2=1 schedule).
 
-    The dispatch mode is ``seq_mode`` of x's own length: sequence mode
-    when it is a multiple of the expert group (so a caller that splits a
-    sequence over the group gives each peer such a slice; at a group of
-    one rank every call is), replicated decode when it is shorter (x then
-    holds every position, on every peer). ``placement`` (a
+    ``sequence`` is the dispatch mode, ``seq_mode`` of the layer's
+    GLOBAL sequence length, which the caller knows and ``x`` does not
+    (a global S = 4 at mo = 4 gives each peer one position: sequence
+    mode all the same). At a group of one rank every call is in sequence
+    mode; in replicated decode x holds every position, on every peer of
+    the expert group. ``placement`` (a
     ``Placement`` over the padded experts) re-homes each logical expert
     to the buffer row of ``placement.perm``; its replicated hot experts
     run the REP task on ``hot_weights`` ([n_hot, ...] in
@@ -515,7 +679,6 @@ def moe_apply_dep(params, x, mcfg: MoEConfig, groups: DepGroups,
     E_pad = num_experts_padded or mcfg.num_experts
     if E_pad % mo:
         raise ValueError(f"{E_pad} experts do not divide over {mo} ranks")
-    sequence = seq_mode(Sl, mo)
     program = as_exec_program(plan)
     if placement is not None and placement.is_uniform:
         placement = None        # the plain path IS this placement
@@ -547,7 +710,7 @@ def moe_apply_dep(params, x, mcfg: MoEConfig, groups: DepGroups,
                                 E_pad, expert_map=expert_map)
     stats = None
     if return_stats:
-        group = _token_group(groups, sequence)
+        group = _token_group(groups, sequence, batch_sharded)
         if group is not None:
             dist.all_reduce(info.load, group=group)
             dist.all_reduce(info.dropped, group=group)

@@ -37,17 +37,33 @@ Flags of the port's own:
   --dep            serve through the DEP executor on an expert group of
                    one rank (NCCL on a CUDA device, gloo on the CPU): the
                    counterpart of the reference engine's ``mesh=``
+  --ep-size N      serve DEP on N expert ranks (and --dp-size D data
+  --dp-size D      ranks): D·N rank processes, spawned, in lock step
+                   over a ``file://`` store in a temporary directory,
+                   each holding E/N experts; the reference engine on a
+                   (D, N) ("data", "model") mesh
+  --backend B      the ranks' backend, "nccl" (a card per rank) or
+                   "gloo" (the CPU, or ranks sharing a card; no decode
+                   graph); needed with --ep-size or --dp-size
   --max-context N  KV positions per slot (the reference's 256)
+
+Rank 0 prints the summary; the launcher checks that every rank served
+the same tokens.
 
 Run:  python -m repro_torch.launch.serve_moe --device cpu --requests 4
       python -m repro_torch.launch.serve_moe --full --dep \\
           --trace-out trace.json --metrics-out metrics.jsonl
+      python -m repro_torch.launch.serve_moe --device cpu --ep-size 2 \\
+          --backend gloo
 (with ``src`` on ``PYTHONPATH``).
 """
 from __future__ import annotations
 
 import argparse
+import multiprocessing
 import os
+import sys
+import tempfile
 import time
 from dataclasses import dataclass
 from typing import List, Optional
@@ -136,6 +152,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="serve through the DEP executor on an expert "
                          "group of one rank (NCCL on CUDA, gloo on the "
                          "CPU)")
+    ap.add_argument("--ep-size", type=int, default=1,
+                    help="expert ranks of the DEP group (one process each)")
+    ap.add_argument("--dp-size", type=int, default=1,
+                    help="data ranks of the DEP group (one process each)")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="process-group backend of a group of several "
+                         "ranks: nccl (a card per rank) or gloo (the CPU, "
+                         "or ranks sharing a card)")
     ap.add_argument("--max-context", type=int, default=256,
                     help="KV positions per slot")
     return ap
@@ -161,10 +185,11 @@ def make_requests(cfg, args) -> List[Request]:
     return reqs
 
 
-def build_engine(args, **overrides) -> ServingEngine:
-    """The engine ``args`` describe; ``overrides`` replace its keyword
-    arguments (e.g. ``params=``, ``tracer=None, metrics=False`` for an
-    untraced twin on the same weights)."""
+def build_engine(args, groups=None, **overrides) -> ServingEngine:
+    """The engine ``args`` describe; ``groups`` is a rank's ``DepGroups``
+    under --ep-size/--dp-size (``serve_rank``); ``overrides`` replace its
+    keyword arguments (e.g. ``params=``, ``tracer=None, metrics=False`` for
+    an untraced twin on the same weights)."""
     cfg = model_config(args)
     device = resolve_device(args.device)
     policy = None
@@ -172,8 +197,7 @@ def build_engine(args, **overrides) -> ServingEngine:
         planner = FinDEPPlanner(cfg, DepClusterConfig(8, 3, 5), PAPER_A6000,
                                 PlannerConfig(mem_cap_samples=8))
         policy = make_policy(args.policy, planner, static_seq_len=256)
-    groups = None
-    if args.dep:
+    if groups is None and args.dep:
         if device.type == "cuda":
             # a group of one rank needs no interface but the loopback
             os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
@@ -191,6 +215,9 @@ def build_engine(args, **overrides) -> ServingEngine:
               dtype=torch.bfloat16 if args.full else torch.float32,
               device=device, replicate_hot_k=args.replicate_hot_k,
               rebalance_threshold=args.rebalance_threshold)
+    if (groups is not None and groups.world_size > 1
+            and groups.backend == "gloo" and device.type == "cuda"):
+        kw["decode_graph"] = False     # gloo stages through host memory
     kw.update(overrides)
     return ServingEngine(cfg, **kw)
 
@@ -327,10 +354,89 @@ def report(args, served: Served) -> None:
         print(f"wrote metrics snapshot -> {args.metrics_out}")
 
 
-def main(argv=None) -> Served:
-    """Parse ``argv``, serve, print the summary, write the outputs, and
-    return what was served (the engine, the requests, the wall time)."""
+def rank_device(args, rank: int):
+    """Rank ``rank``'s device: the CPU under ``--device cpu``; else card
+    ``rank`` under nccl, and under gloo the cards in turn (ranks share a
+    card when there are more ranks than cards)."""
+    device = resolve_device(args.device)
+    if device.type == "cpu":
+        return device
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def serve_rank(argv, rank: int, store_dir: str, results) -> None:
+    """One rank process of ``serve_ranks``: joins the group over the
+    ``file://`` store in ``store_dir``, serves ``argv``'s requests in
+    lock step with the other ranks, prints the summary on rank 0, and
+    puts (rank, every request's tokens) on ``results``."""
     args = build_parser().parse_args(argv)
+    device = rank_device(args, rank)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        if args.backend == "nccl":
+            # ranks of one host need no interface but the loopback
+            os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    groups = DepGroups.from_file_store(store_dir, rank, args.dp_size,
+                                       args.ep_size, args.backend)
+    try:
+        eng = build_engine(args, groups=groups, device=device)
+        served = serve(args, eng)
+        if rank == 0:
+            print(f"ranks: {args.dp_size} data x {args.ep_size} expert over "
+                  f"{args.backend}, {eng.cfg.moe.num_experts // args.ep_size}"
+                  " experts a rank")
+            report(args, served)
+        results.put((rank, [r.output for r in served.requests]))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def serve_ranks(args, argv) -> List[List[int]]:
+    """Serve on ``args.dp_size`` x ``args.ep_size`` ranks: one spawned
+    process per rank (CUDA may already be initialized here), over a
+    ``file://`` store in a temporary directory. Raises when a rank
+    fails, when nccl has fewer cards than ranks, or when the ranks'
+    tokens differ; returns the requests' tokens."""
+    world = args.dp_size * args.ep_size
+    if args.backend is None:
+        raise ValueError("--ep-size/--dp-size need --backend nccl or gloo")
+    device = resolve_device(args.device)
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    if args.backend == "nccl" and cards < world:
+        raise ValueError(f"--backend nccl needs a card per rank: {world} "
+                         f"ranks, {cards} card(s); --backend gloo shares "
+                         "them")
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.SimpleQueue()
+    with tempfile.TemporaryDirectory(prefix="serve-moe-") as store_dir:
+        procs = [ctx.Process(target=serve_rank,
+                             args=(argv, r, store_dir, results))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join()
+        failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+        if failed:
+            raise RuntimeError(f"rank(s) {failed} of {world} failed")
+    tokens = dict(results.get() for _ in range(world))
+    differ = [r for r in range(world) if tokens[r] != tokens[0]]
+    if differ:
+        raise RuntimeError(f"ranks {differ} served other tokens than rank 0")
+    print(f"all {world} ranks served the same tokens")
+    return tokens[0]
+
+
+def main(argv=None) -> Optional[Served]:
+    """Parse ``argv``, serve, print the summary, write the outputs, and
+    return what was served (the engine, the requests, the wall time);
+    under --ep-size/--dp-size the ranks serve in processes of their own
+    and nothing is returned."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+    if args.ep_size * args.dp_size > 1:
+        serve_ranks(args, argv)
+        return None
     eng = build_engine(args)
     if eng.calibration is not None:
         res = eng.calibration

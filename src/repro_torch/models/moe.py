@@ -15,7 +15,7 @@ capacity path computes the same function with an einsum
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,16 +31,32 @@ from repro_torch.models.layers import (dense_apply, dense_init, mlp_apply,
 # ---------------------------------------------------------------------------
 
 def moe_init(gen, d_model: int, mcfg: MoEConfig, num_experts_padded: int = 0,
-             dtype=torch.float32):
+             dtype=torch.float32,
+             expert_shard: Optional[Tuple[int, int]] = None):
+    """The layer's parameters. ``expert_shard`` = (rank, mo) keeps rows
+    ``[rank·E/mo, (rank+1)·E/mo)`` of each stacked expert tensor (a copy;
+    the whole stack is drawn first, so the generator advances as for the
+    whole layer)."""
     E = num_experts_padded or mcfg.num_experts
     H = mcfg.expert_ffn_dim
     scale = 1.0 / math.sqrt(d_model)
+
+    def stack(shape, s):
+        t = normal(gen, shape, s, dtype)
+        if expert_shard is None:
+            return t
+        rank, mo = expert_shard
+        if E % mo:
+            raise ValueError(f"{E} experts do not divide over {mo} ranks")
+        E_loc = E // mo
+        return t[rank * E_loc:(rank + 1) * E_loc].clone()
+
     params = {
         "router": dense_init(gen, d_model, E, scale=scale, dtype=dtype),
         "experts": {
-            "gate": normal(gen, (E, d_model, H), scale, dtype),
-            "up": normal(gen, (E, d_model, H), scale, dtype),
-            "down": normal(gen, (E, H, d_model), 1.0 / math.sqrt(H), dtype),
+            "gate": stack((E, d_model, H), scale),
+            "up": stack((E, d_model, H), scale),
+            "down": stack((E, H, d_model), 1.0 / math.sqrt(H)),
         },
     }
     if mcfg.num_shared_experts > 0:

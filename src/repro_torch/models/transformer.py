@@ -21,7 +21,11 @@ MoE layers dispatch through ``moe_impl``: "dense" (exact all-experts
 oracle), "capacity" (GShard capacity dispatch, one device) or "dep" (the
 FinDEP-scheduled expert-parallel walk of ``repro_torch.core.dep`` over the
 context's ``DepGroups``; the schedule, an ``ExecProgram``, is passed per
-call as ``plan=``).
+call as ``plan=``). On an expert group of several ranks each rank holds
+its share of the experts (``Model.init(expert_shard=)``) and everything
+else whole: a DEP layer takes the rank's slice of the tokens (its data
+shard, and in sequence mode its part of the sequence) and gathers every
+rank's output back, so each rank computes the same residual stream.
 """
 from __future__ import annotations
 
@@ -86,7 +90,8 @@ def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
                  for i in range(cfg.num_layers))
 
 
-def init_layer(gen, cfg: ModelConfig, kind: str, dtype=torch.float32):
+def init_layer(gen, cfg: ModelConfig, kind: str, dtype=torch.float32,
+               expert_shard: Optional[Tuple[int, int]] = None):
     if kind in ("mlstm", "slstm"):
         init = ssm_lib.mlstm_init if kind == "mlstm" else ssm_lib.slstm_init
         return {"ln1": rmsnorm_init(cfg.d_model, gen.device, dtype),
@@ -101,7 +106,8 @@ def init_layer(gen, cfg: ModelConfig, kind: str, dtype=torch.float32):
     if kind in ("attn_mlp", "attn", "rec"):
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.ffn_dim, dtype)
     elif kind == "attn_moe":
-        p["moe"] = moe_lib.moe_init(gen, cfg.d_model, cfg.moe, dtype=dtype)
+        p["moe"] = moe_lib.moe_init(gen, cfg.d_model, cfg.moe, dtype=dtype,
+                                    expert_shard=expert_shard)
     else:
         raise ValueError(kind)
     return p
@@ -139,19 +145,23 @@ def _apply_moe(p, cfg: ModelConfig, h, ctx: ExecutionContext, plan=None,
     if ctx.moe_impl == "capacity":
         return moe_lib.moe_apply_capacity(p["moe"], h, cfg.moe,
                                           return_stats=collect_stats)
+    # the reference's shard_map in- and out-specs by hand: this rank's
+    # slice of the tokens in, every rank's slices gathered back out, so
+    # the residual stream (attention, router input, readout) stays whole
+    # and replicated on every rank
     from repro_torch.core import dep as dep_lib
-    if ctx.groups.expert_size > 1 and dep_lib.seq_mode(h.shape[1],
-                                                      ctx.groups.expert_size):
-        raise NotImplementedError(
-            "the model does not split a sequence over the expert axis: its "
-            "DEP layers run on an expert group of one rank, or in "
-            "replicated-token decode")
+    groups = ctx.groups
+    B, S, _ = h.shape
+    split = dict(sequence=dep_lib.seq_mode(S, groups.expert_size),
+                 batch_sharded=dep_lib.batch_split(B, groups))
     out = dep_lib.moe_apply_dep(
-        p["moe"], h, cfg.moe, ctx.groups, plan=plan, with_aux=False,
-        return_stats=collect_stats, capacity_scale=capacity_scale,
+        p["moe"], dep_lib.split_tokens(h, groups, **split), cfg.moe, groups,
+        plan=plan, with_aux=False, return_stats=collect_stats,
+        capacity_scale=capacity_scale, **split,
         **(placement._asdict() if placement is not None else {}))
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
-    return (out[0], zero) + tuple(out[2:])
+    y = dep_lib.gather_tokens(out[0], groups, **split)
+    return (y, zero) + tuple(out[2:])
 
 
 def apply_layer(p, cfg: ModelConfig, kind: str, x, positions, cache,
@@ -244,11 +254,17 @@ class Model:
         self.kinds = layer_kinds(cfg)
 
     # ---- init -----------------------------------------------------------
-    def init(self, generator: torch.Generator) -> Dict[str, Any]:
+    def init(self, generator: torch.Generator,
+             expert_shard: Optional[Tuple[int, int]] = None
+             ) -> Dict[str, Any]:
         """Random parameters drawn from ``generator`` (which must live on
         the model's device) with the reference's distributions: N(0,
         1/in_dim) dense kernels, zero biases, unit norm scales. Stored in
-        the compute dtype."""
+        the compute dtype. ``expert_shard`` = (rank, mo) keeps only expert
+        rank ``rank``'s ``E / mo`` rows of every MoE layer's stacked
+        experts: the draws are the whole model's, in the same order, so
+        the kept rows equal the one-rank model's, and each layer's other
+        rows are dropped before the next layer is drawn."""
         if torch.device(generator.device).type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}")
@@ -262,7 +278,8 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(generator, cfg.d_model,
                                            cfg.vocab_size, dtype=dt)
-        params["layers"] = [init_layer(generator, cfg, kind, dt)
+        params["layers"] = [init_layer(generator, cfg, kind, dt,
+                                       expert_shard)
                             for kind in self.kinds]
         return params
 

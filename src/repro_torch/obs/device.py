@@ -43,9 +43,10 @@ from repro_torch.obs.trace import Span, TraceRecorder, use_tracer
 _PROXY_CF = 8.0
 
 #: cycles of the spin kernel that holds the compute stream while the host
-#: enqueues a traced walk: about 20 ms on an H100, several times the host
-#: time of a full-width layer's walk
-_HOLD_CYCLES = 40_000_000
+#: enqueues a traced walk: about 0.5 s on an H100 at 1.98 GHz. A 20 ms hold
+#: was too short on a loaded host: the card caught up with a full-width
+#: layer's walk (the forced r1 = 2 x r2 = 4 program) before it was enqueued
+_HOLD_CYCLES = 1_000_000_000
 
 
 def device_mesh(min_devices: int = 2):
@@ -75,6 +76,8 @@ class DeviceTrace:
     # on a CUDA device: whether the card was still held when the host had
     # enqueued the whole walk (None on the CPU)
     host_ahead: Optional[bool] = None
+    # host seconds from the tracer's start to the walk's last enqueue
+    enqueue_s: float = 0.0
 
 
 def trace_dep_execution(program, groups, *, mode: str = "sequence",
@@ -95,7 +98,7 @@ def trace_dep_execution(program, groups, *, mode: str = "sequence",
     rank's layer: its experts, the router and shared experts) with its
     ``mcfg``, and ``x``, trace a given layer instead, e.g. a full-width
     one on the card. ``device=None`` means the card."""
-    from repro_torch.core.dep import moe_apply_dep
+    from repro_torch.core.dep import moe_apply_dep, seq_mode
     from repro_torch.models.moe import moe_init
 
     if mode not in ("sequence", "replicated"):
@@ -125,8 +128,13 @@ def trace_dep_execution(program, groups, *, mode: str = "sequence",
         E_pad = params["experts"]["gate"].shape[0] * mo
 
     def call():
-        out, _ = moe_apply_dep(params, x, mcfg, groups, E_pad, plan=program,
-                               with_aux=False)
+        # x is this rank's slice of a global batch over the data axes,
+        # and in "sequence" mode of a global sequence over the expert axis
+        out, _ = moe_apply_dep(
+            params, x, mcfg, groups, E_pad, plan=program, with_aux=False,
+            sequence=seq_mode(x.shape[1] * (mo if mode == "sequence" else 1),
+                              mo),
+            batch_sharded=groups.world_size > mo)
         return out
 
     def untraced():
@@ -141,6 +149,7 @@ def trace_dep_execution(program, groups, *, mode: str = "sequence",
     t0 = rec.clock()
     with use_tracer(rec):
         out = call()
+    enqueue_s = rec.clock() - t0
     host_ahead = None
     if rec.device:
         host_ahead = not rec.base_reached()
@@ -149,4 +158,5 @@ def trace_dep_execution(program, groups, *, mode: str = "sequence",
         spans = rec.task_spans(emitted=True)
     wall = rec.clock() - t0
     return DeviceTrace(spans=spans, out=out, recorder=rec, wall_s=wall,
-                       untraced=untraced, host_ahead=host_ahead)
+                       untraced=untraced, host_ahead=host_ahead,
+                       enqueue_s=enqueue_s)

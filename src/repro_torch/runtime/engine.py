@@ -27,11 +27,23 @@ behind a ``PlanCache`` (``plan_policy=``), the paper's online phase: every
 prefill group resolves a plan for its (bucket, batch) shape and every
 decode step one for the KV ledger's ``OccupancySummary``. The plans are
 always resolved (``resolved_plans()``), but reach the model only when
-the DEP executor runs: ``ep_group=`` (a ``core.dep.DepGroups`` of one
-rank) turns the MoE layers into the DEP walk of each plan's
-``ExecProgram``, which also keys the decode graph; without it the MoE
-layers run the capacity path. An expert group of several ranks (sharded
-weights, one process per card) is not served yet and raises.
+the DEP executor runs: ``ep_group=`` (a ``core.dep.DepGroups``) turns the
+MoE layers into the DEP walk of each plan's ``ExecProgram``, which also
+keys the decode graph; without it the MoE layers run the capacity path.
+
+On a group of several ranks (the reference engine on a ("data",
+"model") mesh) there is one engine process per rank: each holds its
+``E_pad / mo`` experts (drawn by ``Model.init(expert_shard=)``, or
+given as its shard of the weights) and everything else whole, and every
+rank submits the same requests. The ranks step in lock step
+(``runtime/lockstep.py``): rank 0 decides each model call's program,
+prefill chunk and capacity scale, the placement to install and the
+sampled tokens, and the others follow its headers; every rank admits on
+its own and raises when rank 0 admitted otherwise. A new placement moves
+expert rows between the ranks. Calibration and re-calibration are
+refused on such a group (``profile=`` is rank 0's, broadcast), and so is
+the decode graph over gloo, which stages collectives through host
+memory.
 
 The measured cost models (``repro_torch.profiling``) close the loop as
 in the reference: ``calibrate=True`` measures the microbenchmarks on the
@@ -88,7 +100,8 @@ import torch
 
 from repro_torch import DeviceLike, generator_for, resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.dep import DevicePlacement, as_exec_program
+from repro_torch.core.dep import (DevicePlacement, as_exec_program,
+                                  permute_experts)
 from repro_torch.core.perf_model import HardwareProfile, get_profile
 from repro_torch.core.solver import Plan
 from repro_torch.core.taskgraph import ATTN, LoweringSpec, lower
@@ -107,6 +120,7 @@ from repro_torch.runtime.decode_graph import (CudaGraph, DecodeGraphs,
                                               GraphKey, StagedBuffer,
                                               bind_step, capture_stream)
 from repro_torch.runtime.kv import KVCacheManager
+from repro_torch.runtime.lockstep import LockStep
 from repro_torch.runtime.paging import PagedKVCacheManager
 from repro_torch.runtime.request import Request, RequestState
 from repro_torch.sched import PlanCache, SchedulePolicy
@@ -117,6 +131,20 @@ def _calibrate_off_graphs(lock: threading.Lock, stream, name: str, **kw):
     on ``stream`` (None: the current one), holding ``lock``."""
     with lock, torch.cuda.stream(stream):
         return run_calibration(name=name, fast=True, **kw)
+
+
+def _check_shard(params, cfg: ModelConfig, mo: int) -> None:
+    """Given weights on an expert group of ``mo`` ranks must be this
+    rank's share: ``E / mo`` rows in every MoE layer's stacked experts."""
+    for i, layer in enumerate(params["layers"]):
+        experts = layer.get("moe", {}).get("experts")
+        if experts is None:
+            continue
+        rows = next(iter(experts.values())).shape[0]
+        if rows * mo != cfg.moe.num_experts:
+            raise ValueError(
+                f"layer {i} holds {rows} experts; a rank of {mo} holds "
+                f"{cfg.moe.num_experts // mo} (bridge.shard_experts)")
 
 
 def prefill_split(plan: Optional[Plan], n: int) -> Tuple[int, int]:
@@ -215,8 +243,13 @@ class ServingEngine:
     ``plan_policy`` is any ``SchedulePolicy`` (a ``PlanCache`` of
     ``plan_cache_capacity`` entries memoizes it); ``ep_group`` the
     ``DepGroups`` of the DEP executor, None for no DEP (the reference's
-    ``mesh=None``). The group must be of one rank (``expert_size`` 1):
-    the engine holds every expert's weights, so a wider group raises. ``interleave`` is the DEP walk's emission, "streams"
+    ``mesh=None``). On a group of several ranks this engine is one rank
+    of a lock-stepped set (module docstring): ``params``, if given, hold
+    this rank's ``E_pad / mo`` experts per MoE layer
+    (``bridge.shard_experts``); ``calibrate``, ``recalibrate_max_age_s``
+    and ``drift_recalibrate`` with a ``drift_threshold`` raise; and a
+    gloo group needs ``decode_graph=False`` on a CUDA device.
+    ``interleave`` is the DEP walk's emission, "streams"
     (scheduled start order) or "off" (stream after stream): the same
     values either way. ``validate`` runs ``analysis.graphcheck`` on every
     distinct program before it is used.
@@ -302,11 +335,25 @@ class ServingEngine:
                     f"decoder (family={cfg.family!r}, "
                     f"attention={cfg.attention!r}, "
                     f"mla={cfg.mla_kv_lora_rank})")
-        if ep_group is not None and ep_group.expert_size > 1:
+        wide = ep_group is not None and ep_group.world_size > 1
+        if wide and (calibrate or recalibrate_max_age_s is not None
+                     or (drift_threshold is not None and drift_recalibrate)):
             raise NotImplementedError(
-                f"an expert group of {ep_group.expert_size} ranks: the "
-                "engine serves DEP at an expert group of one rank only "
-                "(sharded serving is ROADMAP Queue 1 item 11)")
+                f"calibration on a group of {ep_group.world_size} ranks "
+                "(calibrate=True, recalibrate_max_age_s, or a "
+                "drift_threshold with drift_recalibrate): its collectives "
+                "would run on the refresh worker beside the serving ones; "
+                "not ported (ROADMAP Queue 1 item 11). Pass profile= "
+                "(rank 0's is broadcast) and drift_recalibrate=False")
+        if wide and self.decode_graph and ep_group.backend != "nccl":
+            raise ValueError(
+                f"decode_graph on a {ep_group.backend} group of "
+                f"{ep_group.world_size} ranks: its collectives stage "
+                "through host memory and cannot be captured; pass "
+                "decode_graph=False")
+        # rank 0's decisions on every rank (nothing is sent at one rank)
+        self._lockstep = LockStep(ep_group if wide else None, num_slots + 1)
+        self._groups = ep_group
         self.plan_policy = plan_policy
         self.plan_cache = (PlanCache(plan_policy,
                                      capacity=plan_cache_capacity)
@@ -373,8 +420,15 @@ class ServingEngine:
             groups=ep_group if self._dep_active else None)
         self.model = build_model(cfg, ctx=ctx, dtype=dtype,
                                  device=self.device)
-        self.params = params if params is not None else self.model.init(
-            generator_for(self.device, seed))
+        shard = None
+        if self._dep_active and ep_group.expert_size > 1:
+            shard = (ep_group.expert_rank, ep_group.expert_size)
+        if params is None:
+            params = self.model.init(generator_for(self.device, seed),
+                                     expert_shard=shard)
+        elif shard is not None:
+            _check_shard(params, cfg, ep_group.expert_size)
+        self.params = params
         self._init_placement(replicate_hot_k, rebalance_threshold,
                              track_expert_load, rebalance_min_observations,
                              max_capacity_scale, ep_group)
@@ -632,12 +686,15 @@ class ServingEngine:
                 store.put_calibration(result, key, name=name)
         elif isinstance(profile, HardwareProfile):
             hw = profile
+        elif not self._lockstep.lead:
+            hw = None                   # rank 0's, below
         else:
             try:
                 hw = (store.load_profile(profile) if store is not None
                       else get_profile(profile))
             except KeyError:
                 hw = get_profile(profile)
+        hw = self._lockstep.follow_object(hw)
         reprofile = getattr(self.plan_policy, "reprofile", None)
         if callable(reprofile):
             reprofile(hw)
@@ -765,7 +822,8 @@ class ServingEngine:
 
     def _solve_placement(self) -> None:
         """Refresh-worker job: greedy re-placement against the tracked
-        loads, staged for ``step()`` to install between steps."""
+        loads (already summed over the ranks), staged for ``step()`` to
+        install between steps. Only rank 0 solves."""
         epoch = (self.placement.epoch if self.placement else 0) + 1
         self._pending_placement = rebalance(
             self.load_tracker.aggregate(), self._ep_ranks,
@@ -775,7 +833,7 @@ class ServingEngine:
         """Schedule a background re-placement when the active layout's
         rank imbalance breaches ``rebalance_threshold``: one episode in
         flight, never blocking a step."""
-        if (not self._placement_enabled
+        if (not self._placement_enabled or not self._lockstep.lead
                 or self.rebalance_threshold is None
                 or self._pending_placement is not None):
             return False
@@ -787,14 +845,22 @@ class ServingEngine:
         return self._placement_refresher.request_job(
             self._PLACEMENT_KEY, self._solve_placement)
 
-    def rebalance_now(self) -> Optional[Placement]:
-        """Synchronous re-placement: solve against the tracked loads and
-        install the result now."""
+    def rebalance_now(self, placement: Optional[Placement] = None
+                      ) -> Optional[Placement]:
+        """Synchronous re-placement: solve against the tracked loads (or
+        take ``placement``, a layout of this engine's experts over its
+        expert ranks) and install the result now. On a group of several
+        ranks every rank calls this at the same point; rank 0's solve (or
+        ``placement``) is the one installed."""
         if not self._placement_enabled:
             return None
-        self._solve_placement()
-        pending, self._pending_placement = self._pending_placement, None
-        self._apply_placement(pending)
+        pending = None
+        if self._lockstep.lead:
+            if placement is None:
+                self._solve_placement()
+                placement = self._pending_placement
+            pending, self._pending_placement = placement, None
+        self._apply_placement(self._lockstep.follow_placement(pending))
         return self.placement
 
     def _apply_placement(self, new: Placement) -> None:
@@ -802,9 +868,11 @@ class ServingEngine:
         calibration runs meanwhile): permute every MoE layer's stacked
         expert weights in place so that physical row ``new.perm[e]`` holds
         logical expert ``e`` (no weight tensor moves, so every captured
-        graph's operands stay valid), build the placement's device
-        tensors once, release the graphs of an older placement's tensors,
-        and invalidate plan-cache entries of older epochs."""
+        graph's operands stay valid; on several expert ranks the rows
+        that change rank move over the expert group), build the
+        placement's device tensors once, release the graphs of an older
+        placement's tensors, and invalidate plan-cache entries of older
+        epochs."""
         old = self.placement if self.placement is not None else \
             Placement.uniform(new.num_experts, new.num_ranks)
         # new_phys[p] = logical[inv_new[p]] = old_phys[old.perm[inv_new[p]]]
@@ -812,15 +880,12 @@ class ServingEngine:
         gather = [old.perm[p] for p in inv_new]
         with self._device_lock:
             if gather != list(range(new.num_experts)):
-                idx = torch.tensor(gather, dtype=torch.long,
-                                   device=self.device)
-                for layer in self.params["layers"]:
-                    for t in layer.get("moe", {}).get("experts", {}).values():
-                        t.copy_(t.index_select(0, idx))
+                permute_experts(self.params["layers"], gather, self._groups,
+                                self.device)
             stale = self._device_placement
             self.placement = new
             self._device_placement = DevicePlacement.build(
-                new, self.params["layers"], self.device)
+                new, self.params["layers"], self.device, self._groups)
             if self._graphs is not None and stale is not None:
                 self._graphs.drop([k for k in self._graphs.graphs
                                    if k.placement is stale])
@@ -894,11 +959,12 @@ class ServingEngine:
         if skew is not None:
             plan_key = plan_key + (skew,)
         chunk, n_mb = prefill_split(plan, len(group.requests))
-        program = self._exec_program(plan, streams=n_mb)
+        program, chunk, cap = self._lockstep.follow_call(
+            self._exec_program(plan, streams=n_mb), chunk,
+            self._capacity_scale(skew))
         moe_kw = {}
         if self._track_load:
-            moe_kw = dict(return_moe_stats=True,
-                          capacity_scale=self._capacity_scale(skew),
+            moe_kw = dict(return_moe_stats=True, capacity_scale=cap,
                           placement=self._device_placement)
         for ofs in range(0, len(group.requests), chunk):
             reqs = group.requests[ofs:ofs + chunk]
@@ -974,6 +1040,13 @@ class ServingEngine:
         step_plan = self.scheduler.build_step(
             self.waiting, self.kv, max_context=self.max_context,
             exact_length=self._exact_length)
+        if self._lockstep.active:
+            admitted = [r.request_id for g in step_plan.prefills
+                        for r in g.requests]
+            self._lockstep.agree(
+                "admitted and rejected request ids",
+                [len(admitted)] + admitted
+                + [r.request_id for r in step_plan.rejected])
         now = time.perf_counter()
         for req in step_plan.rejected:
             self._finish(req, RequestState.REJECTED, now)
@@ -981,15 +1054,16 @@ class ServingEngine:
             self._prefill_group(group)
         return step_plan
 
-    def _decode_step(self, lengths, use_topk: bool,
-                     program=None) -> torch.Tensor:
+    def _decode_step(self, lengths, use_topk: bool, program=None,
+                     cap_scale: float = 1.0) -> torch.Tensor:
         """Copy this step's per-slot ``lengths`` (the KV ledger's, which
         drive the attention mask and the ragged kernel's loop bound) and,
         under paged KV, a changed block table into the static buffers, then
         replay the key's graph or run the step eagerly. ``program`` is the
-        step's DEP program; the placement and the capacity scale are the
-        engine's at this step. Returns the next tokens [N]; they are also
-        in ``last_tokens``, the logits in ``last_logits`` and, with
+        step's DEP program and ``cap_scale`` its dispatch capacity scale;
+        the placement is the engine's at this step. Returns the next
+        tokens [N]; they are also in ``last_tokens``, the logits in
+        ``last_logits`` and, with
         expert-load tracking, the MoE statistics' host copy in
         ``last_moe_stats`` (started here, complete once the caller has
         read the tokens)."""
@@ -998,8 +1072,7 @@ class ServingEngine:
             self.kv.table_array()      # copies the table if it changed
         key = GraphKey(use_topk, program,
                        self._device_placement if self._dep_active else None,
-                       self._capacity_scale(self._current_skew()),
-                       self._track_load)
+                       cap_scale, self._track_load)
         if self._graphs is None:
             out = self._step(key)
         else:
@@ -1009,6 +1082,17 @@ class ServingEngine:
         nxt, self.last_logits, *stats = out
         self.last_moe_stats = self._read_stats(stats[0]) if stats else None
         return nxt
+
+    def _follow_tokens(self, toks: List[int]) -> List[int]:
+        """Rank 0's sampled tokens on every rank, written into the token
+        buffer where this rank's differ (sampling at a temperature need
+        not give every process the same draw)."""
+        if not self._lockstep.active:
+            return toks
+        got = self._lockstep.follow(toks)
+        if got != toks:
+            self.last_tokens[:, 0].copy_(torch.tensor(got))
+        return got
 
     # ------------------------------------------------------------------
     # paged-KV capacity management
@@ -1084,10 +1168,15 @@ class ServingEngine:
                 # capacity actions (preempt/cap) happened; not idle
                 return True
         self.stats.ensure_started()
-        # a placement staged by the refresh worker lands between steps,
-        # before this step's plan is resolved: its epoch keys the program
-        if self._pending_placement is not None:
+        # a placement staged by the refresh worker (rank 0's) lands
+        # between steps, before this step's plan is resolved: its epoch
+        # keys the program
+        pending = None
+        if self._lockstep.lead:
             pending, self._pending_placement = self._pending_placement, None
+        if self._placement_enabled:
+            pending = self._lockstep.follow_placement(pending)
+        if pending is not None:
             self._apply_placement(pending)
         # the decode plan is solved on the ledger's live composition and
         # the routing skew, and re-resolved only when either changes
@@ -1095,7 +1184,8 @@ class ServingEngine:
         skew = self._current_skew()
         plan = self._resolve_plan("decode", occupancy=occ, skew=skew)
         plan_key = ("decode", occ) if skew is None else ("decode", occ, skew)
-        program = self._exec_program(plan)
+        program, _, cap = self._lockstep.follow_call(
+            self._exec_program(plan), 0, self._capacity_scale(skew))
         if program is not None:
             self.stats.programs.append(("decode", program))
         use_topk = any(r is not None and r.top_k > 0 for r in self.slots)
@@ -1103,8 +1193,9 @@ class ServingEngine:
         with self._phase("decode_step", step=self.stats.steps,
                          live=len(live)):
             # dead slots decode as length 0
-            nxt = self._decode_step(self.kv.lengths(), use_topk, program)
-            toks = nxt.tolist()                # waits for the device
+            nxt = self._decode_step(self.kv.lengths(), use_topk, program,
+                                    cap)
+            toks = self._follow_tokens(nxt.tolist())  # waits for the device
         dt = time.perf_counter() - t0
         self.stats.decode_s += dt
         # the observe edge of the profiling loop: a sustained residual

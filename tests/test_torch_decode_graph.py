@@ -120,7 +120,7 @@ class _FunctionalEngine(ServingEngine):
     lengths and table tensors every step, and the new caches and tokens
     rebound after it."""
 
-    def _decode_step(self, lengths, use_topk, program=None):
+    def _decode_step(self, lengths, use_topk, program=None, cap_scale=1.0):
         table = (torch.from_numpy(self.kv._tables.copy()) if self._paged
                  else None)
         logits, caches = self.model.decode_step(

@@ -164,8 +164,15 @@ xs = {"seq": torch.from_numpy(inputs["xs"])[2 * dd:2 * dd + 2,
       "dec": torch.from_numpy(inputs["xd"])[2 * dd:2 * dd + 2]}
 
 
-def run(p, x, prog, **kw):
-    return dep.moe_apply_dep(p, x, mcfg, groups, 4, plan=prog, **kw)
+#: the global sequence (8 positions) splits over the 2 expert ranks; the
+#: decode position does not; the batch of 4 splits over the 2 data ranks
+SPLIT = {"seq": dict(sequence=True, batch_sharded=True),
+         "dec": dict(sequence=False, batch_sharded=True)}
+
+
+def run(p, x, prog, mode, **kw):
+    return dep.moe_apply_dep(p, x, mcfg, groups, 4, plan=prog, **SPLIT[mode],
+                             **kw)
 
 
 out = {}
@@ -173,7 +180,7 @@ for case in CASES:
     mode, order, r1, r2 = case
     graph = lower_exec(r2, order, 3, r1=r1)
     for il in ("off", "streams"):
-        y, aux = run(local, xs[mode], ExecProgram(graph, il))
+        y, aux = run(local, xs[mode], ExecProgram(graph, il), mode)
         out[key(case, il)] = y
     out[key(case, "aux")] = aux
 for hot in (0, 1):
@@ -186,21 +193,22 @@ for hot in (0, 1):
                                    torch.device("cpu")).layer(0)
     prog = ExecProgram(lower_exec(2, "ASAS", 1, hot_experts=hot, r1=2),
                        "streams")
-    out[f"placed-{hot}"] = run(placed, xs["seq"], prog, **lp._asdict())[0]
+    out[f"placed-{hot}"] = run(placed, xs["seq"], prog, "seq",
+                               **lp._asdict())[0]
 tight = dataclasses.replace(mcfg, capacity_factor=float(inputs["stats_cf"]))
 for mode, x in xs.items():
     y, _, st = dep.moe_apply_dep(
         local, x, tight, groups, 4,
         plan=ExecProgram(lower_exec(2 if mode == "seq" else 1, "ASAS", 1),
                          "off"), return_stats=True,
-        capacity_scale=float(inputs["stats_scale"]))
+        capacity_scale=float(inputs["stats_scale"]), **SPLIT[mode])
     out[f"stats-{mode}"], out[f"stats-{mode}-load"] = y, st.load
     out[f"stats-{mode}-dropped"] = st.dropped
 # the control: the A2E receive permute left transposed
 dep._a2e_layout = lambda recv: recv.reshape(
     recv.shape[1], recv.shape[0] * recv.shape[2], recv.shape[3])
 out["control"] = run(local, xs["seq"],
-                     ExecProgram(lower_exec(1, "AASS", 1), "off"))[0]
+                     ExecProgram(lower_exec(1, "AASS", 1), "off"), "seq")[0]
 np.savez(f"{d}/rank{rank}.npz", **{k: v.numpy() for k, v in out.items()})
 dist.destroy_process_group()
 """

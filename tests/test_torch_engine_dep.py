@@ -208,13 +208,14 @@ def test_new_program_mid_serve_is_captured_without_eager_run(group,
 
 
 def test_expert_group_of_several_ranks_is_refused():
-    """The engine holds every expert's weights, so it serves DEP at an
-    expert group of one rank only: a wider group raises at construction,
-    before any weight is made."""
+    """An expert group of several ranks is served, but not calibrated:
+    ``calibrate=True`` on a wider group would run the microbenchmarks'
+    collectives beside the serving ones, so it raises at construction,
+    before any collective is issued or any weight is made."""
     wide = DepGroups(expert=None, expert_rank=0, expert_size=2, data=None,
                      world=None, world_size=2)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        _engine(None, ep_group=wide)
+        _engine(None, ep_group=wide, calibrate=True)
 
 
 def test_validate_rejects_tampered_hints(monkeypatch):

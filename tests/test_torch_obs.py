@@ -52,6 +52,9 @@ ARCH = "qwen2-moe-a2.7b"
 #: one by one
 REQS = ((5, 4), (20, 6), (45, 3), (40, 8))
 MEM_CAP = 2
+#: ``moe_apply_dep``'s token split on a group of one rank: sequence mode
+#: at every length, no data axis
+ONE_RANK = dict(sequence=True, batch_sharded=False)
 
 
 @pytest.fixture(scope="module")
@@ -434,9 +437,9 @@ def test_dep_walk_task_spans_match_reference(group, layer, r1, r2,
     rec = tobs.TraceRecorder()
     with tobs.use_tracer(rec):
         ty, _ = tdep.moe_apply_dep(tp, torch.from_numpy(x), tm, group, E,
-                                   plan=prog)
+                                   plan=prog, **ONE_RANK)
     off, _ = tdep.moe_apply_dep(tp, torch.from_numpy(x), tm, group, E,
-                                plan=prog)
+                                plan=prog, **ONE_RANK)
     got = [_coords(s) for s in rec.task_spans(emitted=True)]
     assert got == [_coords(s) for s in jrec.task_spans(emitted=True)]
     assert [k[0] for k in got] == [t.kind for t in prog.walk()

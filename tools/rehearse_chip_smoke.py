@@ -3,12 +3,14 @@
 smoke size.
 
 The calibrate, serve, paged, pressure, dep, drift, placement, obs, mla,
-qwen3, xlstm and hybrid phases run as on the card, with the smoke configs
+qwen3, ep, xlstm and hybrid phases run as on the card, with the smoke configs
 in place of the full ones (the obs phase's entry point too; the qwen3
 path's smoke config at its 8 layers), every engine on the CPU, the
 calibration on the CPU at f32 over the reference's sweeps (the plain
-versions in place of the kernels), and the dep, placement and obs phases'
-expert group on gloo (one rank). An engine
+versions in place of the kernels), the dep, placement and obs phases'
+expert group on gloo (one rank), and the ep phase's two ranks as two
+spawned CPU processes over gloo, each patched as this process is
+(``patch``), its off-by-one-expert control included. An engine
 that would capture its decode step gets ``EagerGraph``,
 a stand-in for ``decode_graph.CudaGraph`` whose replay runs the captured
 step again and copies its outputs into the captured ones, so that the
@@ -101,7 +103,9 @@ def counting(module, name):
     return wrapper
 
 
-def main() -> int:
+def patch() -> None:
+    """Point chip_smoke at the CPU and the smoke configs (also run first
+    in each of the ep phase's spawned ranks)."""
     torch.manual_seed(0)
     for module, name in ((dec_ops, "decode_attention"),
                          (dec_ops, "decode_attention_paged"),
@@ -128,7 +132,12 @@ def main() -> int:
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
     torch.cuda.max_memory_reserved = lambda *a, **k: 0
     chip_smoke.CAL_DEVICE = chip_smoke.OBS_DEVICE = "cpu"
-    chip_smoke.CAL_DTYPE = torch.float32
+    chip_smoke.EP_DEVICE = "cpu"
+    chip_smoke.CAL_DTYPE = chip_smoke.EP_DTYPE = torch.float32
+
+
+def main() -> int:
+    patch()
     t0 = time.perf_counter()
     os.makedirs(os.path.join(ROOT, ".repro-profiles"), exist_ok=True)
     with tempfile.TemporaryDirectory(
@@ -141,6 +150,7 @@ def main() -> int:
         for path in ("mla", "qwen3"):
             chip_smoke.phase_backbone(path, profile)
         torch.distributed.destroy_process_group()
+        chip_smoke.phase_ep(profile, setup=patch)
         chip_smoke.phase_serve_xlstm()
         chip_smoke.phase_serve_hybrid()
     print(f"rehearsal: the calibrate phase and every serve phase passed on "
