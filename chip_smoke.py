@@ -25,11 +25,19 @@
               at 8 x 512 (mla: H = Kv = 16, D = 128; qwen3: H = 64, Kv =
               4, D = 64), split-KV decode at qwen3's g = 16, D = 64 (8 x
               1024), the expert GEMM at E = 64, H = 1408 and E = 128, M
-              = 4096, H = 1536 at the decode and prefill C;
+              = 4096, H = 1536 at the decode and prefill C; and the
+              multimodal path's new callers: flash with causal=False at
+              the encoder's shape (8 x 1024 frames, H = Kv = 16, D = 64;
+              f32 at TOL, bf16 at FLASH_TOL beside controls with the last
+              key dropped and with a causal mask, each failing in every
+              batch row) and the dense decode kernels at the
+              cross-attention shape (C = 1024 every row, D = 64);
   3. small    a smoke-size model on the card (kernels) against the same
               model on the CPU (plain versions): prefill and decode logits
               and greedy tokens (deepseek-v2-lite's MLA through the flash
-              kernel at prefill);
+              kernel at prefill); the vlm and audio smoke models through
+              the step builders (prefill logits, the memory, greedy
+              tokens);
      ring     recurrentgemma-9b at full width cut to one (rec, rec, attn)
               group, f32 weights: teacher-forced decode across the local
               attention ring's wrap against prefill of the longer prompt;
@@ -189,7 +197,22 @@
               eager engine (a teacher-forced ring wraps) and timed beside
               it; profiled over 3 decode steps (graph and eager) and one
               3000-token prefill call;
-  7. report   every phase's wall seconds and the total; one JSON line with
+  7. multimodal  internvl2-1b and seamless-m4t-large-v2 at full width and
+              depth (bf16 weights from seed 0), eager through the port's
+              step builders: 8 rows of the stub frontend's embeddings
+              (256 patches; 1024 frames, encoded by 24 bidirectional
+              layers) and a 64-token prompt, one prefill step, 32 greedy
+              serve steps (seamless: cross-attention over the memory in
+              all 24 decoder layers at every step); the launches checked
+              exactly (flash 24 causal and 24 bidirectional a prefill,
+              dense decode 24 self- and 24 cross-attention calls a step),
+              then 11 teacher-forced steps against ``forward`` within
+              ``MM_LOGIT_TOL`` beside a control that must exceed it at
+              every step (the memory rolled by one row; the patches
+              shifted by one position); encode, prefill-step and
+              decode-step ms, a step's kernel time, the cross K/V
+              recompute's ms, tokens/s and peak GB printed;
+  8. report   every phase's wall seconds and the total; one JSON line with
               every kernel's numbers (launches from the dep path for the
               kernels of qwen2-moe's dense KV, and per serve path in
               ``launches_by_path``: the placement path's expert GEMM
@@ -210,6 +233,7 @@ smoke size, with a stand-in for the CUDA graph and a gloo expert group.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -261,7 +285,10 @@ from repro_torch.kernels.rg_lru.ops import rg_lru_scan  # noqa: E402
 from repro_torch.kernels.rg_lru.ref import rg_lru_scan_ref  # noqa: E402
 from repro_torch.models import ExecutionContext, build_model  # noqa: E402
 from repro_torch.launch import serve_moe  # noqa: E402
+from repro_torch.launch.steps import (frontend_inputs,  # noqa: E402
+                                      make_prefill_step, make_serve_step)
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.models.layers import dense_apply  # noqa: E402
 from repro_torch.placement import (Placement, SkewSummary,  # noqa: E402
                                    rebalance)
 from repro_torch.obs import (attribute_overlap, interval_subtract,  # noqa: E402
@@ -375,7 +402,7 @@ def trace_span(prof) -> str:
 
 
 def device_ms(fn, kernel=None, iters: int = 10, per_call=None,
-              bound=None) -> float:
+              bound=None, lead: bool = False) -> float:
     """Mean device time per call of ``fn`` of the kernels whose name
     contains ``kernel`` (every device kernel of the call when ``kernel``
     is None), from torch.profiler: unlike ``time_ms`` it holds no host
@@ -387,7 +414,11 @@ def device_ms(fn, kernel=None, iters: int = 10, per_call=None,
     known (plain versions, library calls), a count that an earlier trace
     of the same calls gave too. A short trace is taken again, six in
     all; then the reading fails. A reading below ``bound`` (ms, the least
-    time the card could take) fails too."""
+    time the card could take) fails too. ``lead`` runs ``fn`` once more
+    inside the trace, before the measured calls, and counts only the
+    device events that start after it: the profiler can lose the first
+    events of a trace (a call of a few thousand small kernels lost its
+    first 29 late in a run), and the lead call takes that loss."""
     if per_call is None:
         per_call = PER_CALL.get(kernel)
     fn()
@@ -397,11 +428,24 @@ def device_ms(fn, kernel=None, iters: int = 10, per_call=None,
     seen = []
     for _ in range(6):
         with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(iters):
+            if lead:
                 fn()
-            torch.cuda.synchronize()
+                torch.cuda.synchronize()
+            with (torch.profiler.record_function("device_ms measured")
+                  if lead else contextlib.nullcontext()):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+        t0 = float("-inf")
+        if lead:
+            t0 = min(e.time_range.start for e in prof.events()
+                     if e.name == "device_ms measured" and e.device_type
+                     != torch.autograd.DeviceType.CUDA)
+        # the range's own span on the device is no kernel
         events = [e for e in device_events(prof)
-                  if kernel is None or kernel in e.name]
+                  if (kernel is None or kernel in e.name)
+                  and e.time_range.start >= t0
+                  and e.name != "device_ms measured"]
         n = len(events)
         if per_call is not None:
             whole = n == per_call * iters
@@ -410,6 +454,9 @@ def device_ms(fn, kernel=None, iters: int = 10, per_call=None,
         seen.append(n)
         if whole:
             ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+            if lead:
+                print(f"  device_ms: {n} device events in {iters} calls "
+                      f"after the lead call (traces: {seen})")
             break
         if per_call is not None or len(seen) > 1:
             print(f"  device_ms: {n} {kernel or 'device'} events in a trace "
@@ -609,8 +656,9 @@ def check_decode_controls(name: str, got, q, k, v, lengths) -> float:
         lc = (lens + d).clamp(0, C)
         controls[f"length{d:+d}"] = (lc, k, v, lc != lens)
     ks, vs = k.clone(), v.clone()
-    ks[:, P:2 * P] = k[:, P + 1:2 * P + 1]
-    vs[:, P:2 * P] = v[:, P + 1:2 * P + 1]
+    end = min(2 * P, C - 1)         # a cache shorter than two chunks
+    ks[:, P:end] = k[:, P + 1:end + 1]
+    vs[:, P:end] = v[:, P + 1:end + 1]
     controls["chunk 1 one position late"] = (lens, ks, vs, lens > P)
     ratios = {}
     for label, (lc, kc, vc, rows) in controls.items():
@@ -1493,7 +1541,70 @@ def phase_small() -> None:
         print(f"[small] {cfg.name}: prefill + 4 decode steps on the card "
               f"match the CPU (max |dlogit| {worst:.2e}, rtol=atol=1e-4), "
               "greedy tokens equal")
+    small_multimodal()
     small_paged()
+
+
+def grow_caches(caches, n: int):
+    """Each KV cache with ``n`` free positions after its own: the step
+    builders' prefill fills caches of the prompt's length (P + S), as the
+    reference's does, and the serve steps write after it."""
+    return [dict(c, k=F.pad(c["k"], (0, 0, 0, 0, 0, n)),
+                 v=F.pad(c["v"], (0, 0, 0, 0, 0, n))) for c in caches]
+
+
+def small_multimodal() -> None:
+    """The vlm and audio smoke models through the step builders on the card
+    (kernels) against the CPU (plain versions), f32, one set of weights:
+    3 rows of the stub frontend's embeddings and a 12-token prompt,
+    ``make_prefill_step`` (audio: encode, then prefill with the memory),
+    then 4 ``make_serve_step``s (audio: cross-attention over the memory).
+    The prefill logits and the memory must agree at 1e-4, the greedy
+    tokens exactly."""
+    for arch in ("internvl2-1b", "seamless-m4t-large-v2"):
+        cfg = get_smoke_config(arch)
+        ctx = ExecutionContext(attn_impl="decode_kernel")
+        p_cpu = build_model(cfg, ctx=ctx, dtype=torch.float32,
+                            device="cpu").init(generator_for("cpu", 0))
+        extra = frontend_inputs(cfg, 3, 12, generator_for("cpu", 1),
+                                device="cpu", dtype=torch.float32)
+        toks = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab_size, size=(3, 12)))
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            model = build_model(cfg, ctx=ctx, dtype=torch.float32,
+                                device=dev)
+            params = (p_cpu if dev == "cpu" else
+                      params_from_numpy(_to_numpy(p_cpu), dev,
+                                        torch.float32))
+            logits, caches = make_prefill_step(model)(
+                params, toks.to(dev), extra.to(dev))
+            memory = (model.encode(params, extra.to(dev))
+                      if cfg.is_encoder_decoder else None)
+            caches = grow_caches(caches, 4)
+            nxt = logits[:, -1].argmax(-1)[:, None]
+            tokens = [nxt]
+            serve_step = make_serve_step(model)
+            for _ in range(4):
+                nxt, caches = serve_step(params, nxt, caches, memory=memory)
+                tokens.append(nxt)
+            outs[dev] = (logits.cpu(), torch.cat(tokens, 1).cpu(),
+                         None if memory is None else memory.cpu())
+        (lc, tc, mc), (lg, tg, mg) = outs["cpu"], outs["cuda"]
+        worst = float((lc - lg).abs().max())
+        if not torch.allclose(lc, lg, rtol=1e-4, atol=1e-4):
+            fail(f"{arch} smoke steps: card prefill logits disagree with "
+                 f"the CPU (max {worst:.2e})")
+        if mc is not None and not torch.allclose(mc, mg, rtol=1e-4,
+                                                 atol=1e-4):
+            fail(f"{arch} smoke steps: card memory disagrees with the CPU")
+        if not torch.equal(tc, tg):
+            fail(f"{arch} smoke steps: card greedy tokens {tg.tolist()} "
+                 f"differ from the CPU's {tc.tolist()}")
+        print(f"[small] {cfg.name} ({cfg.family}): make_prefill_step + 4 "
+              f"make_serve_steps on the card match the CPU (max |dlogit| "
+              f"{worst:.2e}{', memory within 1e-4' if mc is not None else ''}"
+              "), greedy tokens equal")
 
 
 def small_paged() -> None:
@@ -3342,16 +3453,20 @@ def check_flash_shape(gen, label: str, B: int, S: int, H: int, Kv: int,
                 library_device_ms=lib_dev, bound_ms=b, bound_by=by)
 
 
-def check_decode_shape(gen, label: str, H: int, Kv: int, D: int) -> dict:
-    """bf16 split-KV decode at a serve path's decode shape (8 rows, C =
-    1024) against its plain version (``DECODE_TOL``, beside the controls)
-    at mixed lengths and at ~300 positions, the decode profile's; timed
-    at ~300 (``time_decode``)."""
-    dtype, B, C = torch.bfloat16, 8, 1024
-    mixed = np.array([0, 1, C, 37, 500, 1000, 33, 613])
-    serve_lens = np.random.RandomState(5).randint(290, 311, size=B)
+def check_decode_shape(gen, label: str, H: int, Kv: int, D: int,
+                       C: int = 1024, serve: tuple = (290, 311)) -> dict:
+    """bf16 split-KV decode at a serve path's decode shape (8 rows of C
+    cache positions) against its plain version (``DECODE_TOL``, beside the
+    controls) at mixed lengths and at lengths drawn from ``serve`` (the
+    path's [low, high) at decode: by default ~300, the decode profile's);
+    timed at the latter (``time_decode``)."""
+    dtype, B = torch.bfloat16, 8
+    mixed = np.array([0, 1, C, 37, C * 500 // 1024, C - 24, 33,
+                      C * 613 // 1024])
+    serve_lens = np.random.RandomState(5).randint(*serve, size=B)
     errs = {}
-    for tag, lens in (("mixed", mixed), ("~300", serve_lens)):
+    for tag, lens in (("mixed", mixed), (f"~{sum(serve) // 2}",
+                                         serve_lens)):
         lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
         q, k, v = _decode_inputs(gen, B, H, Kv, D, C, dtype)
         name = f"{label} B={B} H={H} Kv={Kv} D={D} C={C} {tag} bf16"
@@ -3360,7 +3475,7 @@ def check_decode_shape(gen, label: str, H: int, Kv: int, D: int) -> dict:
                             dtype, DECODE_TOL[dtype])
         check_decode_controls(name, out, q, k, v, lt)
     timing = time_decode(name, q, k, v, lt)
-    return dict(timing, shape=name, max_abs_err=errs["~300"],
+    return dict(timing, shape=name, max_abs_err=errs[tag],
                 mixed_max_abs_err=errs["mixed"],
                 lengths=serve_lens.tolist())
 
@@ -3413,6 +3528,122 @@ def time_gemm_shapes(gen, path: str, cfg, S: int, experts: int = 0,
     return out
 
 
+def plain_attention(q, k, v):
+    """Plain softmax attention of every query over every key, f32 logits
+    (Sk may differ from Sq): the controls' reference."""
+    B, Sq, H, D = q.shape
+    Kv = k.shape[2]
+    qh = q.reshape(B, Sq, Kv, H // Kv, D).float()
+    p = torch.softmax(torch.einsum("bqkgd,bskd->bkgqs", qh, k.float())
+                      / D ** 0.5, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def check_row_controls(name: str, got, wrongs: dict, tol) -> float:
+    """Every control (label -> the plain output of a wrong function) must
+    fail ``tol`` in every batch row it changes. Returns the least of the
+    rows' worst ratios."""
+    g = got.float()
+    ratios = {}
+    for label, (w, changed) in wrongs.items():
+        w = w.float()
+        per_row = ((g - w).abs() / (tol["atol"] + tol["rtol"] * w.abs())) \
+            .flatten(1).amax(1)
+        ratios[label] = float(per_row[changed].min())
+    print(f"  {name} controls (least over the rows each changes): " +
+          ", ".join(f"{label} {r:.1f}x the limit"
+                    for label, r in ratios.items()))
+    for label, r in ratios.items():
+        if r <= 1:
+            fail(f"{name}: the control {label} passes the limit in a row: "
+                 "the check cannot see that fault there")
+    return min(ratios.values())
+
+
+def check_flash_bidirectional(gen) -> dict:
+    """The encoder's self-attention at seamless-m4t-large-v2's shape (8
+    rows of its 1024 frames, H = Kv = 16, D = 64) through the flash
+    kernel with ``causal=False``: f32 at ``TOL`` (the SIMT kernel), bf16
+    at ``FLASH_TOL`` (the wgmma kernel) beside two controls that must fail
+    ``FLASH_TOL`` in every batch row, the plain version with the last key
+    dropped and with a causal mask; timed beside the plain version and
+    ``F.scaled_dot_product_attention(is_causal=False)``, with the bound
+    (no mask: every query does S keys)."""
+    cfg = get_config("seamless-m4t-large-v2")
+    B, S, H, Kv, D = (8, cfg.frontend_tokens, cfg.num_heads,
+                      cfg.num_kv_heads, cfg.head_dim)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = randn(gen, (B, S, H, D), dtype)
+        k = randn(gen, (B, S, Kv, D), dtype)
+        v = randn(gen, (B, S, Kv, D), dtype)
+        name = f"encoder B={B} S={S} H={H} Kv={Kv} D={D} causal=False " \
+               f"{dtype}"
+        got = flash_attention(q, k, v, causal=False)
+        out[dtype] = compare(name, got,
+                             flash_attention_ref(q, k, v, causal=False),
+                             dtype, FLASH_TOL[dtype])
+    every = torch.ones(B, dtype=torch.bool, device="cuda")
+    ctrl = check_row_controls(name, got, {
+        "last key dropped": (plain_attention(q, k[:, :-1], v[:, :-1]),
+                             every),
+        "causal mask": (flash_attention_ref(q, k, v, causal=True), every)},
+        FLASH_TOL[torch.bfloat16])
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ms, dev = timed(lambda: flash_attention(q, k, v, causal=False),
+                    "flash_attention_")
+    plain = time_ms(lambda: flash_attention_ref(q, k, v, causal=False),
+                    iters=5)
+    lib, lib_dev = timed(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=False))
+    flops = 4.0 * B * H * D * S * S
+    nbytes = (2 * B * S * H * D + 2 * B * S * Kv * D) * 2
+    b, by = bound_ms(nbytes, flops, torch.bfloat16)
+    print(f"  {name}: kernel {ms:.4f} ms events, {dev:.4f} ms device "
+          f"({flops / dev / 1e9:.1f} TFLOP/s); plain {plain:.3f} ms events; "
+          f"F.scaled_dot_product_attention {lib:.4f} / {lib_dev:.4f} ms; "
+          f"bound {b:.4f} ms ({by})")
+    return dict(shape=name, max_abs_err=out[torch.bfloat16],
+                f32_max_abs_err=out[torch.float32], control_worst_ratio=ctrl,
+                ms=ms, device_ms=dev, plain_ms=plain, library_ms=lib,
+                library_device_ms=lib_dev, bound_ms=b, bound_by=by)
+
+
+def check_cross_decode(gen) -> dict:
+    """Cross-attention at decode through the dense decode kernels: one
+    query a row against seamless-m4t-large-v2's memory (8 rows, C = the
+    1024 frames, H = Kv = 16, D = 64), every length C. f32 at ``TOL``,
+    bf16 at ``DECODE_TOL`` beside the controls (a length one shorter, chunk
+    1 read one position late; one longer changes nothing at C); timed as
+    ``time_decode`` does, and beside an unmasked
+    ``F.scaled_dot_product_attention``."""
+    cfg = get_config("seamless-m4t-large-v2")
+    B, C, H, Kv, D = (8, cfg.frontend_tokens, cfg.num_heads,
+                      cfg.num_kv_heads, cfg.head_dim)
+    lt = torch.full((B,), C, dtype=torch.int32, device="cuda")
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _decode_inputs(gen, B, H, Kv, D, C, dtype)
+        name = f"cross B={B} H={H} Kv={Kv} D={D} C={C} every length {C} " \
+               f"{dtype}"
+        got = decode_attention(q, k, v, lt)
+        errs[dtype] = compare(name, got, decode_attention_ref(q, k, v, lt),
+                              dtype, DECODE_TOL[dtype])
+    ctrl = check_decode_controls(name, got, q, k, v, lt)
+    timing = time_decode(name, q, k, v, lt)
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+    lib, lib_dev = timed(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kt, vt, is_causal=False))
+    print(f"  {name}: F.scaled_dot_product_attention without a mask "
+          f"{lib:.4f} / {lib_dev:.4f} ms")
+    return dict(timing, shape=name, max_abs_err=errs[torch.bfloat16],
+                f32_max_abs_err=errs[torch.float32], control_worst_ratio=ctrl,
+                library_masked_ms=timing["library_ms"],
+                library_masked_device_ms=timing["library_device_ms"],
+                library_ms=lib, library_device_ms=lib_dev)
+
+
 def check_backbone_kernels(gen) -> dict:
     """Each backbone path's kernels at the shapes its serve gives them:
     flash at the 8 x 300 prefill's bucket (MLA: H = Kv), split-KV decode
@@ -3443,7 +3674,36 @@ def check_backbone_kernels(gen) -> dict:
         gen, "ep", get_config("qwen2-moe-a2.7b"), 0,
         experts=get_config("qwen2-moe-a2.7b").moe.num_experts // EP_RANKS,
         widths=EP_GEMM_WIDTHS)}
+    print("[kernels] multimodal (internvl2-1b, seamless-m4t-large-v2) "
+          "shapes")
+    out["multimodal"] = check_multimodal_shapes(gen)
+    torch.cuda.empty_cache()
     return out
+
+
+def check_multimodal_shapes(gen) -> dict:
+    """The multimodal phase's attention at the shapes its serve gives the
+    kernels: the seamless encoder (flash, ``causal=False``) and its
+    cross-attention at decode (the dense decode kernels, every length the
+    frame count); each decoder's causal flash at prefill (internvl2: the
+    P patches and the prompt, g = 7; seamless: the prompt) and its
+    split-KV decode over the cache the serve steps grow (the prefill's
+    length + ``MM_STEPS``, live lengths from one past the prefill to C).
+    Returns {kernel name: {shape label: entry}}."""
+    flash = {"encoder": check_flash_bidirectional(gen)}
+    decode = {"cross": check_cross_decode(gen)}
+    for arch, label in (("internvl2-1b", "internvl2"),
+                        ("seamless-m4t-large-v2", "seamless")):
+        cfg = get_config(arch)
+        H, Kv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        S = MM_PROMPT + (0 if cfg.is_encoder_decoder
+                         else cfg.frontend_tokens)
+        flash[f"{label} prefill"] = check_flash_shape(
+            gen, f"{label} prefill", MM_BATCH, S, H, Kv, D)
+        decode[f"{label} decode"] = check_decode_shape(
+            gen, f"{label} decode", H, Kv, D, C=S + MM_STEPS,
+            serve=(S + 1, S + MM_STEPS + 1))
+    return {"flash_attention": flash, "decode_attention": decode}
 
 
 def time_mla_recompute(attn_params, cfg, decode_row: dict) -> dict:
@@ -4129,6 +4389,251 @@ def phase_serve_hybrid():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# multimodal: the vlm and audio families at full width and depth
+
+#: where and at what dtype the multimodal phase runs (the CPU rehearsal
+#: takes the CPU at f32)
+MM_DEVICE = "cuda"
+MM_DTYPE = torch.bfloat16
+#: rows, prompt tokens, greedy serve steps, teacher-forced steps
+MM_BATCH, MM_PROMPT, MM_STEPS, MM_FORCED = 8, 64, 32, 11
+#: the teacher-forced check's limit on the worst step's relative L2 of
+#: the decode logits against ``forward``'s over the same sequence. f32:
+#: summation order. bf16: the sound readings were 0.0279 (internvl2) and
+#: 0.0148 (seamless) and the controls 0.596-0.873 on the H100 (PERF.md), so
+#: 0.05 is 1.8x the worst sound step and 12x under the least control
+MM_LOGIT_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.05}
+
+
+def expect_launches(what: str, got: dict, want: dict) -> None:
+    """Every kernel's launches exactly ``want`` (absent = 0)."""
+    full = {name: want.get(name, 0) for name in got}
+    if got != full:
+        fail(f"{what}: launches {got}, want {full}")
+
+
+def launch_delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in kernel_lib.launch_counts().items()}
+
+
+def mm_forced(model, params, toks, extra, memory, label: str,
+              control) -> dict:
+    """11 teacher-forced decode steps against ``forward`` over the same
+    sequence: prefill the first ``MM_PROMPT`` tokens (vlm: behind the
+    patch embeddings), feed the next ``MM_FORCED`` one a step (audio: the
+    memory's cross-attention at every step) and hold each step's logits
+    against ``forward``'s at its position (relative L2 per step, at most
+    ``MM_LOGIT_TOL``). The control ({"extra": ...} or {"memory": ...}
+    for the decode steps) must exceed the limit at every step."""
+    cfg = model.cfg
+    vlm = cfg.family == "vlm"
+    S = MM_PROMPT + MM_FORCED
+    off = extra.shape[1] if vlm else 0
+    with torch.no_grad():
+        full, _ = model.forward(params, toks[:, :S],
+                                extra_embeds=extra if vlm else None,
+                                memory=memory)
+        want = full[:, off + MM_PROMPT:off + S].transpose(0, 1).float().cpu()
+        del full
+
+        def run(ext, mem):
+            _, caches = model.prefill(params, toks[:, :MM_PROMPT],
+                                      extra_embeds=ext if vlm else None,
+                                      memory=memory, seq_budget=S)
+            got = []
+            for t in range(MM_PROMPT, S):
+                lg, caches = model.decode_step(params, toks[:, t:t + 1],
+                                               caches, memory=mem)
+                got.append(lg[:, 0].float().cpu())
+            return torch.stack(got)
+
+        sound = logit_error(run(extra, memory), want)
+        wrong = logit_error(run(control.get("extra", extra),
+                                control.get("memory", memory)), want)
+    limit = MM_LOGIT_TOL[model.dtype]
+    print(f"[{label}] teacher-forced: {MM_FORCED} decode steps against "
+          f"forward, relative L2 worst {sound[0]:.4g} (steps {sound[2]}), "
+          f"max |dlogit| {sound[1]:.4g}, argmax agreeing in "
+          f"{sound[3]:.1%}; limit {limit}; control ({control['label']}) "
+          f"least step {min(wrong[2]):.4g} (steps {wrong[2]}), argmax "
+          f"agreeing in {wrong[3]:.1%}")
+    if not sound[0] <= limit:
+        fail(f"{label}: decode logits {sound[0]:.4g} off forward's, over "
+             f"the limit {limit}")
+    if not min(wrong[2]) > limit:
+        fail(f"{label}: the control ({control['label']}) is within the "
+             f"limit {limit} at a step: the check cannot see that fault")
+    return dict(forced_rel_l2=sound[0], forced_steps=sound[2],
+                forced_argmax_agree=sound[3], control_rel_l2=wrong[2])
+
+
+def step_device_ms(step) -> float:
+    """Device ms of every kernel one eager serve step runs (the profiler:
+    ``device_ms`` with no kernel filter, three steps a trace after a lead
+    step, two traces that agree on a multiple of three events). The step
+    writes the same cache row each time, so it can run again."""
+    return device_ms(step, iters=3, lead=True)
+
+
+def time_cross_kv(params, memory) -> float:
+    """Device ms (CUDA events) of what every decode step recomputes for
+    cross-attention, as the reference does: each decoder layer's K and V
+    projections of the whole memory."""
+    layers = [p["cross"] for p in params["layers"]]
+
+    def run():
+        for c in layers:
+            dense_apply(c["wk"], memory)
+            dense_apply(c["wv"], memory)
+
+    return time_ms(run, iters=5)
+
+
+def serve_multimodal(arch: str, label: str) -> dict:
+    """One family at full width and depth through the port's step
+    builders: bf16 weights from seed 0, ``MM_BATCH`` rows of the stub
+    frontend's embeddings (seed 1) and a ``MM_PROMPT``-token prompt; the
+    audio model encodes (timed alone), ``make_prefill_step`` prefills
+    (audio: encoding again), then ``MM_STEPS`` greedy
+    ``make_serve_step``s. Launches checked exactly, from the wrappers'
+    counts around each call: flash L_enc in the encode (the encoder's
+    bidirectional layers), L + L_enc a prefill (the decoder's L causal
+    ones beside them), dense decode L a step (+ L cross-attention calls
+    over the memory), nothing else. Then the teacher-forced check.
+    Returns the launch counts of the prefill and the serve."""
+    cfg = get_config(arch)
+    L, L_enc = cfg.num_layers, cfg.num_encoder_layers
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, ctx=ExecutionContext(attn_impl="decode_kernel"),
+                        dtype=MM_DTYPE, device=MM_DEVICE)
+    params = model.init(generator_for(model.device, 0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[{label}] {cfg.name} ({cfg.family}): {L} decoder layers"
+          f"{f' + {L_enc} encoder layers' if L_enc else ''}, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size}, {cfg.frontend_tokens} "
+          f"{'frames' if L_enc else 'patch embeddings'} a row; "
+          f"{n_params / 1e9:.3f} B params drawn in {MM_DTYPE} on the card "
+          f"in {time.perf_counter() - t0:.1f} s (ModelConfig.num_params() "
+          f"says {cfg.num_params() / 1e9:.3f} B)")
+    extra = frontend_inputs(cfg, MM_BATCH, MM_PROMPT,
+                            generator_for(model.device, 1),
+                            device=model.device, dtype=MM_DTYPE)
+    toks = torch.from_numpy(np.random.RandomState(11).randint(
+        0, cfg.vocab_size, size=(MM_BATCH, MM_PROMPT + MM_FORCED))).to(
+            model.device)
+    prompt = toks[:, :MM_PROMPT]
+    prefill_step, serve_step = make_prefill_step(model), \
+        make_serve_step(model)
+    out = {}
+    with torch.no_grad():
+        # warm-up: the first calls pay cuBLAS's and the allocator's set-up
+        logits, caches = prefill_step(params, prompt, extra)
+        memory = model.encode(params, extra) if L_enc else None
+        serve_step(params, logits[:, -1].argmax(-1)[:, None],
+                   grow_caches(caches, 1), memory=memory)
+        del logits, caches, memory
+        torch.cuda.synchronize()
+        memory = None
+        if L_enc:
+            before = kernel_lib.launch_counts()
+            t = time.perf_counter()
+            memory = model.encode(params, extra)
+            torch.cuda.synchronize()
+            out["encode_ms"] = (time.perf_counter() - t) * 1e3
+            expect_launches(f"{label} encode", launch_delta(before),
+                            {"flash_attention": L_enc})
+        kernel_lib.reset_launch_counts()
+        t = time.perf_counter()
+        logits, caches = prefill_step(params, prompt, extra)
+        torch.cuda.synchronize()
+        out["prefill_ms"] = (time.perf_counter() - t) * 1e3
+        prefill_counts = kernel_lib.launch_counts()
+        expect_launches(f"{label} prefill", prefill_counts,
+                        {"flash_attention": L + L_enc})
+        if not torch.isfinite(logits).all():
+            fail(f"{label}: non-finite prefill logits")
+        caches = grow_caches(caches, MM_STEPS)
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        tokens = [nxt]
+        kernel_lib.reset_launch_counts()
+        per_step = {"decode_attention": L * (2 if L_enc else 1)}
+        t = time.perf_counter()
+        for _ in range(MM_STEPS):
+            before = kernel_lib.launch_counts()
+            nxt, caches = serve_step(params, nxt, caches, memory=memory)
+            expect_launches(f"{label} serve step", launch_delta(before),
+                            per_step)
+            tokens.append(nxt)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t
+        serve_counts = kernel_lib.launch_counts()
+        out["decode_device_ms"] = step_device_ms(
+            lambda: serve_step(params, nxt, caches, memory=memory))
+    tokens = torch.cat(tokens, 1).cpu()
+    if tokens.min() < 0 or tokens.max() >= cfg.vocab_size:
+        fail(f"{label}: a greedy token outside the vocabulary")
+    out.update(decode_step_ms=decode_s / MM_STEPS * 1e3,
+               tokens_per_s=MM_BATCH * MM_STEPS / decode_s,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    enc = (f"encode {out['encode_ms']:.2f} ms ({L_enc} layers, "
+           f"{MM_BATCH} x {cfg.frontend_tokens} frames), " if L_enc else "")
+    print(f"[{label}] {enc}prefill step {out['prefill_ms']:.2f} ms "
+          f"({MM_BATCH} x {MM_PROMPT} tokens"
+          f"{f' behind {cfg.frontend_tokens} patches' if not L_enc else ''}"
+          f"{', encoding included' if L_enc else ''}), {MM_STEPS} serve "
+          f"steps at {out['decode_step_ms']:.2f} ms a step "
+          f"({out['decode_device_ms']:.2f} ms of it kernels on the card, "
+          f"idle {1 - out['decode_device_ms'] / out['decode_step_ms']:.1%}; "
+          f"{out['tokens_per_s']:.1f} tokens/s), peak "
+          f"{out['peak_gb']:.2f} GB allocated; launches: prefill "
+          f"{ {k: v for k, v in prefill_counts.items() if v} }, serve "
+          f"{ {k: v for k, v in serve_counts.items() if v} }; greedy "
+          f"tokens of row 0: {tokens[0].tolist()}")
+    del logits, caches, nxt
+    if L_enc:
+        out["cross_kv_ms"] = time_cross_kv(params, memory)
+        print(f"[{label}] a decode step's cross-attention K/V of the whole "
+              f"memory ({L} layers x 2 projections of {MM_BATCH} x "
+              f"{cfg.frontend_tokens} x {cfg.d_model}): "
+              f"{out['cross_kv_ms']:.3f} ms (CUDA events) of the "
+              f"{out['decode_step_ms']:.2f} ms step")
+    control = ({"label": "the memory rolled by one row",
+                "memory": torch.roll(memory, 1, dims=0)} if L_enc else
+               {"label": "the patch embeddings shifted by one position",
+                "extra": torch.roll(extra, 1, dims=1)})
+    out.update(mm_forced(model, params, toks, extra, memory, label,
+                         control))
+    out["wall_s"] = time.perf_counter() - t0
+    del model, params, memory, extra, control
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() / 1e9
+    if left > 0.5:
+        fail(f"{label}: {left:.2f} GB still allocated after the path")
+    torch.cuda.empty_cache()
+    return {"prefill": prefill_counts, "serve": serve_counts, "row": out}
+
+
+def phase_multimodal() -> dict:
+    """The vlm and audio families at full width and depth on the card:
+    internvl2-1b (8 rows of 256 patch embeddings and a 64-token prompt)
+    and seamless-m4t-large-v2 (8 rows of 1024 frames through the 24-layer
+    encoder, a 64-token decoder prompt, cross-attention in all 24 decoder
+    layers at every step), each through ``serve_multimodal``. Returns
+    {path: launches in its prefill and serve} (summed)."""
+    counts = {}
+    for arch, label in (("internvl2-1b", "internvl2"),
+                        ("seamless-m4t-large-v2", "seamless")):
+        res = serve_multimodal(arch, label)
+        counts[label] = {k: res["prefill"][k] + res["serve"][k]
+                         for k in res["serve"]}
+        print(f"[{label} summary] " + json.dumps(res["row"]))
+    return counts
+
+
 #: the device-side names of the repo's CUDA kernels (src/repro_torch/csrc)
 OWN_KERNELS = ("decode_attention_split_kernel",
                "decode_attention_combine_kernel", "moe_gemm_",
@@ -4415,6 +4920,7 @@ def main(argv=None) -> int:
             counts["ep"] = phase("ep", phase_ep, profile)
             counts["xlstm"] = phase("xlstm", phase_serve_xlstm)
             counts["hybrid"] = phase("hybrid", phase_serve_hybrid)
+            counts.update(phase("multimodal", phase_multimodal))
     print(f"[phase] wall s: {json.dumps(walls)}; total "
           f"{sum(walls.values()):.1f} s")
 

@@ -1,10 +1,11 @@
-// Causal GQA flash attention for prefill, optional sliding window.
+// GQA flash attention: causal for prefill, optional sliding window, or
+// bidirectional (causal = 0) for an encoder.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py
 //           flash_attention_pallas (line 85, pallas_call at line 106).
 //
 // q [B,S,H,D]; k/v [B,S,Kv,D]; out [B,S,H,D]. Head h reads KV head h / g
-// (g = H / Kv). Query row i attends key j when j <= i (causal) and
+// (g = H / Kv). Query row i attends key j when j <= i (if causal) and
 // i - j < window (when a window is given); scores are scaled by 1/sqrt(D)
 // and the softmax runs online in f32.
 //

@@ -1,5 +1,5 @@
-"""Launch of the hand-written CUDA causal GQA flash attention
-(``repro_torch/csrc/flash_attention.cu``), which replaces
+"""Launch of the hand-written CUDA GQA flash attention, causal or
+bidirectional (``repro_torch/csrc/flash_attention.cu``), which replaces
 ``repro.kernels.flash_attention.kernel.flash_attention_pallas``."""
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
-"""Public wrapper of causal GQA flash attention: dispatch by the tensors'
-device. A CPU tensor takes the plain version; a CUDA tensor launches the
-hand-written kernel or raises."""
+"""Public wrapper of GQA flash attention, causal (decoder prefill) or
+bidirectional (an encoder): dispatch by the tensors' device. A CPU tensor
+takes the plain version; a CUDA tensor launches the hand-written kernel
+or raises."""
 from __future__ import annotations
 
 import torch
@@ -11,9 +12,10 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 
 def flash_attention(q, k, v, causal: bool = True, window=None):
-    """q: [B,S,H,D]; k/v: [B,S,Kv,D] -> [B,S,H,D]. Any S runs: the
-    kernel masks the ragged last tiles. bf16 runs the tensor-core kernel
-    (operands 16-byte aligned), f32 the SIMT kernel."""
+    """q: [B,S,H,D]; k/v: [B,S,Kv,D] -> [B,S,H,D]; ``causal=False``
+    attends every key. Any S runs: the kernel masks the ragged last
+    tiles. bf16 runs the tensor-core kernel (operands 16-byte aligned),
+    f32 the SIMT kernel."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     B, S, H, D = q.shape

@@ -31,7 +31,18 @@ while the port runs it through the flash kernel (with the window, if
 any; on MLA's Kv == H tensors) — the same function, held against
 ``_sdpa`` by the tests. MLA decode runs the plain masked ``_sdpa`` under
 every impl, as the reference does. Sequence-sharded decode (a mesh) is
-not ported (ROADMAP Queue 1 item 11).
+not ported (ROADMAP Queue 1 item 10).
+
+The encoder-decoder family adds two blocks. The encoder's bidirectional
+self-attention (``encoder_self_attention``, the reference's
+``repro/models/transformer.py:584-595``) runs the flash kernel with
+``causal=False`` under "flash" and "decode_kernel", where the reference
+runs ``_sdpa``. Cross-attention (``cross_attention_apply``) takes q from
+the decoder and k/v from the encoder's memory, with no RoPE and every
+memory position attended; one decode query a row runs the dense decode
+kernel under "decode_kernel" with every length at the memory's, where
+the reference runs ``_sdpa``, and every other call the plain ``_sdpa``
+(Sq != Sk: the flash kernel takes equal lengths only).
 """
 from __future__ import annotations
 
@@ -54,8 +65,7 @@ ATTN_IMPLS = ("xla", "flash", "decode_kernel")
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.attention not in ("full", "sliding", "local", "mla"):
         raise NotImplementedError(
-            f"attention={cfg.attention!r} is not ported (ROADMAP Queue 1 "
-            "item 8: cross-attention and the audio and vlm families)")
+            f"attention={cfg.attention!r} has no attention layer")
 
 
 def is_ring(cfg: ModelConfig) -> bool:
@@ -383,3 +393,70 @@ def _attention_decode_paged(params, cfg: ModelConfig, x, cache, impl,
         out = _sdpa(q, k_all, v_all, mask)
     out = dense_apply(params["wo"], out.reshape(B, 1, -1))
     return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# encoder self-attention and cross attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+def encoder_self_attention(params, cfg: ModelConfig, h, positions,
+                           impl: str = "xla"):
+    """Bidirectional self-attention of an encoder layer: the GQA
+    projections with RoPE, every position attending every other. "flash"
+    and "decode_kernel" run the flash kernel with ``causal=False``, "xla"
+    the plain ``_sdpa`` under an all-ones mask."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"attn impl {impl!r} not in {ATTN_IMPLS}")
+    B, S, _ = h.shape
+    hd = cfg.head_dim
+    q = dense_apply(params["wq"], h).reshape(B, S, cfg.num_heads, hd)
+    k = dense_apply(params["wk"], h).reshape(B, S, cfg.num_kv_heads, hd)
+    v = dense_apply(params["wv"], h).reshape(B, S, cfg.num_kv_heads, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if impl == "xla":
+        mask = torch.ones((S, S), dtype=torch.bool, device=h.device)
+        out = _sdpa(q, k, v, mask)
+    else:
+        out = flash_ops.flash_attention(q, k, v, causal=False)
+    return dense_apply(params["wo"], out.reshape(B, S, -1))
+
+
+def cross_attention_init(gen, cfg: ModelConfig, dtype=torch.float32):
+    """The reference's wq, wk, wv, wo, none with a bias."""
+    hd = cfg.head_dim
+    return {
+        "wq": dense_init(gen, cfg.d_model, cfg.num_heads * hd, dtype=dtype),
+        "wk": dense_init(gen, cfg.d_model, cfg.num_kv_heads * hd,
+                         dtype=dtype),
+        "wv": dense_init(gen, cfg.d_model, cfg.num_kv_heads * hd,
+                         dtype=dtype),
+        "wo": dense_init(gen, cfg.num_heads * hd, cfg.d_model, dtype=dtype),
+    }
+
+
+def cross_attention_apply(params, cfg: ModelConfig, x, memory,
+                          impl: str = "xla"):
+    """x: [B,Sq,M] decoder states; memory: [B,Sk,M] encoder output. K/V
+    are projected from the whole memory at every call, as the reference
+    does. One query a row (decode) under "decode_kernel" runs the dense
+    decode kernel with every row's length Sk (a device tensor: a captured
+    step replays it); everything else the plain ``_sdpa``."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"attn impl {impl!r} not in {ATTN_IMPLS}")
+    B, Sq, _ = x.shape
+    Sk = memory.shape[1]
+    hd = cfg.head_dim
+    q = dense_apply(params["wq"], x).reshape(B, Sq, cfg.num_heads, hd)
+    k = dense_apply(params["wk"], memory).reshape(B, Sk, cfg.num_kv_heads,
+                                                  hd)
+    v = dense_apply(params["wv"], memory).reshape(B, Sk, cfg.num_kv_heads,
+                                                  hd)
+    if impl == "decode_kernel" and Sq == 1:
+        lengths = torch.full((B,), Sk, dtype=torch.int32, device=x.device)
+        out = dec_ops.decode_attention(q[:, 0].contiguous(), k, v,
+                                       lengths)[:, None]
+    else:
+        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=x.device)
+        out = _sdpa(q, k, v, mask)
+    return dense_apply(params["wo"], out.reshape(B, Sq, -1))

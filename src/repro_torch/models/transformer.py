@@ -1,9 +1,13 @@
 """Model assembly (PyTorch counterpart of ``repro.models.transformer``) for
-the dense and moe families (a causal transformer with GQA or MLA attention
-and an MLP or MoE FFN per layer), the ssm family (xLSTM: mLSTM and sLSTM
-blocks, whose decode cache is a recurrent state) and the hybrid family
+the dense, moe and vlm families (a causal transformer with GQA or MLA
+attention and an MLP or MoE FFN per layer; vlm puts projected patch
+embeddings in front of the tokens), the ssm family (xLSTM: mLSTM and
+sLSTM blocks, whose decode cache is a recurrent state), the hybrid family
 (RecurrentGemma: RG-LRU blocks and local attention over a ring KV cache,
-each followed by an MLP).
+each followed by an MLP) and the audio family (an encoder-decoder: a
+bidirectional encoder over the frame embeddings, and decoder layers that
+add cross-attention to the encoder's output, the ``memory``, when it is
+given).
 
 Parameters are nested dicts of tensors with the JAX package's nesting
 (``embed.embedding``, ``layers[i].attn.wq.{kernel,bias}``,
@@ -13,6 +17,7 @@ loop; the serving engine captures its whole decode step as a CUDA graph
 (``runtime/decode_graph.py``), the counterpart of the reference's jit.
 
 Execution modes:
+  forward()      full-sequence logits at every position
   prefill()      full-sequence + cache fill
   decode_step()  one token with cache (attention cache rows are written in
                  place; dense or, with ``block_tables``, paged KV)
@@ -41,7 +46,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (dense_init, embedding_apply,
+from repro_torch.models.layers import (dense_apply, dense_init,
+                                       embedding_apply,
                                        embedding_attend, embedding_init,
                                        mlp_apply, mlp_init, rmsnorm_apply,
                                        rmsnorm_init)
@@ -81,17 +87,16 @@ def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
         return ssm_lib.xlstm_layer_kinds(cfg)
     if cfg.family == "hybrid":
         return rglru_lib.rglru_block_pattern(cfg)
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 "
-            "item 8: the audio and vlm families)")
     moe_set = set(cfg.moe_layer_indices())
     return tuple("attn_moe" if i in moe_set else "attn_mlp"
                  for i in range(cfg.num_layers))
 
 
 def init_layer(gen, cfg: ModelConfig, kind: str, dtype=torch.float32,
-               expert_shard: Optional[Tuple[int, int]] = None):
+               expert_shard: Optional[Tuple[int, int]] = None,
+               cross: bool = False):
+    """One layer's parameters; ``cross`` (a decoder layer of an
+    encoder-decoder model) adds ``ln_x`` and the ``cross`` attention."""
     if kind in ("mlstm", "slstm"):
         init = ssm_lib.mlstm_init if kind == "mlstm" else ssm_lib.slstm_init
         return {"ln1": rmsnorm_init(cfg.d_model, gen.device, dtype),
@@ -110,6 +115,9 @@ def init_layer(gen, cfg: ModelConfig, kind: str, dtype=torch.float32,
                                     expert_shard=expert_shard)
     else:
         raise ValueError(kind)
+    if cross:
+        p["ln_x"] = rmsnorm_init(cfg.d_model, gen.device, dtype)
+        p["cross"] = attn.cross_attention_init(gen, cfg, dtype)
     return p
 
 
@@ -167,8 +175,11 @@ def _apply_moe(p, cfg: ModelConfig, h, ctx: ExecutionContext, plan=None,
 def apply_layer(p, cfg: ModelConfig, kind: str, x, positions, cache,
                 mode: str, ctx: ExecutionContext, lengths=None,
                 paged=None, plan=None, placement=None, stats_sink=None,
-                capacity_scale: float = 1.0):
-    """Returns (x, new_cache, aux_loss). ``lengths`` is the decode-mode
+                capacity_scale: float = 1.0, memory=None):
+    """Returns (x, new_cache, aux_loss). ``memory`` (the encoder's output,
+    [B, Sk, M]) runs a decoder layer's cross-attention after its
+    self-attention; a layer without ``cross``, or no memory, skips it.
+    ``lengths`` is the decode-mode
     per-slot KV ledger vector shared by every attention layer; ``paged``
     is the decode step's paged-KV addresses (``attn.paged_address``, also
     shared: one table addresses every layer's page pool); ``plan`` is the
@@ -209,6 +220,10 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, positions, cache,
         a, cache = attn.attention_fullseq(p["attn"], acfg, h, positions,
                                           cache, impl=ctx.attn_impl)
     x = x + a
+    if memory is not None and "cross" in p:
+        hx = rmsnorm_apply(p["ln_x"], x, cfg.norm_eps)
+        x = x + attn.cross_attention_apply(p["cross"], cfg, hx, memory,
+                                           impl=ctx.attn_impl)
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
     if kind == "attn_moe":
         y, aux, *st = _apply_moe(p, cfg, h, ctx, plan, placement,
@@ -238,7 +253,8 @@ def _layer_placement(placement, i: int):
 
 
 class Model:
-    """Causal LM for the dense, moe, ssm and hybrid families.
+    """Causal LM of every family; encoder-decoder when
+    ``cfg.is_encoder_decoder``.
 
     ``device=None`` means the CUDA card and raises when there is none;
     the tests pass ``device="cpu"``, where every kernel wrapper takes its
@@ -278,10 +294,51 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(generator, cfg.d_model,
                                            cfg.vocab_size, dtype=dt)
+        cross = cfg.is_encoder_decoder
         params["layers"] = [init_layer(generator, cfg, kind, dt,
-                                       expert_shard)
+                                       expert_shard, cross)
                             for kind in self.kinds]
+        if cross:
+            params["enc_layers"] = [
+                init_layer(generator, cfg, "attn_mlp", dt)
+                for _ in range(cfg.num_encoder_layers)]
+            params["enc_norm"] = rmsnorm_init(cfg.d_model, self.device, dt)
+        if cfg.family == "vlm":
+            params["proj"] = dense_init(generator, cfg.d_model, cfg.d_model,
+                                        dtype=dt)
         return params
+
+    # ---- encoder (audio family) ------------------------------------------
+    def encode(self, params, frame_embeds):
+        """frame_embeds: [B, S_enc, M] from the stubbed modality frontend
+        -> the memory [B, S_enc, M] in the model's dtype: the encoder
+        layers (bidirectional self-attention with RoPE, then the MLP),
+        then ``enc_norm``."""
+        cfg = self.cfg
+        x = frame_embeds.to(self.device, self.dtype)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=self.device)[None].expand(B, S)
+        bidir = dataclasses.replace(cfg, attention="full")
+        for p in params["enc_layers"]:
+            h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+            x = x + attn.encoder_self_attention(p["attn"], bidir, h,
+                                                positions,
+                                                impl=self.ctx.attn_impl)
+            h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+            x = x + mlp_apply(p["mlp"], h)
+        return rmsnorm_apply(params["enc_norm"], x, cfg.norm_eps)
+
+    def _embed_inputs(self, params, tokens, extra_embeds):
+        """Token embeddings; a vlm model puts the patch embeddings,
+        through ``proj``, in front of them."""
+        x = embedding_apply(params["embed"], tokens.to(self.device),
+                            self.dtype)
+        if extra_embeds is not None and self.cfg.family == "vlm":
+            vis = dense_apply(params["proj"],
+                              extra_embeds.to(self.device, self.dtype))
+            x = torch.cat([vis, x], dim=1)
+        return x
 
     # ---- caches ------------------------------------------------------------
     def init_cache(self, batch: int, seq_len: int, dtype=None) -> List[dict]:
@@ -299,37 +356,77 @@ class Model:
             return embedding_attend(params["embed"], x)
         return x.float() @ params["lm_head"]["kernel"].float()
 
-    def prefill(self, params, tokens, seq_budget: Optional[int] = None,
+    def _layers(self, params, tokens, extra_embeds, memory, caches,
+                plan=None, placement=None, sink=None,
+                capacity_scale: float = 1.0):
+        """The full-sequence pass up to the final norm: an encoder-decoder
+        model given frames (``extra_embeds``) and no memory encodes them
+        first. Returns (x [B, P+S, M], new caches, each layer's aux)."""
+        cfg = self.cfg
+        if cfg.is_encoder_decoder and memory is None \
+                and extra_embeds is not None:
+            memory = self.encode(params, extra_embeds)
+            extra_embeds = None
+        x = self._embed_inputs(params, tokens, extra_embeds)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=self.device)[None].expand(B, S)
+        auxes, new_caches = [], [None] * len(self.kinds)
+        for i, kind in enumerate(self.kinds):
+            x, new_caches[i], aux = apply_layer(
+                params["layers"][i], cfg, kind, x, positions,
+                caches[i] if caches is not None else None, "prefill",
+                self.ctx, plan=plan,
+                placement=_layer_placement(placement, i), stats_sink=sink,
+                capacity_scale=capacity_scale, memory=memory)
+            auxes.append(aux)
+        return x, new_caches, auxes
+
+    def forward(self, params, tokens, extra_embeds=None, memory=None):
+        """tokens: [B, S]; extra_embeds: vlm patch embeddings [B, P, M]
+        (or an encoder-decoder model's frames, encoded when no memory is
+        given); memory: the encoder's output. Returns (logits [B, P+S, V]
+        in float32, the MoE aux loss summed over the layers); the
+        reference's middle slot, the caches, is filled here only by
+        ``prefill``."""
+        x, _, auxes = self._layers(params, tokens, extra_embeds, memory,
+                                   None)
+        x = rmsnorm_apply(params["final_norm"], x, self.cfg.norm_eps)
+        return self._readout(params, x), torch.stack(auxes).sum()
+
+    def prefill(self, params, tokens, extra_embeds=None, memory=None,
+                seq_budget: Optional[int] = None,
                 last_positions=None, plan=None, placement=None,
                 return_moe_stats: bool = False,
                 capacity_scale: float = 1.0):
         """tokens: [B, S] (right-padded when batching several requests).
+        ``extra_embeds`` and ``memory`` are as in ``forward``: a vlm
+        model's P patch embeddings share the cache (its capacity is
+        ``seq_budget`` + P) and shift ``last_positions`` by P.
         ``last_positions`` ([B] int, optional) takes each row's logits at
         its own last real token instead of the padded bucket end. ``plan``
         is the DEP schedule of this call's MoE layers, ``placement`` the
         engine's ``dep.DevicePlacement`` (or None) and ``capacity_scale``
         their dispatch widening, all three for the DEP path only. Returns
-        (logits [B,1,V], caches of capacity ``seq_budget``), and with
+        (logits [B,1,V], caches of capacity ``seq_budget`` (+ P)), and with
         ``return_moe_stats`` a stacked ``moe.MoEStats`` ([L_moe, E] loads,
         total dropped; None without MoE layers). The readout runs only on
         the positions it returns (the reference computes all S and then
         gathers: the same values)."""
         cfg = self.cfg
-        tokens = tokens.to(self.device)
         B, S = tokens.shape
-        caches = self.init_cache(B, seq_budget or S)
-        x = embedding_apply(params["embed"], tokens, self.dtype)
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=self.device)[None].expand(B, S)
+        budget, off = seq_budget or S, 0
+        if extra_embeds is not None and cfg.family == "vlm":
+            off = extra_embeds.shape[1]      # image positions share the cache
+            budget += off
         sink = [] if return_moe_stats else None
-        for i, kind in enumerate(self.kinds):
-            x, caches[i], _ = apply_layer(
-                params["layers"][i], cfg, kind, x, positions, caches[i],
-                "prefill", self.ctx, plan=plan,
-                placement=_layer_placement(placement, i), stats_sink=sink,
-                capacity_scale=capacity_scale)
+        x, caches, _ = self._layers(params, tokens, extra_embeds, memory,
+                                    self.init_cache(B, budget), plan,
+                                    placement, sink, capacity_scale)
         if last_positions is not None:
             pos = torch.as_tensor(last_positions, device=self.device).long()
+            if off:
+                pos = pos + off
             x = x[torch.arange(B, device=self.device), pos][:, None]
         else:
             x = x[:, -1:]
@@ -338,11 +435,14 @@ class Model:
             return self._readout(params, x), caches, _stack_moe_stats(sink)
         return self._readout(params, x), caches
 
-    def decode_step(self, params, tokens, caches, lengths=None,
-                    block_tables=None, plan=None, placement=None,
-                    return_moe_stats: bool = False,
+    def decode_step(self, params, tokens, caches, memory=None,
+                    lengths=None, block_tables=None, plan=None,
+                    placement=None, return_moe_stats: bool = False,
                     capacity_scale: float = 1.0):
-        """tokens: [B, 1] -> (logits [B,1,V], caches). ``lengths`` ([B]
+        """tokens: [B, 1] -> (logits [B,1,V], caches). ``memory`` (the
+        encoder's output) runs every decoder layer's cross-attention, its
+        K/V projected from the whole memory at every step, as the
+        reference does; without it they are skipped. ``lengths`` ([B]
         int32, optional) are the per-slot context lengths from the KV
         ledger, shared by every attention layer (mask source and the
         ragged kernel's loop bound). ``block_tables`` (int32 [B,
@@ -372,7 +472,7 @@ class Model:
                 params["layers"][i], cfg, kind, x, None, caches[i],
                 "decode", self.ctx, lengths=lengths, paged=paged, plan=plan,
                 placement=_layer_placement(placement, i), stats_sink=sink,
-                capacity_scale=capacity_scale)
+                capacity_scale=capacity_scale, memory=memory)
             new_caches.append(nc)
         x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
         if return_moe_stats:

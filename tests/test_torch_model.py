@@ -5,6 +5,7 @@ logits and the same greedy tokens (f32, CPU). The JAX side runs
 the Pallas kernel in interpret mode); the port runs its flash prefill and
 its decode kernel's plain version, so the one deliberate routing
 difference is held against the reference here."""
+import dataclasses
 import warnings
 
 import numpy as np
@@ -15,6 +16,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.models import ExecutionContext as JaxCtx  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
@@ -114,8 +116,53 @@ def test_unported_paths_raise():
         warned = [str(w.message) for w in caught
                   if "no re-placement will run" in str(w.message)]
         assert len(warned) == (arg != "track_expert_load")
-    # MLA is ported; the vlm and audio families are not
-    for family in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            build_model(get_smoke_config("qwen2-1.5b").reduced(
-                family=family), device="cpu")
+    # MLA and the vlm and audio families are ported: both build, and the
+    # encoder-decoder encodes its frames
+    for arch in ("internvl2-1b", "seamless-m4t-large-v2"):
+        cfg = get_smoke_config(arch)
+        model = build_model(cfg, dtype=torch.float32, device="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        frames = torch.randn(2, cfg.frontend_tokens, cfg.d_model)
+        if cfg.is_encoder_decoder:
+            memory = model.encode(params, frames)
+            assert memory.shape == frames.shape
+            assert bool(torch.isfinite(memory).all())
+        else:
+            assert "proj" in params and "enc_layers" not in params
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "starcoder2-3b",
+                                  "command-r-35b", "llama3-405b"])
+def test_last_configs_prefill_and_decode_match(arch):
+    """The last configs on paths already ported, at smoke size: prefill,
+    then teacher-forced decode logits against the reference's. granite
+    has tied embeddings and top-8 routing with no shared expert;
+    starcoder2 slides a 64-position window over the ring cache, which the
+    12-token prefill and 60 decode steps wrap; command-r ties its
+    embeddings."""
+    jcfg, cfg = jax_smoke(arch), get_smoke_config(arch)
+    if arch == "granite-moe-1b-a400m":
+        # the smoke config keeps top-2 of 4 experts; serve top-8 of 16
+        more = dict(num_experts=16, top_k=8)
+        jcfg = dataclasses.replace(
+            jcfg, moe=dataclasses.replace(jcfg.moe, **more))
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, **more))
+    jm = jax_build(jcfg, dtype=jnp.float32)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    tm = build_model(cfg, ctx=ExecutionContext(attn_impl="decode_kernel"),
+                     dtype=torch.float32, device="cpu")
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    steps = 60 if cfg.attention == "sliding" else 6
+    S = 12 + steps
+    toks = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                            size=(2, S)).astype(np.int32)
+    lj, cj = jm.prefill(jparams, jnp.asarray(toks[:, :12]), seq_budget=S)
+    lt, ct = tm.prefill(tparams, torch.from_numpy(toks[:, :12]),
+                        seq_budget=S)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    for t in range(12, S):
+        lj, cj = jm.decode_step(jparams, jnp.asarray(toks[:, t:t + 1]), cj)
+        lt, ct = tm.decode_step(tparams, torch.from_numpy(toks[:, t:t + 1]),
+                                ct)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)

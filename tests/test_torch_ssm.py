@@ -176,9 +176,10 @@ def test_layer_kinds_and_states():
     assert set(caches[1]) == {"c", "n", "m", "h", "conv"}
     # recurrent states stay f32 whatever the model dtype
     assert all(t.dtype == torch.float32 for c in caches for t in c.values())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_smoke_config("qwen2-1.5b").reduced(family="vlm"),
-                    device="cpu")
+    # the vlm family is ported: its backbone has the dense layer kinds
+    vlm = build_model(get_smoke_config("qwen2-1.5b").reduced(family="vlm"),
+                      device="cpu")
+    assert vlm.kinds == ("attn_mlp", "attn_mlp")
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,7 @@
 smoke size.
 
 The calibrate, serve, paged, pressure, dep, drift, placement, obs, mla,
-qwen3, ep, xlstm and hybrid phases run as on the card, with the smoke configs
+qwen3, ep, xlstm, hybrid and multimodal phases run as on the card, with the smoke configs
 in place of the full ones (the obs phase's entry point too; the qwen3
 path's smoke config at its 8 layers), every engine on the CPU, the
 calibration on the CPU at f32 over the reference's sweeps (the plain
@@ -125,6 +125,8 @@ def patch() -> None:
     chip_smoke.time_rep_gemm = lambda *a, **k: None
     chip_smoke.time_dep_alltoall = lambda *a, **k: None
     chip_smoke.time_mla_recompute = lambda *a, **k: {}
+    chip_smoke.time_cross_kv = chip_smoke.step_device_ms = \
+        lambda *a, **k: 0.0
     chip_smoke.DEP_BACKEND = "gloo"
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         setattr(torch.cuda, name, lambda *a, **k: None)
@@ -132,8 +134,9 @@ def patch() -> None:
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
     torch.cuda.max_memory_reserved = lambda *a, **k: 0
     chip_smoke.CAL_DEVICE = chip_smoke.OBS_DEVICE = "cpu"
-    chip_smoke.EP_DEVICE = "cpu"
+    chip_smoke.EP_DEVICE = chip_smoke.MM_DEVICE = "cpu"
     chip_smoke.CAL_DTYPE = chip_smoke.EP_DTYPE = torch.float32
+    chip_smoke.MM_DTYPE = torch.float32
 
 
 def main() -> int:
@@ -153,6 +156,7 @@ def main() -> int:
         chip_smoke.phase_ep(profile, setup=patch)
         chip_smoke.phase_serve_xlstm()
         chip_smoke.phase_serve_hybrid()
+        chip_smoke.phase_multimodal()
     print(f"rehearsal: the calibrate phase and every serve phase passed on "
           f"the CPU in "
           f"{time.perf_counter() - t0:.0f} s")
