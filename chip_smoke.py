@@ -212,22 +212,48 @@
               shifted by one position); encode, prefill-step and
               decode-step ms, a step's kernel time, the cross K/V
               recompute's ms, tokens/s and peak GB printed;
-  8. report   every phase's wall seconds and the total; one JSON line with
+  8. train    training on the card (``attn_impl="xla"``, the capacity MoE
+              path: the reference's ``train()`` configuration): the
+              expert GEMM's autograd Function at the full-width run's
+              shape (E = 60, C = 171, M = 2048, H = 1408) in f32 and bf16,
+              forward and the four gradients against autograd of the
+              plain version within ``TRAIN_GEMM_TOL`` (relative L2) beside
+              two controls that must exceed it (expert e+1's Wd, silu'
+              dropped), and the kernel's forward, its backward and
+              autograd of ``torch.bmm`` x3 + SiLU timed; qwen2-moe-a2.7b
+              at full width cut to 8 of its 24 layers (5.19 B params,
+              bf16, AdamW with bf16 states, 41.5 GB), 6 steps of 4 x 512
+              Markov tokens: every gradient leaf finite and non-zero after
+              the first backward, the loss and grad norm finite at every
+              step, the expert GEMM 8 launches a step and no other kernel
+              (16 in a step with remat); the smoke model's step in f32 on
+              the card against the CPU (loss and every gradient leaf
+              within ``TRAIN_SMALL_TOL``, beside a rolled-experts
+              control); ``python -m repro_torch.launch.train_small``
+              (its ``main``) with ``--preset 100m --steps 200`` (the
+              loss falls 0.2 nat or more) and ``--preset tiny --steps
+              200`` (1 nat or more), each checkpoint loading back bit
+              for bit;
+  9. report   every phase's wall seconds and the total; one JSON line with
               every kernel's numbers (launches from the dep path for the
-              kernels of qwen2-moe's dense KV, and per serve path in
-              ``launches_by_path``: the placement path's expert GEMM
-              counts the REP task's launches; the backbone paths' shapes
-              under ``backbones``), the card's name and power limit, and
-              as the last line {"ok": true, "device": ...}.
+              kernels of qwen2-moe's dense KV, and per serve or train
+              path in ``launches_by_path``: the placement path's expert
+              GEMM counts the REP task's launches; the backbone paths'
+              shapes under ``backbones``; the expert GEMM's train shape,
+              its backward ms and the comparisons under ``train``), the
+              card's name and power limit, and as the last line {"ok":
+              true, "device": ...}.
 
 Any failure ends the run with a traceback and a non-zero exit. Without a
 CUDA device it exits non-zero and prints no result.
 
 Run from the repository root:  python3 chip_smoke.py
 (``--no-serve`` stops after phase 3 and the ring check: a quick check of
-new kernels.) The calibration's profile store is a temporary directory
-under ``.repro-profiles/``, removed at the end.
-``python3 tools/rehearse_chip_smoke.py`` runs phases 4-6 on the CPU at
+new kernels; ``--train-only`` builds and runs phase 8 alone.) The
+calibration's profile store is a temporary directory under
+``.repro-profiles/``, the train loop's checkpoints are under
+``.repro-train/``, all removed at the end.
+``python3 tools/rehearse_chip_smoke.py`` runs phases 4-8 on the CPU at
 smoke size, with a stand-in for the CUDA graph and a gloo expert group.
 """
 from __future__ import annotations
@@ -278,15 +304,20 @@ from repro_torch.kernels.mlstm_scan import ops as mlstm_ops  # noqa: E402
 from repro_torch.kernels.mlstm_scan.ops import mlstm_scan  # noqa: E402
 from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import kernel as gemm_kernel  # noqa: E402
-from repro_torch.kernels.moe_gemm.ops import moe_gemm  # noqa: E402
+from repro_torch.kernels.moe_gemm import ops as gemm_ops  # noqa: E402
+from repro_torch.kernels.moe_gemm.ops import (moe_gemm,  # noqa: E402
+                                               moe_gemm_backward)
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref  # noqa: E402
 from repro_torch.kernels.rg_lru import kernel as rglru_kernel  # noqa: E402
 from repro_torch.kernels.rg_lru.ops import rg_lru_scan  # noqa: E402
 from repro_torch.kernels.rg_lru.ref import rg_lru_scan_ref  # noqa: E402
 from repro_torch.models import ExecutionContext, build_model  # noqa: E402
+from repro_torch.data import DataConfig, MarkovTextDataset  # noqa: E402
 from repro_torch.launch import serve_moe  # noqa: E402
+from repro_torch.launch import train_small as train_small_cli  # noqa: E402
 from repro_torch.launch.steps import (frontend_inputs,  # noqa: E402
-                                      make_prefill_step, make_serve_step)
+                                      loss_and_grads, make_prefill_step,
+                                      make_serve_step, make_train_step)
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.layers import dense_apply  # noqa: E402
 from repro_torch.placement import (Placement, SkewSummary,  # noqa: E402
@@ -303,6 +334,9 @@ from repro_torch.runtime.decode_graph import GraphKey  # noqa: E402
 from repro_torch.runtime.engine import prefill_split  # noqa: E402
 from repro_torch.sched.occupancy import bucket_length  # noqa: E402
 from repro_torch.sched import FinDEPPolicy, PlanCache  # noqa: E402
+from repro_torch.training import (AdamWConfig, apply_updates,  # noqa: E402
+                                  init_opt_state, load_checkpoint)
+from repro_torch.training.tree import tree_leaves  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -4634,6 +4668,518 @@ def phase_multimodal() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: train
+# ---------------------------------------------------------------------------
+
+#: where the train phase runs (the CPU rehearsal takes the CPU)
+TRAIN_DEVICE = "cuda"
+#: qwen2-moe-a2.7b layers trained on one card: a layer holds 0.571 B
+#: parameters and the 151936-token embedding and head 0.622 B, so 8 layers
+#: hold 5.19 B; bf16 parameters, gradients and two bf16 AdamW states take 8
+#: bytes a parameter, 41.5 GB (the 24 layers would need 114 GB)
+TRAIN_LAYERS = 8
+#: rows, tokens a row and steps of the full-width run
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 6
+#: the expert GEMM's autograd Function at the train step's shape: the
+#: relative L2 of its forward and of each gradient against autograd of
+#: ``moe_gemm_ref`` on float32 copies of the same inputs. f32: summation
+#: order (the sound readings 6.5e-8 to 1.3e-7). bf16: the backward rounds
+#: g, u and the elementwise terms to bf16 before each product and the
+#: forward rounds the activation (see GEMM_TOL); the sound readings were
+#: 2.35e-3 (y) to 3.88e-3 (dx) on the H100 and the controls (expert
+#: e+1's Wd, silu' dropped) 0.718 at least (PERF.md, training), so 2e-2
+#: is 5.2x the worst sound reading and 36x under the least control
+TRAIN_GEMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+#: the smoke model's step on the card (kernel forward) against the CPU
+#: (plain versions), f32: relative L2 of every gradient leaf and relative
+#: difference of the loss (the worst leaf read 2.84e-6 and the
+#: rolled-experts control 1.41 on the H100)
+TRAIN_SMALL_TOL = 1e-4
+#: the train loop end to end through the entry point, on the card: each
+#: run's arguments and the least fall of its loss (nats) from the mean of
+#: its first 5 steps to its final loss (the mean of the last 10). The
+#: 100m preset's 200 steps, the reference example's deliverable run, fall
+#: 0.41 nat on the card and as much in the reference's own run on the
+#: CPU (examples/train_small.py, other weights; PERF.md): its loss
+#: stays near ln(32000) = 10.37, the bigram table not yet learnt, so it is
+#: held to the reference test's 0.2 nat; the tiny preset learns the
+#: table in as many steps (6.72 -> 3.39 on the CPU), held to 1 nat
+TRAIN_LOOP_RUNS = ((["--preset", "100m", "--steps", "200"], 0.2),
+                   (["--preset", "tiny", "--steps", "200"], 1.0))
+
+
+def rel_l2(got, want) -> float:
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{prefix}.{k}" if prefix else k)
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from named_leaves(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def gemm_backward_without_silu_grad(x, wg, wu, wd, dy):
+    """A control: ``moe_gemm_backward`` with silu'(g) dropped from dg."""
+    dt = x.dtype
+    g, u = torch.bmm(x, wg).float(), torch.bmm(x, wu).float()
+    dh = torch.bmm(dy, wd.transpose(1, 2)).float()
+    dg, du = (dh * u).to(dt), (dh * F.silu(g)).to(dt)
+    xt = x.transpose(1, 2)
+    dx = (torch.bmm(dg, wg.transpose(1, 2)).float()
+          + torch.bmm(du, wu.transpose(1, 2)).float()).to(dt)
+    wd_grad = torch.bmm((F.silu(g) * u).to(dt).transpose(1, 2), dy)
+    return dx, torch.bmm(xt, dg), torch.bmm(xt, du), wd_grad
+
+
+GRAD_NAMES = ("y", "dx", "dW_gate", "dW_up", "dW_down")
+
+
+def train_gemm_shape():
+    """(E, C, M, H) of the full-width run's expert GEMM: the capacity of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens."""
+    cfg = get_config("qwen2-moe-a2.7b")
+    C = moe_lib.expert_capacity(TRAIN_BATCH * TRAIN_SEQ, cfg.moe)
+    return cfg.moe.num_experts, C, cfg.d_model, cfg.moe.expert_ffn_dim
+
+
+def time_train_gemm(x, wg, wu, wd, dy) -> dict:
+    """CUDA-event ms of the kernel's forward (no graph), its backward
+    (``moe_gemm_backward``), forward + backward through the Function, and
+    autograd of the plain version and of three ``torch.bmm`` + SiLU, with
+    the card's bound of each."""
+    E, C, M = x.shape
+    H = wg.shape[-1]
+    es = x.element_size()
+    # aliases that require a gradient, for the timings under autograd
+    ops = tuple(t.detach().requires_grad_() for t in (x, wg, wu, wd))
+
+    def lib(x, wg, wu, wd):
+        return torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
+
+    with torch.no_grad():
+        fwd = time_ms(lambda: moe_gemm(x, wg, wu, wd))
+        lib_fwd = time_ms(lambda: lib(x, wg, wu, wd))
+    bwd = time_ms(lambda: moe_gemm_backward(x, wg, wu, wd, dy))
+    both = time_ms(lambda: torch.autograd.grad(moe_gemm(*ops), ops, dy))
+    lib_both = time_ms(lambda: torch.autograd.grad(lib(*ops), ops, dy))
+    plain_both = time_ms(lambda: torch.autograd.grad(
+        moe_gemm_ref(*ops), ops, dy), iters=3, warmup=1)
+    back = profile_breakdown(lambda: moe_gemm_backward(x, wg, wu, wd, dy),
+                             f"train backward {x.dtype}")
+    emh, ecm = E * M * H, E * C * M
+    b_fwd = bound_ms((2 * ecm + 3 * emh) * es, 6.0 * ecm * H, x.dtype)
+    b_bwd = bound_ms((3 * ecm + 6 * emh) * es, 16.0 * ecm * H, x.dtype)
+    b_both = bound_ms((5 * ecm + 9 * emh) * es, 22.0 * ecm * H, x.dtype)
+    return dict(ms=fwd, backward_ms=bwd, fwd_bwd_ms=both,
+                library_ms=lib_fwd, library_fwd_bwd_ms=lib_both,
+                plain_fwd_bwd_ms=plain_both, backward_profile=back,
+                bound_ms=b_fwd[0],
+                bound_by=b_fwd[1], backward_bound_ms=b_bwd[0],
+                backward_bound_by=b_bwd[1], fwd_bwd_bound_ms=b_both[0],
+                fwd_bwd_bound_by=b_both[1])
+
+
+def check_train_gemm() -> dict:
+    """The expert GEMM's autograd Function at the full-width run's shape
+    in f32 and bf16: forward and the four gradients against autograd of
+    ``moe_gemm_ref`` on float32 copies (``TRAIN_GEMM_TOL``), one kernel
+    launch a forward, and in bf16 two controls (expert e+1's Wd; silu'
+    dropped), each of which must exceed the limit in every output it
+    changes; then the timings. Returns the report row."""
+    E, C, M, H = train_gemm_shape()
+    gen = generator_for(TRAIN_DEVICE, 0)
+    row = {"shape": f"E={E} C={C} M={M} H={H}"}
+    print(f"[train] expert GEMM Function at {row['shape']}")
+
+    def r(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=TRAIN_DEVICE)
+                * scale).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dy = r((E, C, M), dtype), r((E, C, M), dtype)
+        wg, wu = r((E, M, H), dtype, M ** -0.5), r((E, M, H), dtype, M ** -0.5)
+        wd = r((E, H, M), dtype, H ** -0.5)
+        ops32 = [t.float().requires_grad_() for t in (x, wg, wu, wd)]
+        y32 = moe_gemm_ref(*ops32)
+        want = (y32.detach(),) + torch.autograd.grad(y32, ops32,
+                                                     dy.float())
+        del ops32, y32
+        ops = (x, wg, wu, wd)
+        for t in ops:
+            t.requires_grad_()
+        before = kernel_lib.launch_counts()
+        y = gemm_ops.moe_gemm(*ops)
+        if launch_delta(before)["moe_gemm"] != 1 or y.grad_fn is None:
+            fail("train: moe_gemm under autograd did not launch the kernel "
+                 "once through its Function")
+        got = (y.detach(),) + torch.autograd.grad(y, ops, dy)
+        del y
+        tol = TRAIN_GEMM_TOL[dtype]
+        errs = {n: rel_l2(g, w) for n, g, w in zip(GRAD_NAMES, got, want)}
+        print(f"  {dtype}: relative L2 against autograd of the plain "
+              f"version " + ", ".join(f"{n} {e:.3e}" for n, e in
+                                      errs.items()) + f" (limit {tol})")
+        if not all(torch.isfinite(g).all() for g in got) \
+                or max(errs.values()) > tol:
+            fail(f"train: the expert GEMM Function disagrees with autograd "
+                 f"of its plain version in {dtype}: {errs}")
+        key = "f32" if dtype == torch.float32 else "bf16"
+        row[f"rel_l2_{key}"] = errs
+        if dtype == torch.bfloat16:
+            # each control and the gradients its fault reaches
+            with torch.no_grad():
+                controls = {
+                    "expert e+1's Wd": (moe_gemm_backward(
+                        x, wg, wu, torch.roll(wd, -1, dims=0), dy),
+                        ("dx", "dW_gate", "dW_up")),
+                    "silu' dropped": (gemm_backward_without_silu_grad(
+                        x, wg, wu, wd, dy), ("dx", "dW_gate"))}
+            ratios = {}
+            for label, (wrong, reached) in controls.items():
+                errs_c = {n: rel_l2(w, t) for n, w, t in
+                          zip(GRAD_NAMES[1:], wrong, want[1:])}
+                ratios[label] = min(errs_c[n] for n in reached) / tol
+                print(f"  control ({label}): relative L2 "
+                      + ", ".join(f"{n} {e:.3e}" for n, e in
+                                  errs_c.items())
+                      + f"; least over {', '.join(reached)} "
+                      f"{ratios[label]:.1f}x the limit")
+                if ratios[label] <= 1:
+                    fail(f"train: the control ({label}) passes "
+                         f"TRAIN_GEMM_TOL: the check cannot see it")
+            row["control_worst_ratio"] = ratios
+        del got, want
+        for t in ops:
+            t.requires_grad_(False)
+        timing = time_train_gemm(x, wg, wu, wd, dy)
+        if timing:
+            row[key] = timing
+            print(f"  {key}: forward kernel {timing['ms']:.3f} ms (bound "
+                  f"{timing['bound_ms']:.3f} by {timing['bound_by']}; "
+                  f"torch.bmm x3 {timing['library_ms']:.3f}), backward "
+                  f"{timing['backward_ms']:.3f} ms (bound "
+                  f"{timing['backward_bound_ms']:.3f} by "
+                  f"{timing['backward_bound_by']}), forward + backward "
+                  f"{timing['fwd_bwd_ms']:.3f} ms against autograd of "
+                  f"torch.bmm x3 + SiLU {timing['library_fwd_bwd_ms']:.3f} "
+                  f"and of the plain version "
+                  f"{timing['plain_fwd_bwd_ms']:.3f} (bound "
+                  f"{timing['fwd_bwd_bound_ms']:.3f} by "
+                  f"{timing['fwd_bwd_bound_by']})")
+        del x, wg, wu, wd, dy
+        if TRAIN_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return row
+
+
+def sync() -> None:
+    if TRAIN_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def profile_breakdown(fn, label: str, top: int = 8) -> dict:
+    """Calls of ``fn`` under torch.profiler, one a trace, until two traces
+    hold the same number of device events (the profiler drops some now
+    and then, PERF.md §7), four at most: the last call's wall ms (host
+    clock to a device sync), its kernels' device ms (summed; one stream)
+    and the card's idle share of the wall time, and the ``top`` kernels
+    by device time, printed. Without two traces that agree the device
+    numbers read None ("not measured"), not a short sum. ``calls`` is how
+    many times ``fn`` ran."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    seen = []
+    for _ in range(4):
+        sync()
+        with torch.profiler.profile(activities=acts) as prof:
+            t = time.perf_counter()
+            fn()
+            sync()
+            wall = (time.perf_counter() - t) * 1e3
+        by_name = {}
+        for e in device_events(prof):
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        count = sum(n for n, _ in by_name.values())
+        if (count and count in seen) or TRAIN_DEVICE != "cuda":
+            seen.append(count)
+            break
+        seen.append(count)
+    else:
+        print(f"[{label}] profiled: wall {wall:.2f} ms; device time not "
+              f"measured (device events a trace: {seen})")
+        return dict(wall_ms=wall, device_ms=None, idle=None, top=None,
+                    calls=len(seen))
+    busy = sum(us for _, us in by_name.values()) / 1e3
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    print(f"[{label}] profiled: wall {wall:.2f} ms, kernels {busy:.2f} ms "
+          f"on the device ({count} device events; traces {seen}), idle "
+          f"{1 - busy / wall:.1%}; top kernels:")
+    for name, (n, us) in ranked:
+        print(f"  {us / 1e3:8.3f} ms {n:5d}x  {name[:90]}")
+    return dict(wall_ms=wall, device_ms=busy, idle=1 - busy / wall,
+                top=[(name[:90], n, us / 1e3) for name, (n, us) in ranked],
+                calls=len(seen))
+
+
+def check_gradients(grads) -> None:
+    """Fail unless every gradient leaf is finite and not all zero: a
+    graph cut by a kernel without a backward leaves its weights' gradient
+    at zero."""
+    named = list(named_leaves(grads))
+    bad = torch.stack([(~torch.isfinite(g).all()) | (g.abs().amax() == 0)
+                       for _, g in named])
+    bad = [n for (n, _), b in zip(named, bad.tolist()) if b]
+    experts = [n for n, _ in named if ".experts." in n or ".router." in n]
+    if bad:
+        fail(f"train: {len(bad)} gradient leaves non-finite or all zero "
+             f"after the first backward: {bad[:8]}")
+    print(f"[train] first backward: all {len(named)} gradient leaves "
+          f"finite and non-zero ({len(experts)} of them the layers' "
+          f"stacked experts and routers)")
+
+
+def train_full() -> tuple:
+    """qwen2-moe-a2.7b at full width cut to ``TRAIN_LAYERS``, bf16 weights
+    from seed 0, ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ``
+    Markov tokens (seed 0) with the default AdamW (bf16 states). Step 1
+    is ``make_train_step``'s two halves, ``loss_and_grads`` and
+    ``apply_updates``, with every gradient leaf checked between them
+    (finite, not all zero: a cut graph leaves its weights at zero); steps
+    2.. are ``make_train_step``. Every step: the loss and grad norm
+    finite, the expert GEMM ``TRAIN_LAYERS`` launches and no other kernel.
+    Then one step with ``remat=True``: 2 x ``TRAIN_LAYERS`` launches.
+    Returns (launches over the steps, the report row)."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                              num_layers=TRAIN_LAYERS)
+    model = build_model(cfg, dtype=torch.bfloat16, device=TRAIN_DEVICE)
+    params = model.init(generator_for(model.device, 0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    opt_cfg = AdamWConfig(state_dtype=torch.bfloat16)
+    state = init_opt_state(params, opt_cfg)
+    step_fn = make_train_step(model, opt_cfg)
+    data = MarkovTextDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH, seed=0))
+    batches = [torch.from_numpy(data.sample_batch(s)).to(model.device)
+               for s in range(TRAIN_STEPS + 1)]
+    want = {"moe_gemm": TRAIN_LAYERS}
+    total = {k: 0 for k in kernel_lib.launch_counts()}
+    losses, norms, step_s = [], [], []
+    if TRAIN_DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for s in range(TRAIN_STEPS):
+        before = kernel_lib.launch_counts()
+        sync()
+        t = time.perf_counter()
+        if s == 0:
+            loss, grads = loss_and_grads(model, params, batches[s])
+            check_gradients(grads)
+            params, state, gnorm = apply_updates(params, grads, state,
+                                                 opt_cfg)
+            del grads
+            metrics = {"loss": loss, "grad_norm": gnorm}
+        else:
+            params, state, metrics = step_fn(params, state, batches[s])
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        sync()
+        step_s.append(time.perf_counter() - t)
+        delta = launch_delta(before)
+        expect_launches(f"train step {s}", delta, want)
+        for k, v in delta.items():
+            total[k] += v
+        if not (np.isfinite(losses[-1]) and np.isfinite(norms[-1])):
+            fail(f"train: step {s} loss {losses[-1]} grad norm "
+                 f"{norms[-1]}")
+    peak = (torch.cuda.max_memory_allocated() / 1e9
+            if TRAIN_DEVICE == "cuda" else 0.0)
+    before = kernel_lib.launch_counts()
+    holder = {}
+
+    def one_step():
+        holder["out"] = step_fn(params, state, batches[TRAIN_STEPS])
+
+    prof = profile_breakdown(one_step, "train step")
+    expect_launches("profiled train steps", launch_delta(before),
+                    {"moe_gemm": TRAIN_LAYERS * prof["calls"]})
+    params, state = holder.pop("out")[:2]
+    remat = build_model(cfg, ctx=ExecutionContext(remat=True),
+                        dtype=torch.bfloat16, device=TRAIN_DEVICE)
+    before = kernel_lib.launch_counts()
+    if TRAIN_DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t = time.perf_counter()
+    params, state, m = make_train_step(remat, opt_cfg)(
+        params, state, batches[TRAIN_STEPS])
+    remat_loss = float(m["loss"])
+    sync()
+    remat_s = time.perf_counter() - t
+    remat_peak = (torch.cuda.max_memory_allocated() / 1e9
+                  if TRAIN_DEVICE == "cuda" else 0.0)
+    expect_launches("train step with remat", launch_delta(before),
+                    {"moe_gemm": 2 * TRAIN_LAYERS})
+    step_ms = float(np.median(step_s[1:])) * 1e3
+    row = dict(config=f"{cfg.name} {TRAIN_LAYERS} of 24 layers",
+               params=n_params, batch=f"{TRAIN_BATCH} x {TRAIN_SEQ}",
+               losses=losses, grad_norms=norms,
+               step_ms=step_ms, step_ms_all=[x * 1e3 for x in step_s],
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+               peak_gb=peak, profile=prof, remat_step_ms=remat_s * 1e3,
+               remat_loss=remat_loss, remat_peak_gb=remat_peak)
+    print(f"[train] {row['config']} ({n_params / 1e9:.3f} B params, bf16, "
+          f"AdamW bf16 states): losses "
+          + ", ".join(f"{v:.4f}" for v in losses)
+          + f"; grad norms " + ", ".join(f"{v:.3f}" for v in norms)
+          + f"; step {step_ms:.1f} ms (median of steps 2-{TRAIN_STEPS}; "
+          f"all {', '.join(f'{x * 1e3:.1f}' for x in step_s)}), "
+          f"{row['tokens_per_s']:.0f} tokens/s, peak {peak:.2f} GB; "
+          f"remat step {remat_s * 1e3:.1f} ms, peak {remat_peak:.2f} GB, "
+          f"expert GEMM {TRAIN_LAYERS} launches a step "
+          f"({2 * TRAIN_LAYERS} with remat)")
+    del model, remat, params, state, batches, m, metrics, loss
+    sync()
+    if TRAIN_DEVICE == "cuda":
+        left = torch.cuda.memory_allocated() / 1e9
+        if left > 0.5:
+            fail(f"train: {left:.2f} GB still allocated after the run")
+        torch.cuda.empty_cache()
+    row["wall_s"] = time.perf_counter() - t0
+    return total, row
+
+
+def train_small() -> dict:
+    """One step's loss and gradients of qwen2-moe's smoke model in f32 on
+    the card (the expert GEMM kernel and its Function) against the same
+    step on the CPU (plain versions), from the same weights and Markov
+    tokens: the loss and every gradient leaf within ``TRAIN_SMALL_TOL``
+    (relative L2), beside a control (the CPU's expert gradients rolled by
+    one expert) that must exceed it in every expert leaf."""
+    cfg = get_smoke_config("qwen2-moe-a2.7b")
+    cpu = build_model(cfg, dtype=torch.float32, device="cpu")
+    p_cpu = cpu.init(generator_for("cpu", 0))
+    card = build_model(cfg, dtype=torch.float32, device=TRAIN_DEVICE)
+    p_card = params_from_numpy(_to_numpy(p_cpu), TRAIN_DEVICE,
+                               torch.float32)
+    toks = torch.from_numpy(MarkovTextDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=64, batch_size=4,
+        seed=0)).sample_batch(0))
+    l_cpu, g_cpu = loss_and_grads(cpu, p_cpu, toks)
+    before = kernel_lib.launch_counts()
+    l_card, g_card = loss_and_grads(card, p_card, toks.to(card.device))
+    n_moe = sum(k == "attn_moe" for k in card.kinds)
+    expect_launches("train small step", launch_delta(before),
+                    {"moe_gemm": n_moe})
+    loss_err = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    errs = {n: rel_l2(a, b) for (n, a), (_, b) in
+            zip(named_leaves(g_card), named_leaves(g_cpu))}
+    worst = max(errs, key=errs.get)
+    rolled = {n: rel_l2(a, torch.roll(b, 1, dims=0))
+              for (n, a), (_, b) in zip(named_leaves(g_card),
+                                        named_leaves(g_cpu))
+              if ".experts." in n}
+    print(f"[train small] {cfg.name} smoke, f32, 4 x 64 tokens: loss "
+          f"{float(l_card):.6f} card, {float(l_cpu):.6f} CPU (relative "
+          f"{loss_err:.2e}); {len(errs)} gradient leaves, worst relative "
+          f"L2 {errs[worst]:.2e} ({worst}); limit {TRAIN_SMALL_TOL}; "
+          f"control (expert gradients rolled by one expert) least "
+          f"{min(rolled.values()):.3e} over {len(rolled)} leaves")
+    if loss_err > TRAIN_SMALL_TOL or errs[worst] > TRAIN_SMALL_TOL:
+        fail(f"train small: the card's step disagrees with the CPU's "
+             f"(loss {loss_err:.2e}, {worst} {errs[worst]:.2e})")
+    if not rolled or min(rolled.values()) <= TRAIN_SMALL_TOL:
+        fail("train small: the rolled-experts control is within the limit")
+    return dict(loss_rel=loss_err, worst_grad_rel_l2=errs[worst],
+                worst_leaf=worst, control_least=min(rolled.values()))
+
+
+def train_loop(argv: list, drop: float, ckpt: str) -> tuple:
+    """``python -m repro_torch.launch.train_small`` (its ``main`` with
+    ``argv``, on the card, f32, through the f32 SIMT expert kernel): its
+    final loss at least ``drop`` below the mean of its first 5 steps; its
+    checkpoint loads back into the preset's parameter tree bit for bit
+    (every leaf equal to the file's bits) and is the trained model (its
+    loss on the last step's batch within 0.5 nat of the final loss).
+    Returns (launches, the report row)."""
+    before = kernel_lib.launch_counts()
+    argv = list(argv) + ["--ckpt", ckpt]
+    if TRAIN_DEVICE != "cuda":
+        argv += ["--device", TRAIN_DEVICE]
+    args = train_small_cli.build_parser().parse_args(argv)
+    res = train_small_cli.main(argv)
+    counts = launch_delta(before)
+    first = float(np.mean(res.losses[:5]))
+    data = MarkovTextDataset(DataConfig(
+        vocab_size=train_small_cli.PRESETS[args.preset].vocab_size,
+        seq_len=args.seq, batch_size=args.batch, seed=0))
+    print(f"[train loop] {args.preset}: losses " + ", ".join(
+        f"{v:.3f}" for v in res.losses[::max(args.steps // 20, 1)])
+        + f"; first 5 mean {first:.4f} -> final {res.final_loss:.4f} "
+        f"(data entropy floor {data.optimal_nll():.4f}); "
+        f"{res.tokens_per_s:.0f} tokens/s; launches {counts}")
+    if not res.final_loss <= first - drop:
+        fail(f"train loop: final loss {res.final_loss:.4f} is not {drop} "
+             f"below the first steps' {first:.4f}")
+    if counts["moe_gemm"] != args.steps * train_small_cli.PRESETS[
+            args.preset].num_layers or sum(counts.values()) != \
+            counts["moe_gemm"]:
+        fail(f"train loop: launches {counts}")
+    model = build_model(train_small_cli.PRESETS[args.preset],
+                        dtype=torch.float32, device=TRAIN_DEVICE)
+    like = {"params": model.init(generator_for(model.device, 1))}
+    back, step = load_checkpoint(ckpt, like)
+    stored = np.load(os.path.join(ckpt, "arrays.npz"))
+    for i, leaf in enumerate(tree_leaves(back)):
+        if not torch.equal(leaf.cpu(), torch.from_numpy(stored[f"leaf_{i}"])):
+            fail(f"train loop: checkpoint leaf {i} does not load back bit "
+                 "for bit")
+    with torch.no_grad():
+        again = float(model.loss(back["params"], torch.from_numpy(
+            data.sample_batch(args.steps - 1)).to(model.device)))
+    print(f"[train loop] checkpoint step {step}: {len(stored.files)} leaves "
+          f"load back bit for bit; its loss on the last batch {again:.4f}")
+    if step != args.steps or not abs(again - res.final_loss) < 0.5:
+        fail(f"train loop: the checkpoint (step {step}, loss {again:.4f}) "
+             "is not the trained model")
+    return counts, dict(preset=args.preset, steps=args.steps, drop=drop,
+                        first5=first, final_loss=res.final_loss,
+                        entropy_floor=data.optimal_nll(),
+                        tokens_per_s=res.tokens_per_s,
+                        ckpt_loss=again,
+                        losses=res.losses[::max(args.steps // 20, 1)])
+
+
+def phase_train() -> tuple:
+    """Training on the card: the expert GEMM's Function
+    (``check_train_gemm``), qwen2-moe-a2.7b at full width
+    (``train_full``), the smoke step against the CPU (``train_small``)
+    and the train loop through its entry point (``train_loop``). Returns
+    ({path: launches}, the expert GEMM's train row, the summary)."""
+    gemm = check_train_gemm()
+    counts, full = train_full()
+    small = train_small()
+    paths, loops = {"train": counts}, []
+    os.makedirs(os.path.join(ROOT, ".repro-train"), exist_ok=True)
+    for argv, drop in TRAIN_LOOP_RUNS:
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, ".repro-train")) as ckpt:
+            loop_counts, loop = train_loop(argv, drop, ckpt)
+        paths[f"train_loop {loop['preset']}"] = loop_counts
+        loops.append(loop)
+    summary = dict(full=full, small=small, loops=loops)
+    print("[train summary] " + json.dumps(summary))
+    return paths, gemm, summary
+
+
 #: the device-side names of the repo's CUDA kernels (src/repro_torch/csrc)
 OWN_KERNELS = ("decode_attention_split_kernel",
                "decode_attention_combine_kernel", "moe_gemm_",
@@ -4867,6 +5413,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--no-serve", action="store_true",
                     help="stop after the kernel and small-model phases")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build, then run the train phase alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4887,6 +5435,10 @@ def main(argv=None) -> int:
         return out
 
     phase("build", phase_build)
+    if args.train_only:
+        phase("train", phase_train)
+        print(f"[phase] wall s: {json.dumps(walls)}")
+        return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     entries = phase("kernels", lambda: [
@@ -4921,11 +5473,16 @@ def main(argv=None) -> int:
             counts["xlstm"] = phase("xlstm", phase_serve_xlstm)
             counts["hybrid"] = phase("hybrid", phase_serve_hybrid)
             counts.update(phase("multimodal", phase_multimodal))
+            train_counts, train_gemm, _ = phase("train", phase_train)
+            counts.update(train_counts)
     print(f"[phase] wall s: {json.dumps(walls)}; total "
           f"{sum(walls.values()):.1f} s")
 
     report = []
     for e in entries:
+        if e["name"] == "moe_gemm" and not args.no_serve:
+            e = dict(e, backward_ms=train_gemm["bf16"]["backward_ms"],
+                     train=train_gemm)
         at = {path: k[e["name"]] for path, k in backbones.items()
               if e["name"] in k}
         if at:

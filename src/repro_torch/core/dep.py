@@ -77,11 +77,13 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core import taskgraph as tg
+from repro_torch.kernels import refuse_grad
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import mlp_apply
 # module-level so the no-tracer walk pays no per-call import lookup
 from repro_torch.obs.trace import active_tracer
 from repro_torch.placement import Placement
+from repro_torch.training.tree import tree_leaves
 
 
 @dataclass(eq=False)
@@ -674,6 +676,10 @@ def moe_apply_dep(params, x, mcfg: MoEConfig, groups: DepGroups,
     its all_reduce); with ``return_stats`` also a ``moe.MoEStats`` of the
     layer's tokens on every rank (``load`` in logical expert ids, summed
     with ``dropped`` over the ranks that shard the tokens)."""
+    # its all_to_all_single calls have no gradient: the sharded train
+    # step belongs with the shardings
+    refuse_grad("moe_apply_dep", x, *tree_leaves(params),
+                *tree_leaves(hot_weights))
     Bl, Sl, M = x.shape
     mo = groups.expert_size
     E_pad = num_experts_padded or mcfg.num_experts

@@ -8,7 +8,24 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from repro_torch.kernels.build import DTYPE_CODES
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would need the backward of a kernel that has
+    none: grad mode is on and an operand requires a gradient. Called
+    before the device dispatch, so the plain version on the CPU refuses
+    what the kernel on the card would; serving never trips it (its
+    parameters require no gradient)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{name}: no backward (ROADMAP Queue 1 item 10): an operand "
+            "requires a gradient; train with attn_impl='xla' and "
+            "moe_impl 'capacity' or 'dense', or run under torch.no_grad()")
 
 
 def check_cuda_operands(name: str, *tensors, index=()) -> None:

@@ -7,7 +7,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check_cuda_operands, check_tma_operands
+from repro_torch.kernels import (check_cuda_operands, check_tma_operands,
+                                 refuse_grad)
 from repro_torch.kernels.decode_attention import kernel
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref)
@@ -43,6 +44,7 @@ def decode_attention(q, k_cache, v_cache, lengths):
     K and V are read with 16-byte copies: 16-byte aligned, D a multiple
     of 8 in bf16 and of 4 in f32.
     """
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lengths)
     B, H, D = q.shape
@@ -81,6 +83,7 @@ def decode_attention_paged(q, k_pages, v_pages, lengths, block_table):
     depend on it, so at any bs the result is bitwise the dense kernel's
     over the gathered contents. Pages are read as the dense cache is.
     """
+    refuse_grad("decode_attention_paged", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, lengths,
                                           block_table)

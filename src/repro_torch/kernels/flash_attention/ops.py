@@ -6,7 +6,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check_cuda_operands, check_tma_operands
+from repro_torch.kernels import (check_cuda_operands, check_tma_operands,
+                                 refuse_grad)
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -16,6 +17,7 @@ def flash_attention(q, k, v, causal: bool = True, window=None):
     attends every key. Any S runs: the kernel masks the ragged last
     tiles. bf16 runs the tensor-core kernel (operands 16-byte aligned),
     f32 the SIMT kernel."""
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     B, S, H, D = q.shape

@@ -5,7 +5,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check_cuda_operands, check_tma_operands
+from repro_torch.kernels import (check_cuda_operands, check_tma_operands,
+                                 refuse_grad)
 from repro_torch.kernels.mlstm_scan import kernel
 from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
 
@@ -39,6 +40,7 @@ def mlstm_scan(q, k, v, i_gate, log_f, C0, n0, m0, c_in_place=False):
     values per head). Only the recurrent route takes it: each of its
     threads reads its entries of C0 before it writes them.
     """
+    refuse_grad("mlstm_scan", q, k, v, i_gate, log_f, C0, n0, m0)
     if q.device.type == "cpu":
         h, C, n, m = mlstm_scan_ref(q, k, v, i_gate, log_f, C0, n0, m0)
         if c_in_place:

@@ -1,6 +1,12 @@
 """Public wrapper of the grouped expert FFN: dispatch by the tensors'
 device. A CPU tensor takes the plain version; a CUDA tensor launches the
-hand-written kernel or raises."""
+hand-written kernel or raises.
+
+Under autograd (grad mode on, an operand requiring a gradient) the call
+goes through ``MoEGemmFunction``: the forward is the same dispatch, the
+backward ``moe_gemm_backward`` on either device. The reference computes
+this gradient as the transpose of its einsums, outside any Pallas
+kernel, so the backward's products are library GEMMs (``torch.bmm``)."""
 from __future__ import annotations
 
 import torch
@@ -10,12 +16,7 @@ from repro_torch.kernels.moe_gemm import kernel
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 
 
-def moe_gemm(x, w_gate, w_up, w_down):
-    """Grouped expert SwiGLU FFN. x: [E, C, M]; w_gate/w_up: [E, M, H];
-    w_down: [E, H, M] -> [E, C, M] in x's dtype. Any C runs: the kernels
-    mask the ragged tiles (C=683 is what 8192 tokens give). bf16 runs the
-    tensor-core kernel at every C (M and H multiples of 8, the operands
-    16-byte aligned: TMA), f32 the SIMT kernel."""
+def _forward(x, w_gate, w_up, w_down):
     if x.device.type == "cpu":
         return moe_gemm_ref(x, w_gate, w_up, w_down)
     E, C, M = x.shape
@@ -37,5 +38,66 @@ def moe_gemm(x, w_gate, w_up, w_down):
     return out
 
 
-#: kernel launches (plain-version calls on CPU tensors do not count)
+def moe_gemm_backward(x, w_gate, w_up, w_down, dy):
+    """The gradients (dx, dW_gate, dW_up, dW_down) of ``moe_gemm`` at its
+    operands for the output's gradient ``dy`` [E, C, M], one code for
+    both devices. g = x Wg and u = x Wu are recomputed per expert; then
+    dWd = (silu(g)·u)^T dy, dh = dy Wd^T, dg = dh·u·silu'(g), du =
+    dh·silu(g), dWg = x^T dg, dWu = x^T du and dx = dg Wg^T + du Wu^T.
+    Each product is a ``torch.bmm`` in the operands' dtype, which
+    accumulates in float32; the elementwise terms are float32, rounded to
+    the operands' dtype before the product that reads them, and dx's two
+    products are summed in float32. The results are in the operands'
+    dtype."""
+    dt = x.dtype
+    dy = dy.to(dt)
+    xt = x.transpose(1, 2)
+    g = torch.bmm(x, w_gate).float()
+    u = torch.bmm(x, w_up).float()
+    sig = torch.sigmoid(g)
+    silu = g * sig
+    dw_down = torch.bmm((silu * u).to(dt).transpose(1, 2), dy)
+    dh = torch.bmm(dy, w_down.transpose(1, 2)).float()
+    dg = (dh * u * sig * (1 + g * (1 - sig))).to(dt)
+    du = (dh * silu).to(dt)
+    del g, u, sig, silu, dh
+    dw_gate = torch.bmm(xt, dg)
+    dw_up = torch.bmm(xt, du)
+    dx = (torch.bmm(dg, w_gate.transpose(1, 2)).float()
+          + torch.bmm(du, w_up.transpose(1, 2)).float()).to(dt)
+    return dx, dw_gate, dw_up, dw_down
+
+
+class MoEGemmFunction(torch.autograd.Function):
+    """``moe_gemm`` with a gradient: the forward launches the kernel on
+    the card (its plain version on the CPU) and counts as any call does;
+    the backward is ``moe_gemm_backward`` (no kernel launch)."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down):
+        ctx.save_for_backward(x, w_gate, w_up, w_down)
+        return _forward(x, w_gate, w_up, w_down)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_gate, w_up, w_down = ctx.saved_tensors
+        return moe_gemm_backward(x, w_gate, w_up, w_down, dy.contiguous())
+
+
+def moe_gemm(x, w_gate, w_up, w_down):
+    """Grouped expert SwiGLU FFN. x: [E, C, M]; w_gate/w_up: [E, M, H];
+    w_down: [E, H, M] -> [E, C, M] in x's dtype. Any C runs: the kernels
+    mask the ragged tiles (C=683 is what 8192 tokens give). bf16 runs the
+    tensor-core kernel at every C (M and H multiples of 8, the operands
+    16-byte aligned: TMA), f32 the SIMT kernel. Differentiable: under
+    grad mode an operand that requires a gradient takes
+    ``MoEGemmFunction``."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w_gate, w_up, w_down)):
+        return MoEGemmFunction.apply(x, w_gate, w_up, w_down)
+    return _forward(x, w_gate, w_up, w_down)
+
+
+#: kernel launches (plain-version calls on CPU tensors do not count); under
+#: remat a layer's forward runs twice per step and counts twice
 moe_gemm.launches = 0

@@ -5,7 +5,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check_cuda_operands, check_tma_operands
+from repro_torch.kernels import (check_cuda_operands, check_tma_operands,
+                                 refuse_grad)
 from repro_torch.kernels.rg_lru import kernel
 from repro_torch.kernels.rg_lru.ref import rg_lru_scan_ref
 
@@ -19,6 +20,7 @@ def rg_lru_scan(a, b, h0):
     last block of channels instead. On the card a and b are copied in
     16-byte pieces, so they must be 16-byte aligned with W a multiple of
     16 bytes of their type (4 f32 or 8 bf16 values)."""
+    refuse_grad("rg_lru_scan", a, b, h0)
     if a.device.type == "cpu":
         return rg_lru_scan_ref(a, b, h0)
     if a.dim() != 3 or b.shape != a.shape:

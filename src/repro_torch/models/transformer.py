@@ -21,6 +21,8 @@ Execution modes:
   prefill()      full-sequence + cache fill
   decode_step()  one token with cache (attention cache rows are written in
                  place; dense or, with ``block_tables``, paged KV)
+  loss()         the training loss: shift-by-one cross-entropy, read out
+                 in checkpointed chunks, + the MoE aux loss
 
 MoE layers dispatch through ``moe_impl``: "dense" (exact all-experts
 oracle), "capacity" (GShard capacity dispatch, one device) or "dep" (the
@@ -39,6 +41,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -70,6 +73,10 @@ class ExecutionContext:
     attn_impl: str = "xla"
     moe_impl: str = "capacity"
     groups: Optional[Any] = None
+    #: ``Model.loss`` checkpoints each layer (the reference's per-layer
+    #: ``jax.checkpoint``): its activations are recomputed in the backward
+    #: pass, the expert GEMM kernel's forward with them
+    remat: bool = False
 
     def __post_init__(self):
         if self.attn_impl not in attn.ATTN_IMPLS:
@@ -358,10 +365,11 @@ class Model:
 
     def _layers(self, params, tokens, extra_embeds, memory, caches,
                 plan=None, placement=None, sink=None,
-                capacity_scale: float = 1.0):
+                capacity_scale: float = 1.0, remat: bool = False):
         """The full-sequence pass up to the final norm: an encoder-decoder
         model given frames (``extra_embeds``) and no memory encodes them
-        first. Returns (x [B, P+S, M], new caches, each layer's aux)."""
+        first. ``remat`` checkpoints each decoder layer. Returns (x [B,
+        P+S, M], new caches, each layer's aux)."""
         cfg = self.cfg
         if cfg.is_encoder_decoder and memory is None \
                 and extra_embeds is not None:
@@ -372,8 +380,13 @@ class Model:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=self.device)[None].expand(B, S)
         auxes, new_caches = [], [None] * len(self.kinds)
+        layer = apply_layer
+        if remat:
+            def layer(*args, **kwargs):
+                return torch.utils.checkpoint.checkpoint(
+                    apply_layer, *args, use_reentrant=False, **kwargs)
         for i, kind in enumerate(self.kinds):
-            x, new_caches[i], aux = apply_layer(
+            x, new_caches[i], aux = layer(
                 params["layers"][i], cfg, kind, x, positions,
                 caches[i] if caches is not None else None, "prefill",
                 self.ctx, plan=plan,
@@ -479,3 +492,63 @@ class Model:
             return (self._readout(params, x), new_caches,
                     _stack_moe_stats(sink))
         return self._readout(params, x), new_caches
+
+    # ---- loss ------------------------------------------------------------
+    def loss(self, params, tokens, extra_embeds=None, ce_chunk: int = 512,
+             plan=None):
+        """Next-token cross-entropy (shift by one) + ``router_aux_loss_coef``
+        x the MoE aux loss summed over the layers, a float32 scalar. A vlm
+        model's targets start past its P patch embeddings; an
+        encoder-decoder model encodes its frames (``extra_embeds``) first.
+        The readout runs in chunks of ``ce_chunk`` positions
+        (``chunked_softmax_xent``), so the [tokens, vocab] logits are never
+        whole. With ``ctx.remat`` each decoder layer is recomputed in the
+        backward pass."""
+        cfg = self.cfg
+        tokens = tokens.to(self.device)
+        x, _, auxes = self._layers(params, tokens, extra_embeds, None, None,
+                                   plan=plan, remat=self.ctx.remat)
+        x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+        off = (extra_embeds.shape[1]
+               if (extra_embeds is not None and cfg.family == "vlm") else 0)
+        pred = x[:, off:off + tokens.shape[1] - 1]
+        tgt = tokens[:, 1:]
+        if cfg.tie_embeddings:
+            W = params["embed"]["embedding"].T
+        else:
+            W = params["lm_head"]["kernel"]
+        nll_mean = chunked_softmax_xent(pred, W, tgt, chunk=ce_chunk)
+        coef = cfg.moe.router_aux_loss_coef if cfg.moe else 0.0
+        return nll_mean + coef * torch.stack(auxes).sum()
+
+
+def _chunk_nll(xc, readout, tc, mc):
+    """The summed masked NLL of one chunk: xc [B, c, M], tc [B, c]."""
+    logits = xc.float() @ readout.float()                     # [B, c, V]
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tc.long()[..., None])[..., 0]
+    return torch.sum((lse - gold) * mc[None, :])
+
+
+def chunked_softmax_xent(x, readout, targets, chunk: int = 512):
+    """Fused linear + softmax cross-entropy over sequence chunks.
+
+    x: [B, T, M] final hidden states; readout: [M, V]; targets: [B, T].
+    The sequence is padded to a multiple of ``chunk`` (the padding
+    masked out), and no more than [B, chunk, V] of float32 logits is
+    live: each chunk is checkpointed, so the backward pass recomputes
+    its logits. Returns the mean NLL over all B*T positions."""
+    B, T, M = x.shape
+    n = max((T + chunk - 1) // chunk, 1)
+    Tp = n * chunk
+    if Tp != T:
+        x = torch.nn.functional.pad(x, (0, 0, 0, Tp - T))
+        targets = torch.nn.functional.pad(targets, (0, Tp - T))
+    mask = (torch.arange(Tp, device=x.device) < T).float()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        cut = slice(i * chunk, (i + 1) * chunk)
+        total = total + torch.utils.checkpoint.checkpoint(
+            _chunk_nll, x[:, cut], readout, targets[:, cut], mask[cut],
+            use_reentrant=False)
+    return total / (B * T)

@@ -1,6 +1,8 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import no
-JAX and nothing of the JAX package ``repro``, and their entry points run
-on the card unless the caller asks for the CPU."""
+JAX, nothing of the JAX package ``repro`` and no ``ml_dtypes`` (which
+ships with JAX and is missing where the port runs on the card), and
+their entry points run on the card unless the caller asks for the
+CPU."""
 import ast
 import os
 import subprocess
@@ -18,7 +20,7 @@ SMOKE = ROOT / "chip_smoke.py"
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.util, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "repro")
+BLOCKED = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 class Blocker:
@@ -66,7 +68,8 @@ def _imports(path: Path):
 def test_no_jax_or_repro_import_in_source(path):
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {name}"
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+            f"{path}: {name}"
 
 
 def test_entry_points_need_cuda_without_device():

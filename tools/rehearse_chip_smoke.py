@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's calibrate and serve phases on the CPU, at
-smoke size.
+"""Rehearse chip_smoke.py's calibrate, serve and train phases on the CPU,
+at smoke size.
 
 The calibrate, serve, paged, pressure, dep, drift, placement, obs, mla,
-qwen3, ep, xlstm, hybrid and multimodal phases run as on the card, with the smoke configs
+qwen3, ep, xlstm, hybrid, multimodal and train phases run as on the
+card, with the smoke configs
 in place of the full ones (the obs phase's entry point too; the qwen3
 path's smoke config at its 8 layers), every engine on the CPU, the
 calibration on the CPU at f32 over the reference's sweeps (the plain
@@ -23,8 +24,13 @@ device time; a skipped decode profile
 reports the card's host calls per graph step, 1 ``cudaGraphLaunch`` and
 2 ``cudaLaunchKernel``, so that the checks after it run). The obs
 phase's layer trace takes the host clock (no CUDA events on the CPU).
-This finds wrong paths,
-shapes and checks before a chip call; it measures nothing.
+The train phase holds the expert GEMM's Function at the smoke config's
+shape, trains the smoke config cut to 8 layers and runs the entry
+point's tiny preset for 60 steps of 4 x 64 tokens (its loss must fall
+0.2 nat, the reference's own test; on the card the 100m and tiny
+presets run 200 steps each). This
+finds wrong paths, shapes and checks before a chip call; it measures
+nothing.
 
 Run from the repository root:  python3 tools/rehearse_chip_smoke.py
 """
@@ -133,8 +139,16 @@ def patch() -> None:
     torch.cuda.memory_allocated = lambda *a, **k: 0
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
     torch.cuda.max_memory_reserved = lambda *a, **k: 0
+    # the train phase's timings run their calls once and read 0
+    chip_smoke.time_ms = lambda fn, *a, **k: (fn(), 0.0)[1]
+    chip_smoke.profile_breakdown = lambda fn, *a, **k: (fn(), {"calls": 1})[1]
     chip_smoke.CAL_DEVICE = chip_smoke.OBS_DEVICE = "cpu"
     chip_smoke.EP_DEVICE = chip_smoke.MM_DEVICE = "cpu"
+    chip_smoke.TRAIN_DEVICE = "cpu"
+    # the tiny preset's 60 steps of 4 x 64: the reference's own test asks
+    # 0.2 nat
+    chip_smoke.TRAIN_LOOP_RUNS = ((["--preset", "tiny", "--steps", "60",
+                                    "--batch", "4", "--seq", "64"], 0.2),)
     chip_smoke.CAL_DTYPE = chip_smoke.EP_DTYPE = torch.float32
     chip_smoke.MM_DTYPE = torch.float32
 
@@ -157,8 +171,9 @@ def main() -> int:
         chip_smoke.phase_serve_xlstm()
         chip_smoke.phase_serve_hybrid()
         chip_smoke.phase_multimodal()
-    print(f"rehearsal: the calibrate phase and every serve phase passed on "
-          f"the CPU in "
+        chip_smoke.phase_train()
+    print(f"rehearsal: the calibrate phase, every serve phase and the train "
+          f"phase passed on the CPU in "
           f"{time.perf_counter() - t0:.0f} s")
     return 0
 
