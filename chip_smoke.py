@@ -181,9 +181,19 @@
               replicated) in place, then 8 more requests; tokens/s,
               decode-step and prefill-call ms, A2E/E2A bytes and gloo's
               ms for them and peak GB per rank printed. The transport is
-              host-staged gloo: no wire is measured;
-  5. xlstm    ServingEngine with the full xlstm-1.3b config (48 layers,
-              42 mLSTM through the mLSTM scan kernels, 6 sLSTM): 16
+              host-staged gloo: no wire is measured. Then the same
+              teacher-forced check in f32 at ``EP_F32_LAYERS`` (two
+              ranks against the one-rank f32 engine within
+              ``EP_LOGIT_TOL[torch.float32]``, routing as it does: a
+              near-tie under ``EP_TIE_GAP`` routed apart by rounding is
+              routed as one rank, and printed, any other reroute fails;
+              the control beyond it),
+              beside two baselines of one rank: its DEP walk against its
+              capacity path (bf16, 24 layers) and its bf16 against its f32
+              logits at ``EP_F32_LAYERS``;
+  5. xlstm    ServingEngine with xlstm-1.3b at full width cut to 24 of
+              its 48 layers (``XLSTM_LAYERS``: 21 mLSTM through the mLSTM
+              scan kernels, 3 sLSTM): 16
               requests, 8 slots, max_context 1024, with the graph; held
               against an eager engine as in phase 4 and timed beside it;
               profiled over 3 decode steps (graph and eager) and one
@@ -212,6 +222,20 @@
               shifted by one position); encode, prefill-step and
               decode-step ms, a step's kernel time, the cross K/V
               recompute's ms, tokens/s and peak GB printed;
+  7b. long    qwen2-moe-a2.7b x ``SHAPES["long_500k"]`` through the launch
+              layer (``adapt_for_shape``: a sliding window of 8192 over
+              a ring cache; ``build``'s decode bundle): at 2 layers in
+              f32, 8 decode steps across the ring's wrap against a
+              prefill of the whole prompt, and the ring after them
+              against the rolled prefill's (``LONG_ATOL``), beside
+              controls on rings of 8191 and 8193 slots (the window edge
+              one key off) that must miss it; then 24 layers in bf16, the
+              bundle's abstract arguments materialised, a 12000-token
+              prompt prefilled into its ring and 8 greedy serve steps,
+              twice with the same tokens; ms a step, the ring's GB and
+              the peak beside the unadapted cache's 103 GB; the flash
+              and expert-GEMM launches checked and each kernel against
+              its plain version at the path's shapes;
   8. train    training on the card (``attn_impl="xla"``, the capacity MoE
               path: the reference's ``train()`` configuration): the
               expert GEMM's autograd Function at the full-width run's
@@ -229,7 +253,15 @@
               (16 in a step with remat); the smoke model's step in f32 on
               the card against the CPU (loss and every gradient leaf
               within ``TRAIN_SMALL_TOL``, beside a rolled-experts
-              control); ``python -m repro_torch.launch.train_small``
+              control); the sharded train step (``build`` on a
+              ``make_host_mesh``, DEP under autograd): at world size 1
+              over NCCL, 8 layers, bf16, against the capacity path's
+              step (every gradient leaf within ``TRAIN_DEP_TOL``, beside
+              a control whose reverse exchange swaps two experts' rows),
+              then two gloo ranks sharing the card (f32, 2 layers)
+              against a one-rank reference (``TRAIN_DEP_TOL`` f32, the
+              reverse exchange skipped as the control);
+              ``python -m repro_torch.launch.train_small``
               (its ``main``) with ``--preset 100m --steps 200`` (the
               loss falls 0.2 nat or more) and ``--preset tiny --steps
               200`` (1 nat or more), each checkpoint loading back bit
@@ -315,10 +347,22 @@ from repro_torch.models import ExecutionContext, build_model  # noqa: E402
 from repro_torch.data import DataConfig, MarkovTextDataset  # noqa: E402
 from repro_torch.launch import serve_moe  # noqa: E402
 from repro_torch.launch import train_small as train_small_cli  # noqa: E402
-from repro_torch.launch.steps import (frontend_inputs,  # noqa: E402
-                                      loss_and_grads, make_prefill_step,
-                                      make_serve_step, make_train_step)
+from repro_torch.configs import SHAPES  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.core import dep as dep_lib  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.steps import build as build_bundle  # noqa: E402
+from repro_torch.launch.steps import (LONG_CONTEXT_WINDOW,  # noqa: E402
+                                      adapt_for_shape,
+                                      decode_cache_specs, frontend_inputs,
+                                      loss_and_grads, make_model,
+                                      make_prefill_step, make_serve_step,
+                                      make_train_step, shard_batch,
+                                      sharded_loss_and_grads)
+from repro_torch.sharding.partition import (distribute_params,  # noqa: E402
+                                            gather_shards)
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.models import transformer as transformer_lib  # noqa: E402
 from repro_torch.models.layers import dense_apply  # noqa: E402
 from repro_torch.placement import (Placement, SkewSummary,  # noqa: E402
                                    rebalance)
@@ -336,7 +380,8 @@ from repro_torch.sched.occupancy import bucket_length  # noqa: E402
 from repro_torch.sched import FinDEPPolicy, PlanCache  # noqa: E402
 from repro_torch.training import (AdamWConfig, apply_updates,  # noqa: E402
                                   init_opt_state, load_checkpoint)
-from repro_torch.training.tree import tree_leaves  # noqa: E402
+from repro_torch.training.tree import (tree_leaves,  # noqa: E402
+                                       tree_unflatten)
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -3453,35 +3498,60 @@ def backbone_config(path: str):
 
 
 def check_flash_shape(gen, label: str, B: int, S: int, H: int, Kv: int,
-                      D: int) -> dict:
+                      D: int, window=None) -> dict:
     """bf16 flash at a serve path's prefill shape against its plain
     version (``FLASH_TOL``, beside the off-by-one controls); the kernel,
     the plain version (CUDA events: its device events per call vary
     with the shape) and ``F.scaled_dot_product_attention`` (K/V repeated
-    to H heads beforehand) timed, and the card's bound."""
+    to H heads beforehand; with a ``window``, its band as a boolean mask)
+    timed, and the card's bound (the window's keys only)."""
     dtype = torch.bfloat16
     q = randn(gen, (B, S, H, D), dtype)
     k = randn(gen, (B, S, Kv, D), dtype)
     v = randn(gen, (B, S, Kv, D), dtype)
-    name = f"{label} B={B} S={S} H={H} Kv={Kv} D={D} bf16"
-    got = flash_attention(q, k, v)
-    err = compare(name, got, flash_attention_ref(q, k, v), dtype,
-                  FLASH_TOL[dtype])
-    ctrl = check_flash_controls(name, got, q, k, v)
+    name = f"{label} B={B} S={S} H={H} Kv={Kv} D={D}" + (
+        f" window={window}" if window else "") + " bf16"
+    got = flash_attention(q, k, v, window=window)
+    err = compare(name, got, flash_attention_ref(q, k, v, window=window),
+                  dtype, FLASH_TOL[dtype])
+    ctrl = check_flash_controls(name, got, q, k, v, window=window)
     qt = q.transpose(1, 2).contiguous()
     kt, vt = (t.transpose(1, 2).repeat_interleave(H // Kv, dim=1)
               .contiguous() for t in (k, v))
-    ms, dev = timed(lambda: flash_attention(q, k, v), "flash_attention_")
-    plain = time_ms(lambda: flash_attention_ref(q, k, v), iters=5)
-    lib, lib_dev = timed(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    flops = 4.0 * B * H * D * S * (S + 1) / 2
+    plain = time_ms(lambda: flash_attention_ref(q, k, v, window=window),
+                    iters=5)
+    if window is None:
+        ms, dev = timed(lambda: flash_attention(q, k, v), "flash_attention_")
+        lib, lib_dev = timed(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        keys = (S + 1) / 2
+        how = "device"
+    else:
+        # calls of a millisecond and more (the long phase's prompt) time as
+        # CUDA events around back-to-back calls: late in a run the profiler
+        # has lost nine of ten such calls' events from every trace
+        i = torch.arange(S, device=q.device)
+        band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        keys = float(band.sum()) / S
+
+        def kern():
+            return flash_attention(q, k, v, window=window)
+
+        def lib_fn():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+        ms, dev = time_ms(kern), back_to_back_ms(kern)
+        lib, lib_dev = time_ms(lib_fn), back_to_back_ms(lib_fn)
+        del band
+        how = "back to back"
+    flops = 4.0 * B * H * D * S * keys
     nbytes = (2 * B * S * H * D + 2 * B * S * Kv * D) * 2
     b, by = bound_ms(nbytes, flops, dtype)
-    print(f"  {name}: kernel {ms:.4f} ms events, {dev:.4f} ms device "
+    if window is not None and min(dev, lib_dev) < b:
+        fail(f"{name}: a time below the card's bound {b:.4f} ms")
+    print(f"  {name}: kernel {ms:.4f} ms events, {dev:.4f} ms {how} "
           f"({flops / dev / 1e9:.1f} TFLOP/s); plain {plain:.3f} ms events; "
-          f"F.scaled_dot_product_attention {lib:.4f} / {lib_dev:.4f} ms; "
-          f"bound {b:.4f} ms ({by})")
+          f"F.scaled_dot_product_attention {lib:.4f} / {lib_dev:.4f} ms "
+          f"({how}); bound {b:.4f} ms ({by})")
     return dict(shape=name, max_abs_err=err, control_worst_ratio=ctrl,
                 ms=ms, device_ms=dev, plain_ms=plain, library_ms=lib,
                 library_device_ms=lib_dev, bound_ms=b, bound_by=by)
@@ -3920,6 +3990,22 @@ EP_DTYPE = torch.bfloat16
 #: [8, V] logits. bf16: set from the sound readings (module docstring of
 #: the ep phase); the off-by-one-expert control must fail it
 EP_LOGIT_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.3}
+#: the f32 teacher-forced check of two ranks against one, both engines
+#: cut alike to the depth where a near-tie first routed a token apart
+#: (layer 10 of 12). All 24 layers fit (40.2 / 40.6 GB a rank) and read
+#: 1.833e-6 with that tie routed as one rank (PERF.md), but took the
+#: ep phase to 248 s and the whole run to 1047 s of its 1200 on a slow
+#: host; 12 layers take about half the f32 part
+EP_F32_LAYERS = 12
+#: a near-tie of the router: a token whose k-th and (k+1)-th router
+#: probabilities in the one-rank f32 run lie closer than this may route
+#: to other experts on two ranks by rounding alone (the two runs' router
+#: GEMMs differ in shape and round ~1e-6 apart; one token of the 2 x 256
+#: prefill call has its 4th and 5th 7.08e-8 apart in layer 10 and routed
+#: apart, tools/probe_ep_engine_f32.py). ``TieRouting`` routes such a
+#: token as the one-rank run did and prints its gap; a token routed apart
+#: across a wider gap fails the check
+EP_TIE_GAP = 1e-6
 #: a re-balance threshold no load reaches: placement stays enabled (and
 #: loads tracked) and nothing re-places but ``rebalance_now``
 EP_NEVER = 1e9
@@ -4191,9 +4277,76 @@ def ep_rank_work(rank, groups, device, store_dir, profile) -> dict:
     out["alltoall"] = {n: (c, gloo_ms[n]) for n, c in a2a.sizes.items()}
     out["peak_gb"] = max(init_peak, torch.cuda.max_memory_allocated() / 1e9
                          if device.type == "cuda" else 0.0)
-    out["wall_s"] = time.perf_counter() - t0
     del eng, experts, hot, layers
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    ep_rank_f32(rank, groups, device, one["f32"], out)
+    out["wall_s"] = time.perf_counter() - t0
     return out
+
+
+def ep_rank_f32(rank, groups, device, want, out) -> None:
+    """The rank's f32 check: an engine at ``EP_F32_LAYERS`` (capacity
+    factor E / top_k, f32 weights drawn from seed 0, its E / 2 experts)
+    on the two ranks, 11 teacher-forced steps routing every token as the
+    one-rank f32 engine does (``TieRouting``: a near-tie routed apart is
+    routed as one rank did, any other reroute fails) and within
+    ``EP_LOGIT_TOL[torch.float32]`` of its logits (``want``, from
+    ``ep_f32_reference``), and the off-by-one-expert control beyond
+    it."""
+    path = f"ep rank {rank} f32"
+    t = time.perf_counter()
+    cfg = dataclasses.replace(no_drop(get_config("qwen2-moe-a2.7b")),
+                              num_layers=EP_F32_LAYERS)
+    E_loc = cfg.moe.num_experts // EP_RANKS
+    eng = ServingEngine(cfg, num_slots=8, max_context=1024,
+                        dtype=torch.float32, device=device, seed=0,
+                        ep_group=groups, decode_graph=False,
+                        track_expert_load=True)
+    limit = EP_LOGIT_TOL[torch.float32]
+    with TieRouting(want, rank, EP_RANKS, cfg.num_layers,
+                    EP_TIE_GAP) as rec:
+        got = forced_logits(eng, cfg, forced_prompts(cfg.vocab_size))
+    out["forced_f32"] = logit_error(got, want["logits"])
+    out["ties_f32"], out["rerouted_f32"] = rec.ties, rec.apart
+    if eng.stats.dropped_tokens:
+        fail(f"{path}: {eng.stats.dropped_tokens} assignments dropped")
+    if rec.apart:
+        fail(f"{path}: tokens routed apart from the one-rank run's routing "
+             f"across a gap of at least {EP_TIE_GAP} (call, layer, tokens, "
+             f"smallest gap) {rec.apart}")
+    if rec.calls != len(want["experts"]):
+        fail(f"{path}: {rec.calls} routings against the one-rank run's "
+             f"{len(want['experts'])}")
+    params = eng.params
+    del eng
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    fe = ServingEngine(cfg, params=params, num_slots=8, max_context=1024,
+                       dtype=torch.float32, device=device, seed=0,
+                       ep_group=groups, decode_graph=False)
+    shift_control(params, groups, E_loc)
+    out["control_f32"] = logit_error(forced_logits(
+        fe, cfg, forced_prompts(cfg.vocab_size)), want["logits"])
+    if device.type == "cuda":
+        out["peak_f32_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    print(f"[{path}] {EP_F32_LAYERS} layers, 11 teacher-forced steps "
+          f"routing every token as one rank does ({rec.calls} routings; "
+          f"near-ties under {EP_TIE_GAP} routed apart by rounding and "
+          f"routed as one rank, (call, layer, token, gap): {rec.ties}), "
+          f"against the one-rank f32 engine: worst step "
+          f"{out['forced_f32'][0]:.3e} (max |d| {out['forced_f32'][1]:.3e}; "
+          f"per step {out['forced_f32'][2]}), limit {limit}; the "
+          f"off-by-one-expert control {out['control_f32'][0]:.3e}; peak "
+          f"{out.get('peak_f32_gb', 0):.2f} GB; "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    if out["forced_f32"][0] > limit:
+        fail(f"{path}: teacher-forced logits {out['forced_f32'][0]:.3e} off "
+             f"the one-rank engine's, over the limit {limit}")
+    if out["control_f32"][0] <= limit:
+        fail(f"{path}: the control reads {out['control_f32'][0]:.3e}, "
+             f"within the limit {limit}")
+    del fe, params
 
 
 def ep_rank(rank: int, store_dir: str, profile, results, setup=None):
@@ -4216,6 +4369,165 @@ def ep_rank(rank: int, store_dir: str, profile, results, setup=None):
                                         profile)))
     finally:
         torch.distributed.destroy_process_group()
+
+
+class MoeRecord:
+    """While entered, keeps each MoE layer's input shape and each
+    routing's probabilities and expert ids (on the CPU), in call order."""
+
+    def __enter__(self):
+        self.shapes, self.probs, self.experts = [], [], []
+        self._apply = transformer_lib._apply_moe
+        self._route = moe_lib.route_topk
+
+        def apply(p, cfg, h, *a, **kw):
+            self.shapes.append(tuple(h.shape))
+            return self._apply(p, cfg, h, *a, **kw)
+
+        def route(*a, **kw):
+            r = self._route(*a, **kw)
+            self.probs.append(r.probs.detach().float().cpu())
+            self.experts.append(r.experts.detach().cpu())
+            return r
+        transformer_lib._apply_moe, moe_lib.route_topk = apply, route
+        return self
+
+    def __exit__(self, *exc):
+        transformer_lib._apply_moe = self._apply
+        moe_lib.route_topk = self._route
+
+
+class TieRouting:
+    """While entered, a rank of an expert group routes as the one-rank
+    f32 run ``want`` did (``ep_f32_reference``: each routing's input
+    shape, experts and gap between its k-th and (k+1)-th probabilities,
+    in call order) wherever the two differ by rounding: a token whose set
+    of top-k experts differs from ``want``'s takes ``want``'s experts
+    (weighted by the rank's own probabilities, renormalised as
+    ``route_topk`` does) if ``want``'s gap there is under ``tie``, and is
+    listed in ``ties`` as (call, layer, token, gap). Any other token
+    routed apart is counted in ``apart`` as (call, layer, tokens,
+    smallest gap). In sequence mode the rank routes its part of each
+    row's sequence, otherwise every token."""
+
+    def __init__(self, want, rank: int, ranks: int, layers: int,
+                 tie: float):
+        self.want, self.rank, self.ranks = want, rank, ranks
+        self.layers, self.tie = layers, tie
+        self.calls, self.ties, self.apart = 0, [], []
+
+    def __enter__(self):
+        self._route = moe_lib.route_topk
+
+        def route(router_params, x_flat, mcfg, num_experts_padded=0):
+            r = self._route(router_params, x_flat, mcfg, num_experts_padded)
+            return self._force(r)
+        moe_lib.route_topk = route
+        return self
+
+    def __exit__(self, *exc):
+        moe_lib.route_topk = self._route
+
+    def _force(self, r):
+        i = self.calls
+        self.calls += 1
+        if i >= len(self.want["experts"]):
+            fail(f"routing: more than the one-rank run's "
+                 f"{len(self.want['experts'])} routings")
+        B, S, _ = self.want["shapes"][i]
+        e = r.experts
+        N, k = e.shape
+        w = self.want["experts"][i].view(B, S, k)
+        g = self.want["gaps"][i].view(B, S)
+        if N < B * S:                         # sequence mode
+            part = S // self.ranks
+            cut = slice(self.rank * part, (self.rank + 1) * part)
+            w, g = w[:, cut], g[:, cut]
+        w, g = w.reshape(N, k), g.reshape(N)
+        diff = (e.cpu().sort(-1).values != w.sort(-1).values).any(-1)
+        if not diff.any():
+            return r
+        at = diff.nonzero()[:, 0]
+        near = g[at] < self.tie
+        call, layer = divmod(i, self.layers)
+        self.ties += [(call, layer, int(t), float(g[t])) for t in at[near]]
+        if (~near).any():
+            self.apart.append((call, layer, int((~near).sum()),
+                               float(g[at[~near]].min())))
+        if not near.any():
+            return r
+        experts = e.clone()
+        tok = at[near].to(e.device)
+        experts[tok] = w[at[near]].to(e.device, e.dtype)
+        weights = r.probs.gather(-1, experts)
+        weights = weights / torch.clamp(weights.sum(-1, keepdim=True),
+                                        min=1e-9)
+        return moe_lib.Routing(weights=weights.to(r.weights.dtype),
+                               experts=experts, probs=r.probs)
+
+
+def ep_dep_baseline(one, cfg, profile, want) -> tuple:
+    """One rank's bf16 baseline between two sound routes on the same
+    weights: the DEP walk on a gloo group of one rank (the FinDEP plans
+    on the measured profile, eager) against the one-rank capacity engine
+    ``one``'s teacher-forced logits ``want``, both at no drop."""
+    groups = DepGroups.single("gloo")
+    try:
+        eng = ServingEngine(no_drop(cfg), params=one.params, num_slots=8,
+                            max_context=1024, dtype=EP_DTYPE,
+                            device=EP_DEVICE, seed=0,
+                            plan_policy=dep_policy(cfg, profile),
+                            profile=profile, ep_group=groups,
+                            decode_graph=False, track_expert_load=True)
+        got = forced_logits(eng, cfg, forced_prompts(cfg.vocab_size))
+        if eng.stats.dropped_tokens:
+            fail(f"ep: the DEP baseline dropped {eng.stats.dropped_tokens}")
+        err = logit_error(got, want)
+        del eng
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"[ep] one rank, {str(EP_DTYPE)[6:]}, {cfg.num_layers} layers: "
+          f"the DEP walk against the "
+          f"capacity path on the same weights, teacher-forced: worst step "
+          f"{err[0]:.3e} (per step {err[2]})", flush=True)
+    return err
+
+
+def ep_f32_reference(cfg) -> tuple:
+    """The one-rank engine at ``EP_F32_LAYERS`` in f32 (every expert,
+    capacity path, no drop, weights from seed 0): its teacher-forced
+    logits, routings and each routed token's gap between its k-th and
+    (k+1)-th probabilities, which the ranks' f32 check is held to; and
+    the same engine in bf16 against them (what bf16 rounding alone gives
+    at that depth)."""
+    t = time.perf_counter()
+    cut = dataclasses.replace(no_drop(cfg), num_layers=EP_F32_LAYERS)
+    logits = {}
+    for dt in (torch.float32, torch.bfloat16):
+        eng = ServingEngine(cut, num_slots=8, max_context=1024, dtype=dt,
+                            device=EP_DEVICE, seed=0, decode_graph=False,
+                            track_expert_load=True)
+        with MoeRecord() as rec:
+            logits[dt] = forced_logits(eng, cut,
+                                       forced_prompts(cfg.vocab_size))
+        if dt == torch.float32:
+            k = cut.moe.top_k
+            routing = dict(shapes=rec.shapes, experts=rec.experts,
+                           gaps=[(lambda v: v[:, k - 1] - v[:, k])(
+                               p.topk(k + 1, dim=-1).values)
+                               for p in rec.probs])
+        del rec
+        if eng.stats.dropped_tokens:
+            fail(f"ep: the one-rank {dt} engine dropped assignments")
+        del eng
+        if EP_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    err = logit_error(logits[torch.bfloat16], logits[torch.float32])
+    print(f"[ep] the one-rank engine at {EP_F32_LAYERS} layers: f32 logits "
+          f"and routings for the ranks' f32 check; bf16 against f32 worst "
+          f"step {err[0]:.3e} (per step {err[2]}); "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    return dict(logits=logits[torch.float32], **routing), err
 
 
 def phase_ep(profile, setup=None) -> dict:
@@ -4253,6 +4565,8 @@ def phase_ep(profile, setup=None) -> dict:
     if one.stats.dropped_tokens:
         fail(f"ep: the one-rank engine dropped {one.stats.dropped_tokens} "
              "assignments")
+    baselines = {"dep_vs_capacity": ep_dep_baseline(one, cfg, profile,
+                                                    shared["logits"])}
     del one
     if EP_DEVICE == "cuda":
         torch.cuda.synchronize()
@@ -4261,6 +4575,7 @@ def phase_ep(profile, setup=None) -> dict:
           f"{no_drop(cfg).moe.capacity_factor}, nothing dropped): 11 "
           f"teacher-forced steps in {time.perf_counter() - t0:.1f} s; freed",
           flush=True)
+    shared["f32"], baselines["bf16_vs_f32"] = ep_f32_reference(cfg)
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     got = {}
@@ -4291,6 +4606,19 @@ def phase_ep(profile, setup=None) -> dict:
     for what in ("tokens", "placed_tokens"):
         if any(got[r][what] != got[0][what] for r in range(EP_RANKS)):
             fail(f"ep: the ranks' {what} differ")
+    f32 = got[0]["forced_f32"]
+    print(f"[ep] the bf16 gap, settled at f32: two ranks against one at "
+          f"{EP_F32_LAYERS} layers, f32: worst step {f32[0]:.3e} (limit "
+          f"{EP_LOGIT_TOL[torch.float32]}; control "
+          f"{got[0]['control_f32'][0]:.3e}; near-ties routed as one rank "
+          f"(rank: (call, layer, token, gap)) "
+          f"{ {r: got[r]['ties_f32'] for r in got} }); "
+          f"{str(EP_DTYPE)[6:]} at "
+          f"{cfg.num_layers} layers: two ranks "
+          f"against one {got[0]['forced'][0]:.3e}, one rank's DEP walk "
+          f"against its capacity path {baselines['dep_vs_capacity'][0]:.3e}"
+          f"; one rank bf16 against f32 at {EP_F32_LAYERS} layers "
+          f"{baselines['bf16_vs_f32'][0]:.3e}; " + json.dumps(baselines))
     print(f"[ep] both ranks hold the same tokens for all 16 requests and "
           f"the 8 after the re-placement; programs walked "
           f"{got[0]['programs']}")
@@ -4319,11 +4647,20 @@ def phase_ep(profile, setup=None) -> dict:
     return got[0]["counts"]
 
 
+#: the xLSTM path's depth: xlstm-1.3b at full width cut from 48 layers to
+#: 24 (its 7:1 mLSTM:sLSTM pattern kept, 21 + 3), which halves the
+#: phase's sLSTM prefill loop to make room for the launch layer's
+#: checks; every layer kind and kernel shape is the full model's
+XLSTM_LAYERS = 24
+
+
 def phase_serve_xlstm():
-    """The xLSTM path: full xlstm-1.3b, every mLSTM layer through the
-    mLSTM scan kernel at prefill and decode, with the decode graph; held
-    against an eager engine on the same weights and timed beside it."""
-    cfg = get_config("xlstm-1.3b")
+    """The xLSTM path: xlstm-1.3b at full width and ``XLSTM_LAYERS``,
+    every mLSTM layer through the mLSTM scan kernel at prefill and
+    decode, with the decode graph; held against an eager engine on the
+    same weights and timed beside it."""
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"),
+                              num_layers=XLSTM_LAYERS)
     t0 = time.perf_counter()
     eng = ServingEngine(cfg, num_slots=8, max_context=1024,
                         dtype=torch.bfloat16, seed=0)
@@ -4673,6 +5010,232 @@ def phase_multimodal() -> dict:
 # ---------------------------------------------------------------------------
 
 #: where the train phase runs (the CPU rehearsal takes the CPU)
+# ---------------------------------------------------------------------------
+# long: qwen2-moe-a2.7b at long_500k through the launch layer's bundle
+
+LONG_DEVICE = "cuda"
+#: the correctness run's depth (f32, full width): the prefix prefilled
+#: (two short of the ring: the serve steps wrap it) and the serve steps
+LONG_CHECK_LAYERS = 2
+LONG_PREFIX = LONG_CONTEXT_WINDOW - 2
+LONG_STEPS = 8
+#: f32 through 2 layers at S ~ 8200: summation order only (1.79e-5 and
+#: the ring 1.20e-5, PERF.md); the window-edge controls must miss it
+LONG_ATOL = 1e-4
+#: the controls: the same steps decoded on rings one slot shorter and one
+#: longer than the window, so that the decode mask's window edge is off
+#: by one key either way from the prefill's
+LONG_CONTROL_SLOTS = (-1, 1)
+#: the full-depth bf16 run: a prompt that wraps the ring in its prefill,
+#: then greedy serve steps
+LONG_PROMPT = 12000
+LONG_SERVE_STEPS = 8
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def long_check(cfg, shape) -> dict:
+    """The correctness half of ``phase_long``: the adapted config cut to
+    ``LONG_CHECK_LAYERS`` at full width, f32, capacity factor E / top_k
+    (prefills of different lengths then drop nothing, as one token a
+    step does not). The bundle's model prefills ``LONG_PREFIX`` tokens
+    (``make_prefill_step``: caches of the prompt's length, grown to the
+    bundle's ring of the window), then decodes ``LONG_STEPS`` tokens
+    across the ring's wrap; each step's logits must equal the last
+    logits of a prefill of the whole prompt so far within ``LONG_ATOL``,
+    and the ring after the steps the rolled ring of that prefill. The
+    controls decode the same steps from the same prefill on rings of W
+    - 1 and W + 1 slots (``LONG_CONTROL_SLOTS``: the window edge one key
+    off either way), and must miss ``LONG_ATOL``."""
+    t0 = time.perf_counter()
+    ccfg = no_drop(dataclasses.replace(cfg, num_layers=LONG_CHECK_LAYERS))
+    b = build_bundle(ccfg, shape, dtype=torch.float32,
+                     device=LONG_DEVICE, attn_impl="flash")
+    model = b.model
+    params = model.init(generator_for(model.device, 0))
+    prefill = make_prefill_step(model)
+    P, W = LONG_PREFIX, ccfg.sliding_window
+    toks = torch.from_numpy(np.random.RandomState(7).randint(
+        0, ccfg.vocab_size, size=(1, P + LONG_STEPS))).to(model.device)
+    before = kernel_lib.launch_counts()
+    _, short = prefill(params, toks[:, :P])
+    caches = grow_caches(short, W - P)
+    if [tuple(c["k"].shape) for c in caches] != \
+            [tuple(c["k"].shape) for c in b.abstract_args[2]]:
+        fail("long: the grown prefill caches are not the bundle's ring")
+    worst, wants = 0.0, []
+    for j in range(LONG_STEPS):
+        logits, caches = model.decode_step(params, toks[:, P + j:P + j + 1],
+                                           caches)
+        want, pre = prefill(params, toks[:, :P + j + 1])
+        wants.append(want)
+        if not torch.isfinite(logits).all():
+            fail(f"long: non-finite logits at decode step {j}")
+        err = float((logits - want).abs().max())
+        worst = max(worst, err)
+        if err > LONG_ATOL:
+            fail(f"long: decode step {j} (position {P + j}) logits differ "
+                 f"from the prefill's by {err:.3e} > {LONG_ATOL}")
+    ring_err = max(float((caches[i][n] - pre[i][n]).abs().max())
+                   for i in range(len(caches)) for n in ("k", "v"))
+    if ring_err > LONG_ATOL or any(int(c["index"]) != P + LONG_STEPS
+                                   for c in caches):
+        fail(f"long: the ring after the steps differs from the rolled "
+             f"prefill's by {ring_err:.3e} (indices "
+             f"{[int(c['index']) for c in caches]})")
+    L = LONG_CHECK_LAYERS
+    expect_launches("long check", launch_delta(before), {
+        "flash_attention": L * (1 + LONG_STEPS),
+        "moe_gemm": L * (1 + 2 * LONG_STEPS)})
+    controls = {}
+    for d in LONG_CONTROL_SLOTS:
+        ring = grow_caches(short, W + d - P)
+        err = 0.0
+        for j in range(LONG_STEPS):
+            logits, ring = model.decode_step(
+                params, toks[:, P + j:P + j + 1], ring)
+            err = max(err, float((logits - wants[j]).abs().max()))
+        controls[W + d] = err
+        if err <= LONG_ATOL:
+            fail(f"long: the control on a ring of {W + d} slots (the "
+                 f"window edge one key off) reads {err:.3e}, within "
+                 f"{LONG_ATOL}")
+        del ring
+    print(f"[long] {ccfg.name} adapted to {shape.name} ({ccfg.attention}, "
+          f"window {W}) at full width cut to {L} layers, f32, capacity "
+          f"factor {ccfg.moe.capacity_factor}: {LONG_STEPS} decode steps "
+          f"from position {P} across the {W}-slot ring's wrap match a "
+          f"prefill of the whole prompt (max |dlogit| {worst:.2e}, atol "
+          f"{LONG_ATOL}); the ring after them matches the rolled "
+          f"{P + LONG_STEPS}-token prefill's (max diff {ring_err:.2e}); "
+          f"the controls on rings of W - 1 and W + 1 slots (the window edge "
+          f"one key off) miss it: max |dlogit| "
+          f"{ {k: f'{v:.3e}' for k, v in controls.items()} }; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del model, params, caches, pre, short, wants
+    return dict(layers=L, worst_logit=worst, ring_err=ring_err,
+                controls=controls)
+
+
+def phase_long() -> dict:
+    """qwen2-moe-a2.7b x ``SHAPES["long_500k"]`` through the launch
+    layer: ``adapt_for_shape`` gives it a sliding window of 8192 over a
+    ring cache, and ``build`` its decode bundle. ``long_check`` first (f32,
+    cut depth); then the bundle at full width and depth (24 layers) in
+    bf16: its ``abstract_args`` materialised (weights from seed 0, the
+    caches of ``decode_cache_specs`` as zeros on the card), a
+    ``LONG_PROMPT``-token prompt prefilled (flash with the window; the
+    ring rolls) into those caches, then ``LONG_SERVE_STEPS`` greedy serve
+    steps of the bundle's ``step_fn``; twice, with the same tokens. The
+    launches are counted over the two runs (flash 24 a prefill, the
+    expert GEMM 24 a prefill and a step, nothing else: ring decode is
+    the plain masked SDPA, as in the reference); then the expert GEMM at
+    every (E, C) the run gave it and flash at the prompt's shape with
+    the window, each against its plain version. Prints ms a serve step,
+    the ring's bytes and the peak memory beside the bytes of the
+    unadapted cache. Returns the launches."""
+    t0 = time.perf_counter()
+    shape = SHAPES["long_500k"]
+    base = get_config("qwen2-moe-a2.7b")
+    cfg = adapt_for_shape(base, shape)
+    if (cfg.attention, cfg.sliding_window) != ("sliding",
+                                               LONG_CONTEXT_WINDOW):
+        fail(f"long: adapt_for_shape gave {cfg.attention} window "
+             f"{cfg.sliding_window}")
+    check = long_check(cfg, shape)
+    if LONG_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    unadapted = _nbytes(decode_cache_specs(make_model(base, device="meta"),
+                                           base, shape))
+    b = build_bundle(cfg, shape, dtype=torch.bfloat16,
+                     device=LONG_DEVICE, attn_impl="flash")
+    model = b.model
+    params_abs, _, caches_abs = b.abstract_args
+    params = model.init(generator_for(model.device, 0))
+    got = [(tuple(t.shape), t.dtype) for t in tree_leaves(params)]
+    if got != [(tuple(t.shape), t.dtype) for t in tree_leaves(params_abs)]:
+        fail("long: the drawn weights are not the bundle's abstract ones")
+    caches = [{k: torch.zeros(v.shape, dtype=v.dtype, device=model.device)
+               for k, v in c.items()} for c in caches_abs]
+    ring = _nbytes(caches)
+    prefill = make_prefill_step(model)
+    prompt = torch.from_numpy(np.random.RandomState(8).randint(
+        0, cfg.vocab_size, size=(1, LONG_PROMPT))).to(model.device)
+
+    def run():
+        logits, pre = prefill(params, prompt)
+        for c, p in zip(caches, pre):
+            for k in c:
+                c[k].copy_(p[k])
+        del pre
+        tok = logits[:, -1].argmax(-1)[:, None]
+        out, ms = [int(tok[0, 0])], []
+        cs = caches
+        for _ in range(LONG_SERVE_STEPS):
+            sync_long()
+            t = time.perf_counter()
+            tok, cs = b.step_fn(params, tok, cs)
+            out.append(int(tok[0, 0]))
+            ms.append((time.perf_counter() - t) * 1e3)
+        if int(cs[0]["index"]) != LONG_PROMPT + LONG_SERVE_STEPS:
+            fail(f"long: cache index {int(cs[0]['index'])}")
+        return out, ms
+
+    before = kernel_lib.launch_counts()
+    with GemmWidths() as widths:
+        tokens, step_ms = run()
+        again, _ = run()
+    counts = launch_delta(before)
+    L = cfg.num_layers
+    expect_launches("long", counts, {
+        "flash_attention": 2 * L,
+        "moe_gemm": 2 * L * (1 + LONG_SERVE_STEPS)})
+    if tokens != again:
+        fail(f"long: two runs give different tokens {tokens} / {again}")
+    peak = (torch.cuda.max_memory_allocated() / 1e9
+            if LONG_DEVICE == "cuda" else 0.0)
+    step = float(np.median(step_ms))
+    row = dict(config=f"{cfg.name} {cfg.attention} window "
+               f"{cfg.sliding_window}", layers=L, prompt=LONG_PROMPT,
+               tokens=tokens, step_ms=step, step_ms_all=step_ms,
+               ring_gb=ring / 1e9, unadapted_gb=unadapted / 1e9,
+               peak_gb=peak, check=check)
+    print(f"[long] {b.name}: {L} layers at full width, bf16, "
+          f"{_nbytes(params) / 1e9:.2f} GB of weights; a {LONG_PROMPT}-token "
+          f"prompt prefilled into the bundle's ring (the "
+          f"{cfg.sliding_window}-slot ring of {ring / 1e9:.3f} GB, where "
+          f"the unadapted {shape.seq_len}-position cache would take "
+          f"{unadapted / 1e9:.1f} GB), then {LONG_SERVE_STEPS} greedy serve "
+          f"steps at {step:.2f} ms a step (median; all "
+          f"{', '.join(f'{x:.2f}' for x in step_ms)}), tokens {tokens} in "
+          f"both runs; peak {peak:.2f} GB allocated; launches {counts}")
+    shapes = widths.shapes
+    experts = {cfg.moe.num_experts: params["layers"][0]["moe"]["experts"]}
+    del model, params, caches, prefill
+    if LONG_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    check_dep_widths(experts, shapes, torch.device(LONG_DEVICE), "long")
+    del experts
+    if LONG_DEVICE == "cuda":
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(9)
+        row["flash"] = check_flash_shape(
+            gen, "long prefill", 1, LONG_PROMPT, cfg.num_heads,
+            cfg.num_kv_heads, cfg.head_dim, window=cfg.sliding_window)
+        torch.cuda.empty_cache()
+    row["wall_s"] = time.perf_counter() - t0
+    print("[long summary] " + json.dumps(row))
+    return counts
+
+
+def sync_long() -> None:
+    if LONG_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
 TRAIN_DEVICE = "cuda"
 #: qwen2-moe-a2.7b layers trained on one card: a layer holds 0.571 B
 #: parameters and the 151936-token embedding and head 0.622 B, so 8 layers
@@ -5158,16 +5721,383 @@ def train_loop(argv: list, drop: float, ckpt: str) -> tuple:
                         losses=res.losses[::max(args.steps // 20, 1)])
 
 
-def phase_train() -> tuple:
+#: the sharded train step on the card (``build(..., mesh=...)``, DEP
+#: under autograd): (i) at world size 1 over NCCL, bf16, TRAIN_LAYERS at
+#: full width, against the capacity path's step on the same weights;
+#: every gradient leaf's relative L2 (and the loss's relative error)
+#: within the limit, and the control (the reverse exchange's backward
+#: with two experts' rows swapped) beyond it. At one rank the two paths
+#: dispatch to the same capacity and run the same kernels on the same
+#: buffers: the limit is set from the sound readings (PERF.md)
+TRAIN_DEP_TOL = {torch.bfloat16: 1e-3, torch.float32: TRAIN_SMALL_TOL}
+#: (ii) two gloo ranks sharing the card, a (1, 2) mesh, f32: their depth
+#: (f32 weights, gradients and the one-rank reference on rank 0 beside
+#: the two ranks' shards) and the batch
+TRAIN_EP_LAYERS = 2
+TRAIN_EP_BATCH = 2
+TRAIN_EP_TIMEOUT_S = 600
+
+
+def rel_l2_dev(got, want) -> float:
+    """``rel_l2`` computed where the tensors live."""
+    g, w = got.detach().float(), want.detach().float()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def swapped_reverse_exchange(orig):
+    """A control: the reverse exchange, then the rows of the first two
+    experts of its result swapped (expert dim 0 of A2E's [E_pad, c, M],
+    1 of E2A's [mo, E_loc, c, M])."""
+    def control(grad, shape, group):
+        out = orig(grad, shape, group)
+        dim = 0 if len(shape) == 3 else 1
+        idx = torch.arange(out.shape[dim], device=out.device)
+        idx[0], idx[1] = 1, 0
+        return out.index_select(dim, idx)
+    return control
+
+
+class BackwardCalls:
+    """While entered, counts the expert GEMM Function's backward calls
+    (``moe_gemm_backward``, the eight ``torch.bmm``: no kernel of the
+    repo, so no launch count of its own)."""
+
+    def __enter__(self):
+        self.calls = 0
+        self._wrapped = gemm_ops.moe_gemm_backward
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return self._wrapped(*args, **kw)
+        gemm_ops.moe_gemm_backward = counted
+        return self
+
+    def __exit__(self, *exc):
+        gemm_ops.moe_gemm_backward = self._wrapped
+
+
+def grad_errors(got, want) -> dict:
+    return {n: rel_l2_dev(a, b) for (n, a), (_, b) in
+            zip(named_leaves(got), named_leaves(want))}
+
+
+def train_sharded_one() -> tuple:
+    """(i) of the sharded train step: ``build`` on a (1, 1)
+    ``make_host_mesh`` over an NCCL group of one rank (gloo on the CPU),
+    qwen2-moe-a2.7b cut to ``TRAIN_LAYERS`` at full width, bf16, capacity
+    factor E / top_k (nothing dropped), remat as ``build`` sets it for a
+    train shape. The parameters laid out as DTensors by the bundle's
+    specs; ``sharded_loss_and_grads`` against ``loss_and_grads`` of the
+    capacity path on the same weights and batch: the loss and every
+    gradient leaf within ``TRAIN_DEP_TOL``, beside the control
+    (``swapped_reverse_exchange``), which must exceed it; every leaf
+    finite and non-zero; the expert GEMM 2 x TRAIN_LAYERS launches and
+    TRAIN_LAYERS backward calls a backward pass. Then two steps of the
+    bundle's ``step_fn`` (AdamW, bf16 states, in place on the shards),
+    timed. Returns (launches of the sharded steps, the report row)."""
+    t0 = time.perf_counter()
+    dt = torch.bfloat16
+    DepGroups.single("nccl" if TRAIN_DEVICE == "cuda" else "gloo")
+    mesh = make_host_mesh(model=1, device_type=TRAIN_DEVICE)
+    cfg = no_drop(dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                                      num_layers=TRAIN_LAYERS))
+    shape = ShapeConfig("train_card", TRAIN_SEQ, TRAIN_BATCH, "train")
+    b = build_bundle(cfg, shape, mesh=mesh, dtype=dt,
+                     device=TRAIN_DEVICE)
+    if b.model.ctx.moe_impl != "dep" or b.accum_steps != 1:
+        fail(f"train sharded: bundle {b.model.ctx.moe_impl} accum "
+             f"{b.accum_steps}")
+    full = b.model.init(generator_for(b.model.device, 0))
+    params = distribute_params(full, b.placements[0], mesh)
+    del full
+    local = tree_unflatten(params, [p.to_local() for p in
+                                    tree_leaves(params)])
+    cap = build_model(cfg, ctx=ExecutionContext(remat=True), dtype=dt,
+                      device=TRAIN_DEVICE)
+    toks = torch.from_numpy(MarkovTextDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH, seed=0)).sample_batch(0)).to(cap.device)
+    l_cap, g_cap = loss_and_grads(cap, local, toks)
+    L = TRAIN_LAYERS
+    before = kernel_lib.launch_counts()
+    with GemmWidths() as widths, BackwardCalls() as bwd:
+        l_dep, g_dep = sharded_loss_and_grads(b.model, params, mesh,
+                                              shard_batch(toks, mesh))
+    expect_launches("train sharded backward pass", launch_delta(before),
+                    {"moe_gemm": 2 * L})
+    if bwd.calls != L:
+        fail(f"train sharded: {bwd.calls} expert GEMM backward calls, "
+             f"want {L}")
+    g_dep = tree_unflatten(params, [g.to_local() for g in
+                                    tree_leaves(g_dep)])
+    check_gradients(g_dep)
+    limit = TRAIN_DEP_TOL[dt]
+    loss_err = abs(float(l_dep) - float(l_cap)) / abs(float(l_cap))
+    errs = grad_errors(g_dep, g_cap)
+    worst = max(errs, key=errs.get)
+    del g_dep
+    orig = dep_lib.reverse_exchange
+    dep_lib.reverse_exchange = swapped_reverse_exchange(orig)
+    try:
+        _, g_ctrl = sharded_loss_and_grads(b.model, params, mesh,
+                                           shard_batch(toks, mesh))
+    finally:
+        dep_lib.reverse_exchange = orig
+    ctrl = grad_errors(tree_unflatten(params, [g.to_local() for g in
+                                               tree_leaves(g_ctrl)]), g_cap)
+    ctrl_worst = max(ctrl.values())
+    del g_ctrl, g_cap
+    print(f"[train sharded] {cfg.name} {L} of 24 layers, bf16, a "
+          f"{tuple(axis for axis in mesh.mesh_dim_names)} mesh of "
+          f"{tuple(mesh.shape)} over {dist_backend()}: DEP loss "
+          f"{float(l_dep):.6f}, capacity path {float(l_cap):.6f} "
+          f"(relative {loss_err:.2e}); {len(errs)} gradient leaves, worst "
+          f"relative L2 {errs[worst]:.3e} ({worst}); limit {limit}; the "
+          f"control (reverse exchange with experts 0 and 1 swapped) worst "
+          f"{ctrl_worst:.3e}; expert GEMM {2 * L} launches and {L} "
+          f"backward calls a backward pass")
+    if loss_err > limit or errs[worst] > limit:
+        fail(f"train sharded: the DEP step disagrees with the capacity "
+             f"path's (loss {loss_err:.2e}, {worst} {errs[worst]:.2e})")
+    if ctrl_worst <= limit:
+        fail("train sharded: the swapped-exchange control is within the "
+             "limit")
+    check_dep_widths({cfg.moe.num_experts: local["layers"][0]["moe"]
+                      ["experts"]}, widths.shapes,
+                     torch.device(TRAIN_DEVICE), "train sharded")
+    opt_cfg = AdamWConfig(state_dtype=torch.bfloat16)
+    state = init_opt_state(params, opt_cfg)
+    losses, norms, step_s = [], [], []
+    before = kernel_lib.launch_counts()
+    for s in range(2):
+        sync()
+        t = time.perf_counter()
+        params, state, m = b.step_fn(params, state, toks)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        sync()
+        step_s.append(time.perf_counter() - t)
+    counts = launch_delta(before)
+    expect_launches("train sharded steps", counts, {"moe_gemm": 4 * L})
+    if not all(np.isfinite(losses + norms)):
+        fail(f"train sharded: losses {losses} grad norms {norms}")
+    peak = (torch.cuda.max_memory_allocated() / 1e9
+            if TRAIN_DEVICE == "cuda" else 0.0)
+    row = dict(config=f"{cfg.name} {L} of 24 layers", loss_rel=loss_err,
+               worst_grad_rel_l2=errs[worst], worst_leaf=worst,
+               control_worst=ctrl_worst, losses=losses, grad_norms=norms,
+               step_ms=[x * 1e3 for x in step_s], peak_gb=peak)
+    print(f"[train sharded] two steps of the bundle's step_fn: losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}, grad norms "
+          f"{', '.join(f'{v:.3f}' for v in norms)}, "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in step_s)} ms; peak "
+          f"{peak:.2f} GB allocated")
+    del params, state, local, cap, b, m
+    torch.distributed.destroy_process_group()
+    sync()
+    if TRAIN_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    row["wall_s"] = time.perf_counter() - t0
+    return counts, row
+
+
+def dist_backend() -> str:
+    return str(torch.distributed.get_backend())
+
+
+def split_aux_capacity(orig, parts: int):
+    """The one-rank reference of an expert group of ``parts`` ranks in
+    sequence mode: the capacity path's output on every token, and its aux
+    loss as the DEP layers' device mean, the mean of the aux of each
+    rank's slice of the sequence (each slice routed on its own)."""
+    def apply(params, x, mcfg, num_experts_padded=0, **kw):
+        out = orig(params, x, mcfg, num_experts_padded, **kw)
+        M = x.shape[-1]
+        aux = torch.stack([moe_lib.load_balance_loss(moe_lib.route_topk(
+            params["router"], part.reshape(-1, M), mcfg,
+            num_experts_padded), mcfg) for part in x.chunk(parts, dim=1)])
+        return (out[0], aux.mean()) + tuple(out[2:])
+    return apply
+
+
+def train_rank_work(rank: int, device) -> dict:
+    """One rank of (ii): a (1, 2) mesh over the two gloo ranks, f32,
+    ``TRAIN_EP_LAYERS`` at full width, capacity factor E / top_k. Both
+    ranks draw the whole model from seed 0 and keep their shards; rank 0
+    also keeps the whole tree for the one-rank reference (the capacity
+    path with the aux as the two ranks' device mean,
+    ``split_aux_capacity``). The two-rank loss and every gradient leaf
+    (gathered whole, ``gather_shards``) within ``TRAIN_DEP_TOL`` f32 of
+    the reference's, beside the control (the reverse exchange skipped),
+    which must exceed it; then one step of the bundle's ``step_fn``."""
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(model=2, device_type=device.type)
+    cfg = no_drop(dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                                      num_layers=TRAIN_EP_LAYERS))
+    shape = ShapeConfig("train_ep", TRAIN_SEQ, TRAIN_EP_BATCH, "train")
+    b = build_bundle(cfg, shape, mesh=mesh, dtype=torch.float32,
+                     device=device)
+    full = b.model.init(generator_for(device, 0))
+    params = distribute_params(full, b.placements[0], mesh)
+    toks = torch.from_numpy(MarkovTextDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_EP_BATCH, seed=0)).sample_batch(0)).to(device)
+    mine = shard_batch(toks, mesh)
+    out = {"layers": TRAIN_EP_LAYERS}
+    if rank == 0:
+        cap = build_model(cfg, ctx=ExecutionContext(remat=True),
+                          dtype=torch.float32, device=device)
+        orig = moe_lib.moe_apply_capacity
+        moe_lib.moe_apply_capacity = split_aux_capacity(orig, 2)
+        try:
+            l_ref, g_ref = loss_and_grads(cap, full, toks)
+        finally:
+            moe_lib.moe_apply_capacity = orig
+        ref_leaves = [g for _, g in named_leaves(g_ref)]
+    del full
+
+    def compare_grads(what):
+        loss, grads = sharded_loss_and_grads(b.model, params, mesh, mine)
+        errs = {}
+        names = [n for n, _ in named_leaves(grads)]
+        for i, (n, g) in enumerate(named_leaves(grads)):
+            whole = gather_shards(g.to_local(), mesh, g.placements)
+            if not bool(torch.isfinite(whole).all()) or \
+                    float(whole.abs().amax()) == 0:
+                fail(f"train ranks: {what} gradient {n} non-finite or zero")
+            if rank == 0:
+                errs[n] = rel_l2_dev(whole, ref_leaves[i])
+            del whole
+        del grads
+        if rank != 0:
+            return float(loss), {}
+        return float(loss), errs
+
+    loss, errs = compare_grads("sound")
+    orig = dep_lib.reverse_exchange
+    dep_lib.reverse_exchange = lambda grad, shp, group: grad.reshape(shp)
+    try:
+        _, ctrl = compare_grads("control")
+    finally:
+        dep_lib.reverse_exchange = orig
+    if rank == 0:
+        limit = TRAIN_DEP_TOL[torch.float32]
+        loss_err = abs(loss - float(l_ref)) / abs(float(l_ref))
+        worst = max(errs, key=errs.get)
+        ctrl_worst = max(ctrl.values())
+        out.update(loss=loss, ref_loss=float(l_ref), loss_rel=loss_err,
+                   worst_grad_rel_l2=errs[worst], worst_leaf=worst,
+                   control_worst=ctrl_worst)
+        print(f"[train ranks] {cfg.name} {TRAIN_EP_LAYERS} of 24 layers at "
+              f"full width, f32, a (1, 2) mesh of two gloo ranks on one "
+              f"card, {TRAIN_EP_BATCH} x {TRAIN_SEQ} tokens: loss "
+              f"{loss:.6f} against the one-rank reference's "
+              f"{float(l_ref):.6f} (relative {loss_err:.2e}); {len(errs)} "
+              f"gradient leaves, worst relative L2 {errs[worst]:.3e} "
+              f"({worst}); limit {limit}; the control (reverse exchange "
+              f"skipped) worst {ctrl_worst:.3e}", flush=True)
+        if loss_err > limit or errs[worst] > limit:
+            fail(f"train ranks: the two-rank step disagrees with one rank "
+                 f"(loss {loss_err:.2e}, {worst} {errs[worst]:.2e})")
+        if ctrl_worst <= limit:
+            fail("train ranks: the skipped-exchange control is within the "
+                 "limit")
+        del g_ref, ref_leaves, cap
+    state = init_opt_state(params, AdamWConfig(state_dtype=torch.bfloat16))
+    t = time.perf_counter()
+    params, state, m = b.step_fn(params, state, toks)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t) * 1e3
+    out["step_loss"] = float(m["loss"])
+    out["step_grad_norm"] = float(m["grad_norm"])
+    if not (np.isfinite(out["step_loss"]) and
+            np.isfinite(out["step_grad_norm"])):
+        fail(f"train ranks: step loss {out['step_loss']}")
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                      if device.type == "cuda" else 0.0)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def train_rank(rank: int, store_dir: str, results, setup=None):
+    """A spawned rank process of (ii): joins the gloo group over the
+    ``file://`` store in ``store_dir`` and runs ``train_rank_work``."""
+    if setup is not None:
+        setup()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(TRAIN_DEVICE, 0) if TRAIN_DEVICE == "cuda" \
+        else torch.device(TRAIN_DEVICE)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{store_dir}/store", rank=rank,
+        world_size=2)
+    try:
+        results.put((rank, train_rank_work(rank, device)))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def train_sharded_ranks(setup=None) -> dict:
+    """(ii) of the sharded train step: two spawned processes share the
+    card over gloo (NCCL refuses two ranks on one card), as the ep phase
+    runs them; ``train_rank_work`` in each. Returns rank 0's row."""
+    import multiprocessing
+    import queue
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    got = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as d:
+        procs = [ctx.Process(target=train_rank, args=(r, d, results, setup))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + TRAIN_EP_TIMEOUT_S
+        while len(got) < 2:
+            try:
+                r, res = results.get(timeout=5)
+                got[r] = res
+            except queue.Empty:
+                if any(p.exitcode for p in procs) or \
+                        time.monotonic() > deadline:
+                    for p in procs:
+                        p.kill()
+                        p.join()
+                    fail(f"train ranks: a rank failed or timed out (exit "
+                         f"codes {[p.exitcode for p in procs]})")
+        for p in procs:
+            p.join(timeout=120)
+            if p.exitcode != 0:
+                fail(f"train ranks: a rank exited with {p.exitcode}")
+    if got[0]["step_loss"] != got[1]["step_loss"]:
+        fail(f"train ranks: the ranks' losses differ "
+             f"({got[0]['step_loss']} / {got[1]['step_loss']})")
+    print(f"[train ranks] one step of the bundle's step_fn on both ranks: "
+          f"loss {got[0]['step_loss']:.6f}, grad norm "
+          f"{got[0]['step_grad_norm']:.4f}, {got[0]['step_ms']:.1f} / "
+          f"{got[1]['step_ms']:.1f} ms; peak {got[0]['peak_gb']:.2f} / "
+          f"{got[1]['peak_gb']:.2f} GB allocated; rank walls "
+          f"{got[0]['wall_s']:.1f} / {got[1]['wall_s']:.1f} s")
+    return got[0]
+
+
+def phase_train(setup=None) -> tuple:
     """Training on the card: the expert GEMM's Function
     (``check_train_gemm``), qwen2-moe-a2.7b at full width
-    (``train_full``), the smoke step against the CPU (``train_small``)
-    and the train loop through its entry point (``train_loop``). Returns
-    ({path: launches}, the expert GEMM's train row, the summary)."""
+    (``train_full``), the sharded train step at one rank
+    (``train_sharded_one``) and on two ranks (``train_sharded_ranks``;
+    ``setup`` runs first in each, the CPU rehearsal's patches), the smoke
+    step against the CPU (``train_small``) and the train loop through its
+    entry point (``train_loop``). Returns ({path: launches}, the expert
+    GEMM's train row, the summary)."""
     gemm = check_train_gemm()
     counts, full = train_full()
+    sharded_counts, sharded = train_sharded_one()
+    ranks = train_sharded_ranks(setup)
     small = train_small()
-    paths, loops = {"train": counts}, []
+    paths, loops = {"train": counts, "train sharded": sharded_counts}, []
     os.makedirs(os.path.join(ROOT, ".repro-train"), exist_ok=True)
     for argv, drop in TRAIN_LOOP_RUNS:
         with tempfile.TemporaryDirectory(
@@ -5175,7 +6105,8 @@ def phase_train() -> tuple:
             loop_counts, loop = train_loop(argv, drop, ckpt)
         paths[f"train_loop {loop['preset']}"] = loop_counts
         loops.append(loop)
-    summary = dict(full=full, small=small, loops=loops)
+    summary = dict(full=full, sharded=sharded, ranks=ranks, small=small,
+                   loops=loops)
     print("[train summary] " + json.dumps(summary))
     return paths, gemm, summary
 
@@ -5473,6 +6404,7 @@ def main(argv=None) -> int:
             counts["xlstm"] = phase("xlstm", phase_serve_xlstm)
             counts["hybrid"] = phase("hybrid", phase_serve_hybrid)
             counts.update(phase("multimodal", phase_multimodal))
+            counts["long"] = phase("long", phase_long)
             train_counts, train_gemm, _ = phase("train", phase_train)
             counts.update(train_counts)
     print(f"[phase] wall s: {json.dumps(walls)}; total "

@@ -14,10 +14,14 @@ import torch
 DeviceLike = Union[str, torch.device, None]
 
 
-def resolve_device(device: DeviceLike = None) -> torch.device:
+def resolve_device(device: DeviceLike = None,
+                   allow_meta: bool = False) -> torch.device:
     """The device an entry point runs on. ``None`` means the card: it
     raises when no CUDA device is present, so that nothing silently runs
-    on the CPU. Only an explicit ``"cpu"`` selects the plain versions."""
+    on the CPU. Only an explicit ``"cpu"`` selects the plain versions.
+    ``"meta"`` (shapes, no data) is accepted only with ``allow_meta``,
+    which the spec builders of ``launch.steps`` and the model they build
+    pass; no serving or training entry point does."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -28,6 +32,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not "
                            "available")
+    if device.type == "meta" and allow_meta:
+        return device
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device

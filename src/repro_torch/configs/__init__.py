@@ -29,6 +29,8 @@ _ARCH_MODULES = {
     "qwen3-moe": "qwen3_moe",
 }
 
+ASSIGNED_ARCHS = tuple(list(_ARCH_MODULES)[:10])
+PAPER_ARCHS = ("deepseek-v2-lite", "qwen3-moe")
 ALL_ARCHS = tuple(_ARCH_MODULES)
 
 
@@ -51,6 +53,7 @@ def get_shape(name: str) -> ShapeConfig:
     return SHAPES[name]
 
 
-__all__ = ["ARCH_FAMILIES", "ALL_ARCHS", "SHAPES", "DepClusterConfig",
-           "ModelConfig", "MoEConfig", "RecurrentConfig", "ShapeConfig",
-           "get_config", "get_smoke_config", "get_shape"]
+__all__ = ["ARCH_FAMILIES", "ASSIGNED_ARCHS", "PAPER_ARCHS", "ALL_ARCHS",
+           "SHAPES", "DepClusterConfig", "ModelConfig", "MoEConfig",
+           "RecurrentConfig", "ShapeConfig", "get_config", "get_smoke_config",
+           "get_shape"]

@@ -101,6 +101,12 @@ class ModelConfig:
     def uses_attention(self) -> bool:
         return self.attention != "none"
 
+    @property
+    def subquadratic(self) -> bool:
+        """True when the arch natively supports 500k-token decode."""
+        return self.family in ("ssm", "hybrid") or self.attention in (
+            "sliding", "local")
+
     def num_params(self) -> int:
         """Approximate parameter count (embeddings + blocks + head)."""
         M, Hd = self.d_model, self.head_dim
@@ -127,6 +133,17 @@ class ModelConfig:
         if self.is_encoder_decoder:
             n += self.num_encoder_layers * per_layer
         return n + emb
+
+    def active_params(self) -> int:
+        """Activated parameters per token (MoE: top_k + shared only)."""
+        if self.moe is None:
+            return self.num_params()
+        m = self.moe
+        full = self.num_params()
+        n_moe_layers = len(self.moe_layer_indices())
+        routed_all = n_moe_layers * 3 * self.d_model * m.expert_ffn_dim * m.num_experts
+        routed_act = n_moe_layers * 3 * self.d_model * m.expert_ffn_dim * m.top_k
+        return full - routed_all + routed_act
 
     def moe_layer_indices(self):
         if self.moe is None:

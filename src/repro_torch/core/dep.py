@@ -64,6 +64,15 @@ Sharded weights: each rank holds its ``E_pad / mo`` experts.
 ``permute_experts`` moves rows between the ranks for a new placement and
 ``DevicePlacement.build`` fetches the replicated hot experts from the
 ranks that own them.
+
+Under autograd (the sharded train step) every exchange of the walk is
+differentiable: an A2E or E2A all_to_all's backward is the reverse
+all_to_all of the gradient (``reverse_exchange``), an all_reduce's (the
+replicated-decode combine, the aux loss's device mean) is the all_reduce
+of the gradient, and ``gather_tokens``' is the sum over the token group
+of the gradient, sliced back to the rank's part. Each rank then holds
+the gradient of the sum over the ranks of their losses: the train step
+divides its loss by the world size.
 """
 from __future__ import annotations
 
@@ -77,13 +86,11 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core import taskgraph as tg
-from repro_torch.kernels import refuse_grad
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import mlp_apply
 # module-level so the no-tracer walk pays no per-call import lookup
 from repro_torch.obs.trace import active_tracer
 from repro_torch.placement import Placement
-from repro_torch.training.tree import tree_leaves
 
 
 @dataclass(eq=False)
@@ -181,6 +188,28 @@ class DepGroups:
             backend, init_method=f"file://{os.path.abspath(directory)}/store",
             rank=rank, world_size=n, device_id=device)
         return cls.build(data_size, expert_size)
+
+    @classmethod
+    def from_mesh(cls, mesh, model_axis: str = "model") -> "DepGroups":
+        """This rank's groups on a ("data", "model") ``DeviceMesh`` over
+        the whole default process group (``launch.mesh.make_host_mesh``):
+        the model axis is the expert axis, the other the data axis; no
+        ``control`` group (the train step needs no lock step)."""
+        names = tuple(mesh.mesh_dim_names)
+        if len(names) != 2 or names[1] != model_axis:
+            raise ValueError(f"a (data, {model_axis!r}) mesh, not {names}")
+        n = mesh.size()
+        if n != dist.get_world_size():
+            raise ValueError(f"mesh of {n} ranks, world of "
+                             f"{dist.get_world_size()}")
+        data_axis = names[0]
+        coord = dict(zip(names, mesh.get_coordinate()))
+        return cls(expert=mesh.get_group(model_axis),
+                   expert_rank=coord[model_axis],
+                   expert_size=mesh.size(1),
+                   data=mesh.get_group(data_axis), world=dist.group.WORLD,
+                   world_size=n, data_rank=coord[data_axis],
+                   backend=str(dist.get_backend()))
 
     def expert_peer(self, m: int) -> int:
         """The global rank of expert peer ``m`` of this rank's data
@@ -350,6 +379,60 @@ class _Streams:
                 else nullcontext())
 
 
+def reverse_exchange(grad: torch.Tensor, shape, group) -> torch.Tensor:
+    """The backward of an A2E or E2A exchange: the gradient of the
+    received [mo, ...] tensor goes back to the peers it came from, one
+    ``all_to_all_single`` over the expert group (chunk p to peer p, peer
+    p's chunk into slot p), giving the gradient of the sent tensor of
+    ``shape``. It runs on the stream autograd gives the node, the
+    compute stream of the forward call, after the gradient's producer."""
+    out = grad.new_empty(shape)
+    dist.all_to_all_single(out, grad.contiguous(), group=group)
+    return out
+
+
+class _Exchange(torch.autograd.Function):
+    """One A2E or E2A all_to_all of the walk: ``run(recv, send)`` issues
+    the forward exchange into ``recv`` (allocated here, on the caller's
+    stream; the walk's ``run`` moves the collective to its comm stream);
+    the backward is ``reverse_exchange``."""
+
+    @staticmethod
+    def forward(ctx, send, shape, group, run):
+        ctx.group, ctx.shape = group, send.shape
+        recv = send.new_empty(shape)
+        run(recv, send)
+        return recv
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reverse_exchange(grad, ctx.shape, ctx.group), None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """A sum over ``group`` in place; its backward sums the gradient over
+    the group the same way."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        dist.all_reduce(x, group=group)
+        ctx.mark_dirty(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (a fresh tensor, overwritten) summed over ``group``, as a
+    differentiable op."""
+    return _AllReduce.apply(x, group)
+
+
 def seq_mode(seq_len: int, expert_size: int) -> bool:
     """The reference's dispatch-mode rule for a GLOBAL sequence length:
     sequence mode when the sequence splits evenly over the expert axis,
@@ -390,14 +473,35 @@ def gather_tokens(y: torch.Tensor, groups: DepGroups, sequence: bool,
     group = _token_group(groups, sequence, batch_sharded)
     if group is None:
         return y
-    n_d = groups.world_size // groups.expert_size if batch_sharded else 1
-    n_m = groups.expert_size if sequence else 1
-    y = y.contiguous()
-    parts = [torch.empty_like(y) for _ in range(n_d * n_m)]
-    dist.all_gather(parts, y, group=group)
-    Bl, Sl, M = y.shape
-    return torch.stack(parts).view(n_d, n_m, Bl, Sl, M).transpose(1, 2) \
-        .reshape(n_d * Bl, n_m * Sl, M)
+    over_data = batch_sharded and groups.world_size > groups.expert_size
+    over_expert = sequence and groups.expert_size > 1
+    n_d = groups.world_size // groups.expert_size if over_data else 1
+    n_m = groups.expert_size if over_expert else 1
+    part = (groups.data_rank if over_data else 0,
+            groups.expert_rank if over_expert else 0)
+    return _GatherTokens.apply(y.contiguous(), group, n_d, n_m, part)
+
+
+class _GatherTokens(torch.autograd.Function):
+    """``gather_tokens``' all_gather; its backward sums the whole
+    gradient over the token group and keeps this rank's part."""
+
+    @staticmethod
+    def forward(ctx, y, group, n_d, n_m, part):
+        Bl, Sl, M = y.shape
+        ctx.group, ctx.part, ctx.local = group, part, (Bl, Sl)
+        parts = [torch.empty_like(y) for _ in range(n_d * n_m)]
+        dist.all_gather(parts, y, group=group)
+        return torch.stack(parts).view(n_d, n_m, Bl, Sl, M) \
+            .transpose(1, 2).reshape(n_d * Bl, n_m * Sl, M)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        (d, m), (Bl, Sl) = ctx.part, ctx.local
+        return (grad[d * Bl:(d + 1) * Bl, m * Sl:(m + 1) * Sl],
+                None, None, None, None)
 
 
 def as_exec_program(plan) -> tg.ExecProgram:
@@ -523,20 +627,20 @@ def _graph_expert_alltoall(program: tg.ExecProgram, buffers, expert_params,
     shared_parts = {}
     hot_out = {}
 
-    def exchange(task, name, index, send, recv):
-        held.extend((send, recv))
-        streams.to_comm(name, index)
-        with streams.on_comm(), (
-                nullcontext() if tracer is None
-                else tracer.device_task(task, streams.comm, "comm")):
-            dist.all_to_all_single(recv, send, group=groups.expert)
-        return recv
+    def exchange(task, name, index, send, shape):
+        def run(recv, send):
+            held.extend((send, recv))
+            streams.to_comm(name, index)
+            with streams.on_comm(), (
+                    nullcontext() if tracer is None
+                    else tracer.device_task(task, streams.comm, "comm")):
+                dist.all_to_all_single(recv, send, group=groups.expert)
+        return _Exchange.apply(send, shape, groups.expert, run)
 
     def on_a2e(t):     # [E_pad, c, M] -> [E_loc, mo*c, M]
         i = t.mb * r2 + t.chunk
         send = buffers[:, i * chunk:(i + 1) * chunk].contiguous()
-        recv = send.new_empty((mo, E_loc, chunk, M))
-        exchange(t, "a2e_send", i, send, recv)
+        recv = exchange(t, "a2e_send", i, send, (mo, E_loc, chunk, M))
         streams.to_compute("a2e_recv", i)
         dispatched[(t.mb, t.chunk)] = recv
         return recv
@@ -556,8 +660,7 @@ def _graph_expert_alltoall(program: tg.ExecProgram, buffers, expert_params,
     def on_e2a(t):     # [E_loc, mo*c, M] -> [E_pad, c, M]
         i = t.mb * r2 + t.chunk
         send = _e2a_layout(ffn_out.pop((t.mb, t.chunk)), mo)
-        recv = torch.empty_like(send)
-        exchange(t, "e2a_send", i, send, recv)
+        recv = exchange(t, "e2a_send", i, send, send.shape)
         outs[(t.mb, t.chunk)] = recv.view(E_pad, chunk, M)
         return recv
 
@@ -675,11 +778,9 @@ def moe_apply_dep(params, x, mcfg: MoEConfig, groups: DepGroups,
     the load balance loss, or None with ``with_aux=False`` (which skips
     its all_reduce); with ``return_stats`` also a ``moe.MoEStats`` of the
     layer's tokens on every rank (``load`` in logical expert ids, summed
-    with ``dropped`` over the ranks that shard the tokens)."""
-    # its all_to_all_single calls have no gradient: the sharded train
-    # step belongs with the shardings
-    refuse_grad("moe_apply_dep", x, *tree_leaves(params),
-                *tree_leaves(hot_weights))
+    with ``dropped`` over the ranks that shard the tokens). Every
+    exchange is differentiable (the module docstring), so the layer
+    trains: the expert GEMM through ``MoEGemmFunction``."""
     Bl, Sl, M = x.shape
     mo = groups.expert_size
     E_pad = num_experts_padded or mcfg.num_experts
@@ -740,16 +841,15 @@ def moe_apply_dep(params, x, mcfg: MoEConfig, groups: DepGroups,
             shared_fn=shared_fn, shared_x=xf)
         full = local_out.new_zeros((E_pad,) + local_out.shape[1:])
         full[lo:lo + E_loc] = local_out
-        y = moe_lib.moe_combine(info, full, T_loc, x.dtype)
-        dist.all_reduce(y, group=groups.expert)
+        y = all_reduce_sum(moe_lib.moe_combine(info, full, T_loc, x.dtype),
+                           groups.expert)
     if shared_out is not None:
         y = y + shared_out
     aux = None
     if with_aux:
         # device mean: exact over distinct shards, unbiased under
         # replication
-        aux = info.aux.clone()
-        dist.all_reduce(aux, group=groups.world)
-        aux = aux / groups.world_size
+        aux = all_reduce_sum(info.aux.clone(), groups.world) \
+            / groups.world_size
     y = y.reshape(Bl, Sl, M)
     return (y, aux, stats) if return_stats else (y, aux)

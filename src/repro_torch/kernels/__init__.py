@@ -24,8 +24,8 @@ def refuse_grad(name: str, *tensors) -> None:
             for t in tensors):
         raise RuntimeError(
             f"{name}: no backward (ROADMAP Queue 1 item 10): an operand "
-            "requires a gradient; train with attn_impl='xla' and "
-            "moe_impl 'capacity' or 'dense', or run under torch.no_grad()")
+            "requires a gradient; train with attn_impl='xla', or run "
+            "under torch.no_grad()")
 
 
 def check_cuda_operands(name: str, *tensors, index=()) -> None:

@@ -12,9 +12,12 @@ from repro_torch.models.transformer import (ExecutionContext, Model,
 
 
 def build_model(cfg: ModelConfig, ctx: Optional[ExecutionContext] = None,
-                dtype=torch.bfloat16, device: DeviceLike = None) -> Model:
-    """``device=None`` means the CUDA card (raises without one)."""
-    return Model(cfg, ctx=ctx, dtype=dtype, device=device)
+                dtype=torch.bfloat16, device: DeviceLike = None,
+                num_experts_padded: int = 0) -> Model:
+    """``device=None`` means the CUDA card (raises without one).
+    ``num_experts_padded`` is ``Model``'s."""
+    return Model(cfg, ctx=ctx, dtype=dtype, device=device,
+                 num_experts_padded=num_experts_padded)
 
 
 def frontend_shape(cfg: ModelConfig, shape: ShapeConfig):

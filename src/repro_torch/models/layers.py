@@ -18,9 +18,19 @@ import torch.nn.functional as F
 # initializers
 # ---------------------------------------------------------------------------
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` where only shapes are wanted:
+    every init draw from it is an empty tensor on the ``meta`` device
+    (``launch.steps.abstract_params``); nothing is drawn."""
+
+    device = torch.device("meta")
+
+
 def normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype):
     """N(0, scale^2) drawn in float32 on the generator's device, then
     stored in ``dtype``."""
+    if isinstance(gen, MetaGenerator):
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return x.mul_(scale).to(dtype)

@@ -36,7 +36,8 @@ def rglru_init(gen, cfg: ModelConfig, dtype=torch.float32):
     M = cfg.d_model
     W = cfg.recurrent.lru_width or M
     u = torch.empty((W,), dtype=torch.float32, device=gen.device)
-    u.uniform_(0.9, 0.999, generator=gen)
+    if u.device.type != "meta":          # a MetaGenerator draws nothing
+        u.uniform_(0.9, 0.999, generator=gen)
     root = u ** (1.0 / _C)
     lam = torch.log(root / (1.0 - root))
     return {

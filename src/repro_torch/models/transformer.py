@@ -77,6 +77,10 @@ class ExecutionContext:
     #: ``jax.checkpoint``): its activations are recomputed in the backward
     #: pass, the expert GEMM kernel's forward with them
     remat: bool = False
+    #: each rank's tokens are already its data shard of the batch (the
+    #: sharded train step): a DEP layer splits only the sequence over the
+    #: expert axis, and gathers only over it
+    batch_sharded: bool = False
 
     def __post_init__(self):
         if self.attn_impl not in attn.ATTN_IMPLS:
@@ -101,9 +105,10 @@ def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
 
 def init_layer(gen, cfg: ModelConfig, kind: str, dtype=torch.float32,
                expert_shard: Optional[Tuple[int, int]] = None,
-               cross: bool = False):
+               cross: bool = False, num_experts_padded: int = 0):
     """One layer's parameters; ``cross`` (a decoder layer of an
-    encoder-decoder model) adds ``ln_x`` and the ``cross`` attention."""
+    encoder-decoder model) adds ``ln_x`` and the ``cross`` attention;
+    ``num_experts_padded`` pads an MoE layer's expert stacks."""
     if kind in ("mlstm", "slstm"):
         init = ssm_lib.mlstm_init if kind == "mlstm" else ssm_lib.slstm_init
         return {"ln1": rmsnorm_init(cfg.d_model, gen.device, dtype),
@@ -118,7 +123,8 @@ def init_layer(gen, cfg: ModelConfig, kind: str, dtype=torch.float32,
     if kind in ("attn_mlp", "attn", "rec"):
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.ffn_dim, dtype)
     elif kind == "attn_moe":
-        p["moe"] = moe_lib.moe_init(gen, cfg.d_model, cfg.moe, dtype=dtype,
+        p["moe"] = moe_lib.moe_init(gen, cfg.d_model, cfg.moe,
+                                    num_experts_padded, dtype=dtype,
                                     expert_shard=expert_shard)
     else:
         raise ValueError(kind)
@@ -149,16 +155,20 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
 
 def _apply_moe(p, cfg: ModelConfig, h, ctx: ExecutionContext, plan=None,
                placement=None, collect_stats: bool = False,
-               capacity_scale: float = 1.0):
+               capacity_scale: float = 1.0, num_experts_padded: int = 0,
+               with_aux: bool = False):
     """Returns (y, aux), or (y, aux, moe.MoEStats) with
     ``collect_stats``. ``plan``, ``placement`` (the layer's
     ``dep.LayerPlacement``) and ``capacity_scale`` reach only the DEP
-    path, whose aux (an all_reduce) is skipped: serving discards it."""
+    path, whose aux (an all_reduce) runs only ``with_aux`` (the loss):
+    serving discards it."""
     if ctx.moe_impl == "dense":
         return moe_lib.moe_apply_dense(p["moe"], h, cfg.moe,
+                                       num_experts_padded,
                                        return_stats=collect_stats)
     if ctx.moe_impl == "capacity":
         return moe_lib.moe_apply_capacity(p["moe"], h, cfg.moe,
+                                          num_experts_padded,
                                           return_stats=collect_stats)
     # the reference's shard_map in- and out-specs by hand: this rank's
     # slice of the tokens in, every rank's slices gathered back out, so
@@ -168,21 +178,24 @@ def _apply_moe(p, cfg: ModelConfig, h, ctx: ExecutionContext, plan=None,
     groups = ctx.groups
     B, S, _ = h.shape
     split = dict(sequence=dep_lib.seq_mode(S, groups.expert_size),
-                 batch_sharded=dep_lib.batch_split(B, groups))
+                 batch_sharded=(not ctx.batch_sharded
+                                and dep_lib.batch_split(B, groups)))
     out = dep_lib.moe_apply_dep(
         p["moe"], dep_lib.split_tokens(h, groups, **split), cfg.moe, groups,
-        plan=plan, with_aux=False, return_stats=collect_stats,
-        capacity_scale=capacity_scale, **split,
+        num_experts_padded, plan=plan, with_aux=with_aux,
+        return_stats=collect_stats, capacity_scale=capacity_scale, **split,
         **(placement._asdict() if placement is not None else {}))
-    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    aux = out[1] if with_aux else torch.zeros((), dtype=torch.float32,
+                                              device=h.device)
     y = dep_lib.gather_tokens(out[0], groups, **split)
-    return (y, zero) + tuple(out[2:])
+    return (y, aux) + tuple(out[2:])
 
 
 def apply_layer(p, cfg: ModelConfig, kind: str, x, positions, cache,
                 mode: str, ctx: ExecutionContext, lengths=None,
                 paged=None, plan=None, placement=None, stats_sink=None,
-                capacity_scale: float = 1.0, memory=None):
+                capacity_scale: float = 1.0, memory=None,
+                num_experts_padded: int = 0, with_aux: bool = False):
     """Returns (x, new_cache, aux_loss). ``memory`` (the encoder's output,
     [B, Sk, M]) runs a decoder layer's cross-attention after its
     self-attention; a layer without ``cross``, or no memory, skips it.
@@ -193,7 +206,9 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, positions, cache,
     DEP schedule of every MoE layer, ``placement`` this layer's
     ``dep.LayerPlacement`` and ``capacity_scale`` its dispatch widening.
     ``stats_sink`` is an optional list an MoE layer appends its
-    ``moe.MoEStats`` to."""
+    ``moe.MoEStats`` to. ``num_experts_padded`` is the model's padded
+    expert count; ``with_aux`` runs a DEP layer's aux loss (the loss
+    asks for it; serving skips its all_reduce)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     if kind in ("mlstm", "slstm"):
@@ -235,7 +250,9 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, positions, cache,
     if kind == "attn_moe":
         y, aux, *st = _apply_moe(p, cfg, h, ctx, plan, placement,
                                  collect_stats=stats_sink is not None,
-                                 capacity_scale=capacity_scale)
+                                 capacity_scale=capacity_scale,
+                                 num_experts_padded=num_experts_padded,
+                                 with_aux=with_aux)
         if stats_sink is not None:
             stats_sink.append(st[0])
     else:
@@ -265,16 +282,23 @@ class Model:
 
     ``device=None`` means the CUDA card and raises when there is none;
     the tests pass ``device="cpu"``, where every kernel wrapper takes its
-    plain version."""
+    plain version. A model on the ``meta`` device gives shapes only
+    (``launch.steps.abstract_params``: ``init`` with a
+    ``layers.MetaGenerator``). ``num_experts_padded`` pads every MoE
+    layer's expert dimension (padded experts are masked out of the
+    router)."""
 
     def __init__(self, cfg: ModelConfig,
                  ctx: Optional[ExecutionContext] = None,
-                 dtype=torch.bfloat16, device: DeviceLike = None):
+                 dtype=torch.bfloat16, device: DeviceLike = None,
+                 num_experts_padded: int = 0):
         self.cfg = cfg
         self.ctx = ctx or ExecutionContext()
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, allow_meta=True)
         self.dtype = dtype
         self.kinds = layer_kinds(cfg)
+        self.E_pad = num_experts_padded or (cfg.moe.num_experts
+                                            if cfg.moe else 0)
 
     # ---- init -----------------------------------------------------------
     def init(self, generator: torch.Generator,
@@ -303,7 +327,7 @@ class Model:
                                            cfg.vocab_size, dtype=dt)
         cross = cfg.is_encoder_decoder
         params["layers"] = [init_layer(generator, cfg, kind, dt,
-                                       expert_shard, cross)
+                                       expert_shard, cross, self.E_pad)
                             for kind in self.kinds]
         if cross:
             params["enc_layers"] = [
@@ -365,11 +389,13 @@ class Model:
 
     def _layers(self, params, tokens, extra_embeds, memory, caches,
                 plan=None, placement=None, sink=None,
-                capacity_scale: float = 1.0, remat: bool = False):
+                capacity_scale: float = 1.0, remat: bool = False,
+                with_aux: bool = False):
         """The full-sequence pass up to the final norm: an encoder-decoder
         model given frames (``extra_embeds``) and no memory encodes them
-        first. ``remat`` checkpoints each decoder layer. Returns (x [B,
-        P+S, M], new caches, each layer's aux)."""
+        first. ``remat`` checkpoints each decoder layer; ``with_aux`` runs
+        the DEP layers' aux loss. Returns (x [B, P+S, M], new caches, each
+        layer's aux)."""
         cfg = self.cfg
         if cfg.is_encoder_decoder and memory is None \
                 and extra_embeds is not None:
@@ -391,7 +417,8 @@ class Model:
                 caches[i] if caches is not None else None, "prefill",
                 self.ctx, plan=plan,
                 placement=_layer_placement(placement, i), stats_sink=sink,
-                capacity_scale=capacity_scale, memory=memory)
+                capacity_scale=capacity_scale, memory=memory,
+                num_experts_padded=self.E_pad, with_aux=with_aux)
             auxes.append(aux)
         return x, new_caches, auxes
 
@@ -485,7 +512,8 @@ class Model:
                 params["layers"][i], cfg, kind, x, None, caches[i],
                 "decode", self.ctx, lengths=lengths, paged=paged, plan=plan,
                 placement=_layer_placement(placement, i), stats_sink=sink,
-                capacity_scale=capacity_scale, memory=memory)
+                capacity_scale=capacity_scale, memory=memory,
+                num_experts_padded=self.E_pad)
             new_caches.append(nc)
         x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
         if return_moe_stats:
@@ -507,7 +535,8 @@ class Model:
         cfg = self.cfg
         tokens = tokens.to(self.device)
         x, _, auxes = self._layers(params, tokens, extra_embeds, None, None,
-                                   plan=plan, remat=self.ctx.remat)
+                                   plan=plan, remat=self.ctx.remat,
+                                   with_aux=True)
         x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
         off = (extra_embeds.shape[1]
                if (extra_embeds is not None and cfg.family == "vlm") else 0)

@@ -14,6 +14,12 @@ The parameters and states are updated in place (under
 ``torch.no_grad()``), so that a model at full width holds no second copy
 of its weights; ``apply_updates`` still returns them, as the reference's
 does.
+
+A sharded tree (DTensor leaves, the sharded train step's) is updated
+shard by shard on each rank, its states are DTensors with the same
+placements, and ``global_norm`` is the norm of the whole tree: each
+shard counts once, a leaf replicated over a mesh axis once, not once per
+replica.
 """
 from __future__ import annotations
 
@@ -22,6 +28,8 @@ from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.training.tree import tree_leaves, tree_map
 
@@ -51,6 +59,13 @@ def init_opt_state(params, cfg: AdamWConfig) -> OptState:
     device = leaves[0].device if leaves else torch.device("cpu")
 
     def zeros_like(p):
+        if isinstance(p, DTensor):
+            local = p.to_local()
+            return DTensor.from_local(
+                torch.zeros(local.shape, dtype=cfg.state_dtype or p.dtype,
+                            device=local.device),
+                p.device_mesh, p.placements, run_check=False,
+                shape=p.shape, stride=p.stride())
         return torch.zeros(p.shape, dtype=cfg.state_dtype or p.dtype,
                            device=p.device)
 
@@ -73,9 +88,35 @@ def schedule(cfg: AdamWConfig, step):
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over the leaves of their float32 squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+    """sqrt of the sum over the leaves of their float32 squares. For
+    DTensor leaves the sum runs over the whole tree: each rank adds its
+    shards' squares over the number of ranks holding the same shard (the
+    mesh sizes of the leaf's ``Replicate`` dims), and the sums are added
+    over the mesh."""
+    plain, sharded, mesh = [], [], None
+    for x in tree_leaves(tree):
+        if isinstance(x, DTensor):
+            mesh = x.device_mesh
+            reps = 1
+            for i, p in enumerate(x.placements):
+                if p.is_replicate():
+                    reps *= mesh.size(i)
+            sharded.append(torch.sum(torch.square(x.to_local().float()))
+                           / reps)
+        else:
+            plain.append(torch.sum(torch.square(x.float())))
+    total = sum(plain)
+    if sharded:
+        part = torch.stack(sharded).sum()
+        for i in range(mesh.ndim):
+            if mesh.size(i) > 1:
+                dist.all_reduce(part, group=mesh.get_group(i))
+        total = total + part
+    return torch.sqrt(total)
+
+
+def _local(x):
+    return x.to_local() if isinstance(x, DTensor) else x
 
 
 @torch.no_grad()
@@ -87,6 +128,8 @@ def apply_updates(params, grads, state: OptState, cfg: AdamWConfig
     if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
         raise ValueError("params, grads and states differ in structure")
     gnorm = global_norm(flat_g)
+    flat_p, flat_g = [_local(x) for x in flat_p], [_local(x) for x in flat_g]
+    flat_m, flat_v = [_local(x) for x in flat_m], [_local(x) for x in flat_v]
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = schedule(cfg, step)

@@ -6,7 +6,7 @@ train, every gradient leaf of ``jax.grad`` (relative L2 per leaf); the
 recurrent families' loss is compared under ``torch.no_grad()``, and under
 autograd their scan kernels refuse. The expert GEMM's backward against
 autograd of its plain version, remat on and off, and the refusals of
-the kernels without a backward and of the DEP layer.
+the kernels without a backward, and the DEP layer's gradients.
 ``test_torch_loss_grads_multimodal.py`` runs the same checks on the vlm,
 audio and hybrid families."""
 import functools
@@ -304,17 +304,34 @@ def test_kernel_without_backward_refuses_grad(name):
 
 def test_flash_and_dep_paths_refuse_in_a_model():
     """The flash route under autograd raises at its first attention layer
-    (train with attn_impl='xla'); ``moe_apply_dep`` refuses parameters
-    that require a gradient before it touches its groups."""
+    (train with attn_impl='xla'). The DEP layer no longer refuses: its
+    exchanges are differentiable, and on a gloo group of one rank
+    ``moe_apply_dep``'s output and gradients (input, router, experts,
+    shared) equal the capacity path's at the same capacity (f32, 1e-6;
+    the sharded walk is held in ``test_torch_sharded_train.py``)."""
     params, toks, _, _, _ = reference("qwen2-moe-a2.7b", True)
     model = port_model("qwen2-moe-a2.7b", attn_impl="flash")
     with pytest.raises(RuntimeError, match="flash_attention: no backward"):
         loss_and_grads(model, params_from_numpy(params),
                        torch.from_numpy(toks))
+    from repro_torch.core.dep import DepGroups
+    from repro_torch.models.moe import moe_apply_capacity
+    groups = DepGroups.single("gloo")
     cfg = get_smoke_config("qwen2-moe-a2.7b")
-    layer = params_from_numpy(params["layers"][0]["moe"])
-    layer["router"]["kernel"].requires_grad_()
-    x = torch.randn(1, 4, cfg.d_model)
-    with pytest.raises(RuntimeError, match="moe_apply_dep: no backward"):
-        moe_apply_dep(layer, x, cfg.moe, None, sequence=True,
-                      batch_sharded=False)
+    x0 = torch.randn(2, 8, cfg.d_model, generator=torch.Generator()
+                     .manual_seed(0))
+    outs = []
+    for dep_path in (True, False):
+        layer = params_from_numpy(params["layers"][0]["moe"])
+        leaves = [t.requires_grad_() for t in tree_leaves(layer)]
+        x = x0.clone().requires_grad_()
+        if dep_path:
+            y, aux = moe_apply_dep(layer, x, cfg.moe, groups, sequence=True,
+                                   batch_sharded=False)
+        else:
+            y, aux = moe_apply_capacity(layer, x, cfg.moe)
+        grads = torch.autograd.grad((y * y).sum() + aux, [x] + leaves)
+        outs.append([y.detach()] + list(grads))
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        assert torch.isfinite(got).all()

@@ -3,15 +3,17 @@
 at smoke size.
 
 The calibrate, serve, paged, pressure, dep, drift, placement, obs, mla,
-qwen3, ep, xlstm, hybrid, multimodal and train phases run as on the
-card, with the smoke configs
+qwen3, ep, xlstm, hybrid, multimodal, long and train phases run as on
+the card, with the smoke configs
 in place of the full ones (the obs phase's entry point too; the qwen3
 path's smoke config at its 8 layers), every engine on the CPU, the
 calibration on the CPU at f32 over the reference's sweeps (the plain
 versions in place of the kernels), the dep, placement and obs phases'
 expert group on gloo (one rank), and the ep phase's two ranks as two
 spawned CPU processes over gloo, each patched as this process is
-(``patch``), its off-by-one-expert control included. An engine
+(``patch``), its off-by-one-expert control included (the train phase's
+two sharded ranks too). The long phase runs the smoke config adapted to
+``long_500k`` (its window of 8192 over 2 layers). An engine
 that would capture its decode step gets ``EagerGraph``,
 a stand-in for ``decode_graph.CudaGraph`` whose replay runs the captured
 step again and copies its outputs into the captured ones, so that the
@@ -144,7 +146,7 @@ def patch() -> None:
     chip_smoke.profile_breakdown = lambda fn, *a, **k: (fn(), {"calls": 1})[1]
     chip_smoke.CAL_DEVICE = chip_smoke.OBS_DEVICE = "cpu"
     chip_smoke.EP_DEVICE = chip_smoke.MM_DEVICE = "cpu"
-    chip_smoke.TRAIN_DEVICE = "cpu"
+    chip_smoke.TRAIN_DEVICE = chip_smoke.LONG_DEVICE = "cpu"
     # the tiny preset's 60 steps of 4 x 64: the reference's own test asks
     # 0.2 nat
     chip_smoke.TRAIN_LOOP_RUNS = ((["--preset", "tiny", "--steps", "60",
@@ -171,7 +173,8 @@ def main() -> int:
         chip_smoke.phase_serve_xlstm()
         chip_smoke.phase_serve_hybrid()
         chip_smoke.phase_multimodal()
-        chip_smoke.phase_train()
+        chip_smoke.phase_long()
+        chip_smoke.phase_train(setup=patch)
     print(f"rehearsal: the calibrate phase, every serve phase and the train "
           f"phase passed on the CPU in "
           f"{time.perf_counter() - t0:.0f} s")
