@@ -143,8 +143,8 @@
               exposed comm and the comm-under-EXP share are printed;
      mla, qwen3  the paper's two backbones at full width, bf16 weights
               from seed 0, the same 16 requests, 8 slots, max_context
-              1024: deepseek-v2-lite whole (27 layers, MLA, 64 experts
-              top-6 + 2 shared) and qwen3-moe cut to 8 of its 48 layers
+              1024: deepseek-v2-lite cut to 14 of its 27 layers (MLA, 64
+              experts top-6 + 2 shared) and qwen3-moe cut to 8 of its 48 layers
               (GQA 64/4, 128 experts top-8). The capacity engine serves,
               then a DEP engine on the same weights (FinDEP on the
               calibrate phase's profile, the NCCL group of one rank),
@@ -326,22 +326,28 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as dec_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     decode_attention, decode_attention_paged)
+from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
+    decode_attention_paged_work, decode_attention_work)
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref, gather_pages, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402
-from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention, flash_attention_work)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.mlstm_scan import kernel as mlstm_kernel  # noqa: E402
 from repro_torch.kernels.mlstm_scan import ops as mlstm_ops  # noqa: E402
-from repro_torch.kernels.mlstm_scan.ops import mlstm_scan  # noqa: E402
+from repro_torch.kernels.mlstm_scan.ops import (  # noqa: E402
+    mlstm_scan, mlstm_scan_work)
 from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import kernel as gemm_kernel  # noqa: E402
 from repro_torch.kernels.moe_gemm import ops as gemm_ops  # noqa: E402
 from repro_torch.kernels.moe_gemm.ops import (moe_gemm,  # noqa: E402
-                                               moe_gemm_backward)
+                                               moe_gemm_backward,
+                                               moe_gemm_work)
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref  # noqa: E402
 from repro_torch.kernels.rg_lru import kernel as rglru_kernel  # noqa: E402
-from repro_torch.kernels.rg_lru.ops import rg_lru_scan  # noqa: E402
+from repro_torch.kernels.rg_lru.ops import (  # noqa: E402
+    rg_lru_scan, rg_lru_scan_work)
 from repro_torch.kernels.rg_lru.ref import rg_lru_scan_ref  # noqa: E402
 from repro_torch.models import ExecutionContext, build_model  # noqa: E402
 from repro_torch.data import DataConfig, MarkovTextDataset  # noqa: E402
@@ -353,12 +359,15 @@ from repro_torch.core import dep as dep_lib  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.steps import build as build_bundle  # noqa: E402
 from repro_torch.launch.steps import (LONG_CONTEXT_WINDOW,  # noqa: E402
-                                      adapt_for_shape,
+                                      abstract_params, adapt_for_shape,
                                       decode_cache_specs, frontend_inputs,
                                       loss_and_grads, make_model,
                                       make_prefill_step, make_serve_step,
                                       make_train_step, shard_batch,
+                                      sharded_decode,
                                       sharded_loss_and_grads)
+from repro_torch import roofline  # noqa: E402
+from repro_torch.roofline import StepCounter  # noqa: E402
 from repro_torch.sharding.partition import (distribute_params,  # noqa: E402
                                             gather_shards)
 from repro_torch.models import moe as moe_lib  # noqa: E402
@@ -565,6 +574,18 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def meta(shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def work_bound(work, *operands, dtype=None) -> tuple:
+    """``bound_ms`` of a kernel call's work as its wrapper counts it
+    (``*_work``: the same count a step's roofline reads), in ``dtype``
+    (default the first operand's)."""
+    flops, nbytes = work(*operands)
+    return bound_ms(nbytes, flops, dtype or operands[0].dtype)
+
+
 def _worst(g, w, tol) -> float:
     """The largest |g - w| over its limit atol + rtol |w|: above 1 fails."""
     return float(((g - w).abs() / (tol["atol"] + tol["rtol"] * w.abs()))
@@ -757,14 +778,19 @@ def check_decode_controls(name: str, got, q, k, v, lengths) -> float:
     return min(ratios.values())
 
 
-def decode_bound(lengths, B, H, Kv, D, C, dtype, pages: int = 0):
-    """The card's least time for the call: q and out once, each live
-    position's K and V row once, the lengths (and the table entries of
-    the live pages)."""
-    tokens = int(lengths.clamp(0, C).sum())
-    es = torch.finfo(dtype).bits // 8
-    nbytes = (2 * B * H * D + 2 * tokens * Kv * D) * es + 4 * B + 4 * pages
-    return bound_ms(nbytes, 4.0 * tokens * H * D, dtype)
+def decode_bound(lengths, B, H, Kv, D, C, dtype, bs: int = 0):
+    """The card's least time for the call (``decode_attention_work``): q
+    and out once, each live position's K and V row once, the lengths
+    (and, paged with pages of ``bs`` rows, the table entries of the live
+    pages)."""
+    q = meta((B, H, D), dtype)
+    if not bs:
+        kv = meta((B, C, Kv, D), dtype)
+        return work_bound(decode_attention_work, q, kv, kv, lengths)
+    pages = meta((1, bs, Kv, D), dtype)
+    table = meta((B, C // bs), torch.int32)
+    return work_bound(decode_attention_paged_work, q, pages, pages, lengths,
+                      table)
 
 
 def time_decode(label, q, k, v, lengths):
@@ -1002,8 +1028,7 @@ def check_decode_paged(gen):
                            "decode_attention_")
     plain, plain_dev = timed(
         lambda: paged_decode_attention_ref(q, kp, vp, lengths, tbl))
-    pages = sum(-(-n // bs) for n in lens_list)
-    b, by = decode_bound(lengths, B, H, Kv, D, n_blocks * bs, dtype, pages)
+    b, by = decode_bound(lengths, B, H, Kv, D, n_blocks * bs, dtype, bs)
     print(f"  bf16: kernels {ms:.4f} ms events, {dev:.4f} ms device, "
           f"{cold:.4f} ms with a cold L2; the dense kernels on the same "
           f"contents {dense_ms:.4f} / {dense_dev:.4f} / {dense_cold:.4f} ms "
@@ -1207,10 +1232,7 @@ def check_mlstm(gen):
                                                      "mlstm_chunk_scan")}
                      if mlstm_ops.route(S) == "chunkwise" else {})
             plain = time_ms(lambda: mlstm_scan_ref(*args), iters=3, warmup=1)
-            nbytes = 4 * (4 * B * H * S * D + 2 * B * H * S
-                          + 2 * B * H * D * D + 2 * B * H * D + 2 * B * H)
-            flops = 4.0 * D * D * S * H * B
-            b, by = bound_ms(nbytes, flops, torch.float32)
+            b, by = work_bound(mlstm_scan_work, *args)
             timing[(B, S)] = dict(ms=ms, device_ms=dev, cold_device_ms=cold,
                                   plain_ms=plain, bound_ms=b, bound_by=by,
                                   route=mlstm_ops.route(S),
@@ -1310,8 +1332,7 @@ def check_moe_gemm(gen):
                     lambda: moe_gemm_ref(x, wg, wu, wd), iters=5)
                 lib, lib_dev = timed(lambda: torch.bmm(
                     F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd))
-                flops = 6.0 * E * C * M * H
-                nbytes = (2 * E * C * M + 3 * E * M * H) * 2
+                flops, nbytes = moe_gemm_work(x, wg, wu, wd)
                 b, by = bound_ms(nbytes, flops, dtype)
                 timing[C] = dict(
                     ms=ms, device_ms=dev, plain_ms=plain,
@@ -1401,8 +1422,7 @@ def check_flash(gen):
                 plain, plain_dev = timed(lambda: flash_attention_ref(q, k, v))
                 lib, lib_dev = timed(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True))
-                flops = 4.0 * B * H * D * S * (S + 1) / 2
-                nbytes = (2 * B * S * H * D + 2 * B * S * Kv * D) * 2
+                flops, nbytes = flash_attention_work(q, k, v)
                 b, by = bound_ms(nbytes, flops, dtype)
                 timing = dict(ms=ms, device_ms=dev, plain_ms=plain,
                               plain_device_ms=plain_dev, library_ms=lib,
@@ -1468,9 +1488,7 @@ def check_flash_local(gen):
         lambda: flash_attention_ref(q, k, v, window=win), iters=3)
     lib, lib_dev = timed(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask))
-    pairs = int(mask.sum())
-    flops = 4.0 * B * H * D * pairs
-    nbytes = (2 * B * S * H * D + 2 * B * S * Kv * D) * 2
+    flops, nbytes = flash_attention_work(q, k, v, True, win)
     b, by = bound_ms(nbytes, flops, dtype)
     print(f"  {shape} bf16: kernel {ms:.3f} ms events, {dev:.4f} ms device "
           f"({flops / dev / 1e9:.1f} TFLOP/s); plain {plain:.3f} / "
@@ -1543,8 +1561,7 @@ def check_rg_lru(gen):
                                  "rg_lru_scan")
                 plain = time_ms(lambda: rg_lru_scan_ref(a, b, h0),
                                 iters=3, warmup=1)
-                nbytes = 4 * (3 * B * S * W + 2 * B * W)
-                b_ms, by = bound_ms(nbytes, 2.0 * B * S * W, torch.float32)
+                b_ms, by = work_bound(rg_lru_scan_work, a, b, h0)
                 timing[(B, S)] = dict(ms=ms, device_ms=dev,
                                       cold_device_ms=cold, plain_ms=plain,
                                       bound_ms=b_ms, bound_by=by)
@@ -2537,8 +2554,7 @@ def time_dep_chunks(p, widths, device) -> dict:
     for c in widths:
         x = torch.randn((E, c, M), generator=gen, device=device).to(
             torch.bfloat16)
-        b, _ = bound_ms((2 * E * c * M + 3 * E * M * H) * 2,
-                        6.0 * E * c * M * H, torch.bfloat16)
+        b, _ = work_bound(moe_gemm_work, x, ex["gate"], ex["up"], ex["down"])
 
         def call():
             return moe_gemm(x, ex["gate"], ex["up"], ex["down"])
@@ -2997,8 +3013,7 @@ def time_rep_gemm(eng, shapes) -> None:
             continue
         x = torch.randn((E, c, M), generator=gen, device=eng.device).to(
             torch.bfloat16)
-        b, _ = bound_ms((2 * E * c * M + 3 * E * M * H) * 2,
-                        6.0 * E * c * M * H, torch.bfloat16)
+        b, _ = work_bound(moe_gemm_work, x, hw["gate"], hw["up"], hw["down"])
 
         def call():
             return moe_gemm(x, hw["gate"], hw["up"], hw["down"])
@@ -3486,13 +3501,18 @@ def phase_obs(profile, store_dir: str) -> None:
 #: (128 x 3 x 4096 x 1536 expert weights), so 8 of its 48 layers and the
 #: 151936-token embedding and head come to 20.9 B (41.7 GB in bf16)
 QWEN3_LAYERS = 8
+#: deepseek-v2-lite layers served: 14 of its 27 (each an MLA + MoE layer),
+#: cut to keep the whole run within its time with room to spare
+MLA_LAYERS = 14
 
 
 def backbone_config(path: str):
-    """The config of a backbone path: "mla" serves deepseek-v2-lite whole,
-    "qwen3" serves qwen3-moe at full width cut to ``QWEN3_LAYERS``."""
+    """The config of a backbone path: "mla" serves deepseek-v2-lite at
+    full width cut to ``MLA_LAYERS``, "qwen3" qwen3-moe cut to
+    ``QWEN3_LAYERS``."""
     if path == "mla":
-        return get_config("deepseek-v2-lite")
+        return dataclasses.replace(get_config("deepseek-v2-lite"),
+                                   num_layers=MLA_LAYERS)
     return dataclasses.replace(get_config("qwen3-moe"),
                                num_layers=QWEN3_LAYERS)
 
@@ -3524,7 +3544,6 @@ def check_flash_shape(gen, label: str, B: int, S: int, H: int, Kv: int,
         ms, dev = timed(lambda: flash_attention(q, k, v), "flash_attention_")
         lib, lib_dev = timed(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True))
-        keys = (S + 1) / 2
         how = "device"
     else:
         # calls of a millisecond and more (the long phase's prompt) time as
@@ -3532,7 +3551,6 @@ def check_flash_shape(gen, label: str, B: int, S: int, H: int, Kv: int,
         # has lost nine of ten such calls' events from every trace
         i = torch.arange(S, device=q.device)
         band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
-        keys = float(band.sum()) / S
 
         def kern():
             return flash_attention(q, k, v, window=window)
@@ -3543,8 +3561,7 @@ def check_flash_shape(gen, label: str, B: int, S: int, H: int, Kv: int,
         lib, lib_dev = time_ms(lib_fn), back_to_back_ms(lib_fn)
         del band
         how = "back to back"
-    flops = 4.0 * B * H * D * S * keys
-    nbytes = (2 * B * S * H * D + 2 * B * S * Kv * D) * 2
+    flops, nbytes = flash_attention_work(q, k, v, True, window)
     b, by = bound_ms(nbytes, flops, dtype)
     if window is not None and min(dev, lib_dev) < b:
         fail(f"{name}: a time below the card's bound {b:.4f} ms")
@@ -3614,8 +3631,7 @@ def time_gemm_shapes(gen, path: str, cfg, S: int, experts: int = 0,
         plain = time_ms(lambda: moe_gemm_ref(x, wg, wu, wd), iters=5)
         lib, lib_dev = timed(lambda: torch.bmm(
             F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd))
-        flops = 6.0 * E * C * M * H
-        nbytes = (2 * E * C * M + 3 * E * M * H) * 2
+        flops, nbytes = moe_gemm_work(x, wg, wu, wd)
         b, by = bound_ms(nbytes, flops, torch.bfloat16)
         print(f"  {name}: kernel {ms:.3f} ms events, {dev:.4f} ms device "
               f"({nbytes / dev / 1e9:.3f} TB/s, {flops / dev / 1e9:.1f} "
@@ -3701,8 +3717,7 @@ def check_flash_bidirectional(gen) -> dict:
                     iters=5)
     lib, lib_dev = timed(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=False))
-    flops = 4.0 * B * H * D * S * S
-    nbytes = (2 * B * S * H * D + 2 * B * S * Kv * D) * 2
+    flops, nbytes = flash_attention_work(q, k, v, False)
     b, by = bound_ms(nbytes, flops, torch.bfloat16)
     print(f"  {name}: kernel {ms:.4f} ms events, {dev:.4f} ms device "
           f"({flops / dev / 1e9:.1f} TFLOP/s); plain {plain:.3f} ms events; "
@@ -3863,8 +3878,9 @@ def time_mla_recompute(attn_params, cfg, decode_row: dict) -> dict:
 def phase_backbone(path: str, profile):
     """One of the paper's backbones at full width on the card, bf16
     weights from seed 0, 8 slots, max_context 1024, ``mixed_requests``:
-    "mla" serves deepseek-v2-lite (27 layers, MLA, 64 experts top-6 + 2
-    shared), "qwen3" qwen3-moe cut to ``QWEN3_LAYERS`` layers (GQA 64/4,
+    "mla" serves deepseek-v2-lite cut to ``MLA_LAYERS`` layers (MLA, 64
+    experts top-6 + 2 shared), "qwen3" qwen3-moe cut to ``QWEN3_LAYERS``
+    layers (GQA 64/4,
     128 experts top-8). The capacity engine serves, then a DEP engine on
     the same weights (FinDEP on the calibrate phase's profile, the NCCL
     group of one rank). Each: launches checked at every step (the expert
@@ -5036,6 +5052,175 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
+#: teacher-forced decode steps of the decode bundle on a mesh of one rank,
+#: held bitwise against the unsharded bundle
+LONG_MESH_STEPS = 4
+#: the dry run this host runs once, in a subprocess: the sequence-split
+#: decode on the 16 x 16 mesh (a fake group of 256 ranks in one process)
+DRYRUN_ARGS = ("--arch", "qwen3-moe", "--shape", "decode_32k")
+_CARD = []
+
+
+def card() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    if not _CARD:
+        _CARD.append(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip()
+            if torch.cuda.is_available() else "no card (a CPU rehearsal)")
+    return _CARD[0]
+
+
+def count_step(fn):
+    """(a ``StepCounter`` with its op log, the output) of ``fn()``."""
+    with StepCounter(log=True) as c:
+        out = fn()
+    return c, out
+
+
+def same_counts(label: str, on_card, on_meta) -> None:
+    """Fail unless the card's count of a step and the count of the same
+    step on ``meta`` agree: FLOPs by dtype, HBM bytes and every kernel's
+    calls, FLOPs and bytes. On a mismatch print the ops counted apart."""
+    a, b = on_card.counts, on_meta.counts
+    if (a.flops_by_dtype, a.hbm_bytes, a.kernels) == \
+            (b.flops_by_dtype, b.hbm_bytes, b.kernels):
+        print(f"[roofline] {label}: the card's count equals the meta "
+              f"count: {a.flops:.6e} FLOPs {a.flops_by_dtype}, "
+              f"{a.hbm_bytes:.6e} HBM bytes, kernels "
+              f"{json.dumps(a.kernels)}, {a.aten_ops} aten ops")
+        return
+    apart = {"card only": sorted(on_card.ops - on_meta.ops),
+             "meta only": sorted(on_meta.ops - on_card.ops)}
+    print(f"[roofline] {label}: counted apart (op, FLOPs, bytes): "
+          + json.dumps({k: [list(x) for x in v[:40]]
+                        for k, v in apart.items()}))
+    fail(f"{label}: the card's count ({a.flops_by_dtype}, {a.hbm_bytes} "
+         f"bytes, {a.kernels}) differs from the meta count "
+         f"({b.flops_by_dtype}, {b.hbm_bytes}, {b.kernels})")
+
+
+def roofline_share(label: str, counts, ms: float) -> dict:
+    """The step's least time by ``roofline.analyze`` (published H100 SXM
+    peaks at 700 W, f32 at the SIMT rate: TF32 is off here) beside its
+    measured ``ms``, and the share."""
+    r = roofline.analyze(label, counts, 0.0, 1)
+    bound = r.bound_s * 1e3
+    share = bound / ms if ms > 0 else float("nan")
+    print(f"[roofline] {label} on {card()}: {ms:.3f} ms measured (CUDA "
+          f"events, warmed up); least time {bound:.3f} ms, bound by "
+          f"{r.dominant} (compute {r.compute_s * 1e3:.3f}, memory "
+          f"{r.memory_s * 1e3:.3f}, collective {r.collective_s * 1e3:.3f} "
+          f"ms); share {share:.1%}")
+    return dict(measured_ms=ms, bound_ms=bound, dominant=r.dominant,
+                compute_ms=r.compute_s * 1e3, memory_ms=r.memory_s * 1e3,
+                collective_ms=r.collective_s * 1e3, share=share,
+                flops=counts.flops, hbm_bytes=counts.hbm_bytes,
+                kernels=counts.kernels, card=card())
+
+
+def long_roofline(cfg, shape, b, params, caches, prompt, tok: int) -> dict:
+    """A serve step of the full-depth bundle and the ``LONG_PROMPT``-token
+    prefill, each counted on the card and on ``meta`` from a twin of the
+    same bundle (``device="meta"``, its abstract arguments): the counts
+    must agree (``same_counts``); then each timed (CUDA events, warmed
+    up) beside its least time (``roofline_share``)."""
+    mb = build_bundle(cfg, shape, dtype=torch.bfloat16, device="meta",
+                      attn_impl="flash")
+    mparams, _, mcaches = mb.abstract_args
+    tok = torch.tensor([[tok]], device=b.model.device)
+    prefill, mprefill = make_prefill_step(b.model), \
+        make_prefill_step(mb.model)
+    mtok = meta(tuple(tok.shape), tok.dtype)
+    mprompt = meta(tuple(prompt.shape), prompt.dtype)
+    out = {}
+    for label, run, mrun, iters in (
+            ("long serve step", lambda: b.step_fn(params, tok, caches),
+             lambda: mb.step_fn(mparams, mtok, mcaches), 10),
+            (f"long prefill 1 x {LONG_PROMPT}",
+             lambda: prefill(params, prompt)[0],
+             lambda: mprefill(mparams, mprompt)[0], 3)):
+        on_card, _ = count_step(run)
+        on_meta, _ = count_step(mrun)
+        same_counts(label, on_card, on_meta)
+        out[label] = roofline_share(label, on_card.counts,
+                                    time_ms(run, iters=iters, warmup=1))
+    return out
+
+
+def long_mesh(cfg, shape, b, params, caches, tokens) -> dict:
+    """The same decode bundle built on a (1, 1) ``make_host_mesh`` over an
+    NCCL group of one rank (gloo on the CPU), on the same weights (at one
+    rank every shard is the whole tensor): ``LONG_MESH_STEPS``
+    teacher-forced steps of ``sharded_decode`` from a copy of the same
+    ring, each step's logits bitwise the unsharded bundle's, then both
+    bundles' serve steps the same greedy token."""
+    DepGroups.single("nccl" if LONG_DEVICE == "cuda" else "gloo")
+    mesh = make_host_mesh(model=1, device_type=LONG_DEVICE)
+    mb = build_bundle(cfg, shape, mesh=mesh, dtype=torch.bfloat16,
+                      device=LONG_DEVICE, attn_impl="flash")
+    if mb.model.ctx.tp is None or mb.model.ctx.moe_impl != "dep":
+        fail("long mesh: the bundle on a mesh is not tensor-parallel DEP")
+    one = [{k: v.clone() for k, v in c.items()} for c in caches]
+    two = [{k: v.clone() for k, v in c.items()} for c in caches]
+    forced = torch.tensor(tokens, device=b.model.device)
+    for j in range(LONG_MESH_STEPS):
+        t = forced[j].reshape(1, 1)
+        want, one = b.model.decode_step(params, t, one)
+        got, two = sharded_decode(mb.model, mesh, mb.placements[0], params,
+                                  t, two)
+        if not torch.equal(got, want):
+            fail(f"long mesh: step {j}'s logits differ from the unsharded "
+                 f"bundle's by {float((got - want).abs().max()):.3e}")
+    t = forced[LONG_MESH_STEPS].reshape(1, 1)
+    nxt, _ = b.step_fn(params, t, one)
+    mnxt, _ = mb.step_fn(params, t, two)
+    if not torch.equal(nxt, mnxt):
+        fail(f"long mesh: greedy tokens {nxt.tolist()} / {mnxt.tolist()}")
+    del one, two
+    torch.distributed.destroy_process_group()
+    print(f"[long mesh] {mb.name} on a (1, 1) mesh over "
+          f"{'NCCL' if LONG_DEVICE == 'cuda' else 'gloo'}: "
+          f"{LONG_MESH_STEPS} teacher-forced decode steps bitwise the "
+          f"unsharded bundle's logits, then the same greedy token "
+          f"{int(nxt[0, 0])}")
+    return dict(steps=LONG_MESH_STEPS, bitwise=True, token=int(nxt[0, 0]))
+
+
+def card_dryrun() -> dict:
+    """``python -m repro_torch.launch.dryrun`` once, in a subprocess on
+    this host, at ``DRYRUN_ARGS`` (the sequence-split decode of
+    qwen3-moe's four KV heads over the 16-wide model axis): a fake group
+    of 256 ranks under this torch, nothing on the card. Fails unless it
+    prints a record with the reference's keys whose decode took the
+    sequence-split path (no decode kernel; three all_reduce a layer)."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    if res.returncode:
+        fail(f"dryrun: exit {res.returncode}: {res.stderr[-3000:]}")
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    keys = ("arch", "shape", "mesh", "mode", "ok", "accum_steps",
+            "arg_bytes_per_device", "temp_bytes_per_device",
+            "peak_gb_per_device", "flops_per_device",
+            "hbm_bytes_per_device", "collective_bytes_per_device",
+            "collective_counts", "collective_bytes_by_kind", "compute_ms",
+            "memory_ms", "collective_ms", "dominant", "model_flops",
+            "useful_flops_ratio")
+    missing = [k for k in keys if k not in rec]
+    layers = get_config("qwen3-moe").num_layers
+    if missing or not rec["ok"] or "decode_attention" in rec["kernel_work"] \
+            or rec["collective_counts"].get("all-reduce", 0) < 3 * layers:
+        fail(f"dryrun: a record without {missing} or off the "
+             f"sequence-split path: {json.dumps(rec)}")
+    print(f"[dryrun] {' '.join(DRYRUN_ARGS)} in a subprocess "
+          f"({time.perf_counter() - t0:.1f} s): " + json.dumps(rec))
+    return rec
+
+
 def long_check(cfg, shape) -> dict:
     """The correctness half of ``phase_long``: the adapted config cut to
     ``LONG_CHECK_LAYERS`` at full width, f32, capacity factor E / top_k
@@ -5212,6 +5397,9 @@ def phase_long() -> dict:
           f"steps at {step:.2f} ms a step (median; all "
           f"{', '.join(f'{x:.2f}' for x in step_ms)}), tokens {tokens} in "
           f"both runs; peak {peak:.2f} GB allocated; launches {counts}")
+    row["roofline"] = long_roofline(cfg, shape, b, params, caches, prompt,
+                                    tokens[-1])
+    row["mesh"] = long_mesh(cfg, shape, b, params, caches, tokens)
     shapes = widths.shapes
     experts = {cfg.moe.num_experts: params["layers"][0]["moe"]["experts"]}
     del model, params, caches, prefill
@@ -5226,6 +5414,7 @@ def phase_long() -> dict:
             gen, "long prefill", 1, LONG_PROMPT, cfg.num_heads,
             cfg.num_kv_heads, cfg.head_dim, window=cfg.sliding_window)
         torch.cuda.empty_cache()
+    row["dryrun"] = card_dryrun()
     row["wall_s"] = time.perf_counter() - t0
     print("[long summary] " + json.dumps(row))
     return counts
@@ -5337,7 +5526,7 @@ def time_train_gemm(x, wg, wu, wd, dy) -> dict:
     back = profile_breakdown(lambda: moe_gemm_backward(x, wg, wu, wd, dy),
                              f"train backward {x.dtype}")
     emh, ecm = E * M * H, E * C * M
-    b_fwd = bound_ms((2 * ecm + 3 * emh) * es, 6.0 * ecm * H, x.dtype)
+    b_fwd = work_bound(moe_gemm_work, x, wg, wu, wd)
     b_bwd = bound_ms((3 * ecm + 6 * emh) * es, 16.0 * ecm * H, x.dtype)
     b_both = bound_ms((5 * ecm + 9 * emh) * es, 22.0 * ecm * H, x.dtype)
     return dict(ms=fwd, backward_ms=bwd, fwd_bwd_ms=both,
@@ -5565,6 +5754,8 @@ def train_full() -> tuple:
                  f"{norms[-1]}")
     peak = (torch.cuda.max_memory_allocated() / 1e9
             if TRAIN_DEVICE == "cuda" else 0.0)
+    roof = train_roofline(cfg, step_fn, params, state, batches[TRAIN_STEPS],
+                          opt_cfg)
     before = kernel_lib.launch_counts()
     holder = {}
 
@@ -5598,7 +5789,8 @@ def train_full() -> tuple:
                step_ms=step_ms, step_ms_all=[x * 1e3 for x in step_s],
                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
                peak_gb=peak, profile=prof, remat_step_ms=remat_s * 1e3,
-               remat_loss=remat_loss, remat_peak_gb=remat_peak)
+               remat_loss=remat_loss, remat_peak_gb=remat_peak,
+               roofline=roof)
     print(f"[train] {row['config']} ({n_params / 1e9:.3f} B params, bf16, "
           f"AdamW bf16 states): losses "
           + ", ".join(f"{v:.4f}" for v in losses)
@@ -5618,6 +5810,27 @@ def train_full() -> tuple:
         torch.cuda.empty_cache()
     row["wall_s"] = time.perf_counter() - t0
     return total, row
+
+
+def train_roofline(cfg, step_fn, params, state, batch, opt_cfg) -> dict:
+    """One train step counted on the card (it also trains: the weights
+    and states move on) and the same step on ``meta`` (a twin model, its
+    abstract weights and AdamW states): the counts must agree
+    (``same_counts``); then two more steps timed by CUDA events beside the
+    step's least time (``roofline_share``)."""
+    def run():
+        return step_fn(params, state, batch)[2]["loss"]
+    on_card, _ = count_step(run)
+    twin = build_model(cfg, dtype=torch.bfloat16, device="meta")
+    mparams = abstract_params(twin, torch.bfloat16)
+    mstate = init_opt_state(mparams, opt_cfg)
+    mbatch = meta(tuple(batch.shape), batch.dtype)
+    on_meta, _ = count_step(lambda: make_train_step(twin, opt_cfg)(
+        mparams, mstate, mbatch))
+    same_counts("train step", on_card, on_meta)
+    return roofline_share(f"train step {TRAIN_BATCH} x {TRAIN_SEQ}, "
+                          f"{TRAIN_LAYERS} layers", on_card.counts,
+                          time_ms(run, iters=2, warmup=0))
 
 
 def train_small() -> dict:

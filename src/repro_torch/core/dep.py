@@ -191,24 +191,40 @@ class DepGroups:
 
     @classmethod
     def from_mesh(cls, mesh, model_axis: str = "model") -> "DepGroups":
-        """This rank's groups on a ("data", "model") ``DeviceMesh`` over
-        the whole default process group (``launch.mesh.make_host_mesh``):
-        the model axis is the expert axis, the other the data axis; no
-        ``control`` group (the train step needs no lock step)."""
+        """This rank's groups on a ``DeviceMesh`` over the whole default
+        process group whose last axis is the model axis
+        (``launch.mesh.make_host_mesh``'s ("data", "model"),
+        ``make_production_mesh``'s ("pod", "data", "model")): the model
+        axis is the expert axis and every other axis, flattened major
+        first, the data axis; no ``control`` group (the launch steps need
+        no lock step)."""
         names = tuple(mesh.mesh_dim_names)
-        if len(names) != 2 or names[1] != model_axis:
-            raise ValueError(f"a (data, {model_axis!r}) mesh, not {names}")
+        if len(names) < 2 or names[-1] != model_axis:
+            raise ValueError(f"a (..., data, {model_axis!r}) mesh, not "
+                             f"{names}")
         n = mesh.size()
         if n != dist.get_world_size():
             raise ValueError(f"mesh of {n} ranks, world of "
                              f"{dist.get_world_size()}")
-        data_axis = names[0]
-        coord = dict(zip(names, mesh.get_coordinate()))
+        coord = mesh.get_coordinate()
+        mo = mesh.size(len(names) - 1)
+        if len(names) == 2:
+            data = mesh.get_group(names[0])
+            data_rank = coord[0]
+        else:
+            # one group per model coordinate, made by every rank in the
+            # same order; this rank keeps its own
+            ranks = mesh.mesh.reshape(-1, mo)
+            data = None
+            for m in range(mo):
+                g = dist.new_group(ranks[:, m].tolist())
+                if m == coord[-1]:
+                    data = g
+            data_rank = dist.get_rank() // mo
         return cls(expert=mesh.get_group(model_axis),
-                   expert_rank=coord[model_axis],
-                   expert_size=mesh.size(1),
-                   data=mesh.get_group(data_axis), world=dist.group.WORLD,
-                   world_size=n, data_rank=coord[data_axis],
+                   expert_rank=coord[-1], expert_size=mo, data=data,
+                   world=dist.group.WORLD, world_size=n,
+                   data_rank=data_rank,
                    backend=str(dist.get_backend()))
 
     def expert_peer(self, m: int) -> int:

@@ -3,10 +3,20 @@
 is the plain PyTorch version of the same function, and ``ops.py`` is the
 public wrapper that dispatches by the tensor's device and counts launches
 (a CUDA graph's replays are added by ``runtime/decode_graph.py``).
+
+Each wrapper also has a ``*_work`` function: the (FLOPs, bytes) the
+function needs on its operands (each input read once, each output
+written once; attention counts only the (query, key) pairs it attends).
+A wrapper reports that work to the active step counter
+(``roofline.StepCounter``) through ``counted``, on every device, and the
+counter does not see the ops that the plain version dispatches. An
+operand on the ``meta`` device takes a branch that returns an empty
+``meta`` output of the right shape: it launches nothing and counts no
+launch (the dry run, ``launch.dryrun``).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, List
 
 import torch
 
@@ -26,6 +36,40 @@ def refuse_grad(name: str, *tensors) -> None:
             f"{name}: no backward (ROADMAP Queue 1 item 10): an operand "
             "requires a gradient; train with attn_impl='xla', or run "
             "under torch.no_grad()")
+
+
+#: the active step counters (``roofline.StepCounter``), innermost last
+_COUNTERS: List = []
+
+
+def active_counter():
+    """The innermost active step counter, or None."""
+    return _COUNTERS[-1] if _COUNTERS else None
+
+
+def counted(name: str, work: Callable, operands: tuple, run: Callable,
+            dtype=None):
+    """``run()``, the body of wrapper ``name``, with its work reported:
+    under an active counter ``work(*operands)`` -> (flops, bytes) is added
+    to the counter's kernel totals (FLOPs in ``dtype``, by default the
+    first operand's), the
+    aten ops ``run`` dispatches are hidden from it (the plain version's
+    loop is not the function's work) and the outputs are tracked as
+    live. With no counter (a captured decode step among them) nothing is
+    read on the host."""
+    c = active_counter()
+    if c is None:
+        return run()
+    with c.paused():
+        flops, nbytes = work(*operands)
+        out = run()
+    c.add_kernel(name, flops, nbytes, dtype or operands[0].dtype)
+    c.track(out)
+    return out
+
+
+def is_meta(t: torch.Tensor) -> bool:
+    return t.device.type == "meta"
 
 
 def check_cuda_operands(name: str, *tensors, index=()) -> None:

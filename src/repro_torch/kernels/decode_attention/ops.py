@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import (check_cuda_operands, check_tma_operands,
-                                 refuse_grad)
+                                 counted, is_meta, refuse_grad)
 from repro_torch.kernels.decode_attention import kernel
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref)
@@ -35,6 +35,44 @@ def _scratch(q, Kv: int, C: int):
                        dtype=torch.float32, device=q.device)
 
 
+def _attended(lengths, cap: int, B: int) -> int:
+    """Positions the rows attend: each row's length clamped to [0, cap]
+    (a host read of ``lengths``, made only under a step counter); on
+    ``meta`` operands, whose lengths are unknown, every row at ``cap``."""
+    if is_meta(lengths):
+        return B * cap
+    return int(lengths.clamp(0, cap).sum())
+
+
+def _decode_work(q, Kv: int, tokens: int, extra_bytes: int):
+    B, H, D = q.shape
+    es = q.element_size()
+    nbytes = (2 * B * H * D + 2 * tokens * Kv * D) * es + 4 * B + extra_bytes
+    return 4.0 * tokens * H * D, float(nbytes)
+
+
+def decode_attention_work(q, k_cache, v_cache, lengths):
+    """(FLOPs, bytes) of ``decode_attention``: q and the output once, each
+    attended position's K and V row once and the lengths; 4·H·D FLOPs a
+    position (QK and PV). A row counts its own length, not C."""
+    tokens = _attended(lengths, k_cache.shape[1], q.shape[0])
+    return _decode_work(q, k_cache.shape[2], tokens, 0)
+
+
+def decode_attention_paged_work(q, k_pages, v_pages, lengths, block_table):
+    """(FLOPs, bytes) of ``decode_attention_paged``: as the dense call's,
+    plus the table entries of the live pages."""
+    bs, n_blocks = k_pages.shape[1], block_table.shape[1]
+    cap = n_blocks * bs
+    if is_meta(lengths):
+        tokens, pages = q.shape[0] * cap, q.shape[0] * n_blocks
+    else:
+        lens = lengths.clamp(0, cap)
+        tokens = int(lens.sum())
+        pages = int(((lens + bs - 1) // bs).sum())
+    return _decode_work(q, k_pages.shape[2], tokens, 4 * pages)
+
+
 def decode_attention(q, k_cache, v_cache, lengths):
     """q: [B,H,D]; k/v_cache: [B,C,Kv,D]; lengths: int [B] -> [B,H,D].
 
@@ -45,8 +83,18 @@ def decode_attention(q, k_cache, v_cache, lengths):
     of 8 in bf16 and of 4 in f32.
     """
     refuse_grad("decode_attention", q, k_cache, v_cache)
+    return counted("decode_attention", decode_attention_work,
+                   (q, k_cache, v_cache, lengths),
+                   lambda: _decode_attention(q, k_cache, v_cache, lengths))
+
+
+def _decode_attention(q, k_cache, v_cache, lengths):
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k_cache, v_cache, lengths)
+        # contiguous, as the kernels' output is
+        return decode_attention_ref(q, k_cache, v_cache,
+                                    lengths).contiguous()
+    if is_meta(q):
+        return torch.empty_like(q)
     B, H, D = q.shape
     if k_cache.dim() != 4 or k_cache.shape[0] != B or k_cache.shape[3] != D:
         raise ValueError(f"k_cache {tuple(k_cache.shape)} does not match "
@@ -84,9 +132,18 @@ def decode_attention_paged(q, k_pages, v_pages, lengths, block_table):
     over the gathered contents. Pages are read as the dense cache is.
     """
     refuse_grad("decode_attention_paged", q, k_pages, v_pages)
+    return counted("decode_attention_paged", decode_attention_paged_work,
+                   (q, k_pages, v_pages, lengths, block_table),
+                   lambda: _decode_attention_paged(q, k_pages, v_pages,
+                                                   lengths, block_table))
+
+
+def _decode_attention_paged(q, k_pages, v_pages, lengths, block_table):
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, lengths,
-                                          block_table)
+                                          block_table).contiguous()
+    if is_meta(q):
+        return torch.empty_like(q)
     B, H, D = q.shape
     if k_pages.dim() != 4 or k_pages.shape[3] != D:
         raise ValueError(f"k_pages {tuple(k_pages.shape)} does not match "

@@ -7,9 +7,29 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import (check_cuda_operands, check_tma_operands,
-                                 refuse_grad)
+                                 counted, is_meta, refuse_grad)
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+
+def attended_pairs(S: int, causal: bool = True, window=None) -> int:
+    """The (query, key) pairs of one head of one row that the mask keeps:
+    key j for query i when j <= i (causal) and i - j < window."""
+    w = S if window is None else min(window, S)
+    if causal:
+        return w * (w + 1) // 2 + (S - w) * w
+    return S * S - (S - w) * (S - w + 1) // 2
+
+
+def flash_attention_work(q, k, v, causal: bool = True, window=None):
+    """(FLOPs, bytes) of ``flash_attention``: q, k, v and the output once;
+    4·D FLOPs (QK and PV) for each attended (query, key) pair of each
+    head."""
+    B, S, H, D = q.shape
+    Kv = k.shape[2]
+    flops = 4.0 * B * H * D * attended_pairs(S, causal, window)
+    return flops, float((2 * B * S * H * D + 2 * B * S * Kv * D)
+                        * q.element_size())
 
 
 def flash_attention(q, k, v, causal: bool = True, window=None):
@@ -18,8 +38,18 @@ def flash_attention(q, k, v, causal: bool = True, window=None):
     tiles. bf16 runs the tensor-core kernel (operands 16-byte aligned),
     f32 the SIMT kernel."""
     refuse_grad("flash_attention", q, k, v)
+    return counted("flash_attention", flash_attention_work,
+                   (q, k, v, causal, window),
+                   lambda: _flash_attention(q, k, v, causal, window))
+
+
+def _flash_attention(q, k, v, causal, window):
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        # contiguous, as the kernel's output is
+        return flash_attention_ref(q, k, v, causal=causal,
+                                   window=window).contiguous()
+    if is_meta(q):
+        return torch.empty_like(q)
     B, S, H, D = q.shape
     if k.dim() != 4 or k.shape[:2] != (B, S) or k.shape[3] != D \
             or v.shape != k.shape:

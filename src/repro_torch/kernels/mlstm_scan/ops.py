@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import (check_cuda_operands, check_tma_operands,
-                                 refuse_grad)
+                                 counted, is_meta, refuse_grad)
 from repro_torch.kernels.mlstm_scan import kernel
 from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
 
@@ -25,6 +25,16 @@ def route(S: int) -> str:
     return "chunkwise" if S >= CHUNKWISE_MIN_S else "recurrent"
 
 
+def mlstm_scan_work(q, k, v, i_gate, log_f, C0, n0, m0, c_in_place=False):
+    """(FLOPs, bytes) of ``mlstm_scan``: q, k, v, h, the gates, C in and
+    out, n in and out and m in and out once (f32); 4·D² FLOPs per step of
+    each head (the C update and the readout)."""
+    B, H, S, D = q.shape
+    nbytes = 4 * (4 * B * H * S * D + 2 * B * H * S + 2 * B * H * D * D
+                  + 2 * B * H * D + 2 * B * H)
+    return 4.0 * D * D * S * H * B, float(nbytes)
+
+
 def mlstm_scan(q, k, v, i_gate, log_f, C0, n0, m0, c_in_place=False):
     """q,k,v: [B,H,S,D] f32; i_gate/log_f: [B,H,S] f32; C0: [B,H,D,D];
     n0: [B,H,D]; m0: [B,H] (f32 state) -> (h [B,H,S,D], C, n, m).
@@ -41,6 +51,16 @@ def mlstm_scan(q, k, v, i_gate, log_f, C0, n0, m0, c_in_place=False):
     threads reads its entries of C0 before it writes them.
     """
     refuse_grad("mlstm_scan", q, k, v, i_gate, log_f, C0, n0, m0)
+    args = (q, k, v, i_gate, log_f, C0, n0, m0, c_in_place)
+    return counted("mlstm_scan", mlstm_scan_work, args,
+                   lambda: _mlstm_scan(*args))
+
+
+def _mlstm_scan(q, k, v, i_gate, log_f, C0, n0, m0, c_in_place):
+    if is_meta(q):
+        C = C0 if c_in_place else torch.empty_like(C0)
+        return torch.empty_like(q), C, torch.empty_like(n0), \
+            torch.empty_like(m0)
     if q.device.type == "cpu":
         h, C, n, m = mlstm_scan_ref(q, k, v, i_gate, log_f, C0, n0, m0)
         if c_in_place:

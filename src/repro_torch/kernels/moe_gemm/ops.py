@@ -11,14 +11,31 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check_cuda_operands, check_tma_operands
+from repro_torch.kernels import (check_cuda_operands, check_tma_operands,
+                                 counted, is_meta)
 from repro_torch.kernels.moe_gemm import kernel
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 
 
+def moe_gemm_work(x, w_gate, w_up, w_down):
+    """(FLOPs, bytes) of ``moe_gemm``: x and the output once, the three
+    weight stacks once; 6·E·C·M·H FLOPs (three products)."""
+    E, C, M = x.shape
+    H = w_gate.shape[-1]
+    return 6.0 * E * C * M * H, float((2 * E * C * M + 3 * E * M * H)
+                                      * x.element_size())
+
+
 def _forward(x, w_gate, w_up, w_down):
+    return counted("moe_gemm", moe_gemm_work, (x, w_gate, w_up, w_down),
+                   lambda: _dispatch(x, w_gate, w_up, w_down))
+
+
+def _dispatch(x, w_gate, w_up, w_down):
     if x.device.type == "cpu":
         return moe_gemm_ref(x, w_gate, w_up, w_down)
+    if is_meta(x):
+        return torch.empty_like(x)
     E, C, M = x.shape
     H = w_gate.shape[-1]
     if (w_gate.shape != (E, M, H) or w_up.shape != (E, M, H)

@@ -6,9 +6,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import (check_cuda_operands, check_tma_operands,
-                                 refuse_grad)
+                                 counted, is_meta, refuse_grad)
 from repro_torch.kernels.rg_lru import kernel
 from repro_torch.kernels.rg_lru.ref import rg_lru_scan_ref
+
+
+def rg_lru_scan_work(a, b, h0):
+    """(FLOPs, bytes) of ``rg_lru_scan``: a and b once (in their dtype),
+    h0, h and h_last once (f32); one multiply-add per element."""
+    B, S, W = a.shape
+    nbytes = 2 * B * S * W * a.element_size() + 4 * (B * S * W + 2 * B * W)
+    return 2.0 * B * S * W, float(nbytes)
 
 
 def rg_lru_scan(a, b, h0):
@@ -21,8 +29,16 @@ def rg_lru_scan(a, b, h0):
     16-byte pieces, so they must be 16-byte aligned with W a multiple of
     16 bytes of their type (4 f32 or 8 bf16 values)."""
     refuse_grad("rg_lru_scan", a, b, h0)
+    return counted("rg_lru_scan", rg_lru_scan_work, (a, b, h0),
+                   lambda: _rg_lru_scan(a, b, h0), dtype=torch.float32)
+
+
+def _rg_lru_scan(a, b, h0):
     if a.device.type == "cpu":
         return rg_lru_scan_ref(a, b, h0)
+    if is_meta(a):
+        return (torch.empty(a.shape, dtype=torch.float32, device="meta"),
+                torch.empty_like(h0))
     if a.dim() != 3 or b.shape != a.shape:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must "
                          "be one [B,S,W] shape")

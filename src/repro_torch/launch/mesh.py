@@ -3,14 +3,47 @@
 
 ``make_host_mesh`` lays a ("data", "model") mesh over the default
 process group's ranks, which the caller starts (``init_process_group``
-with its own address, world size and rank). The production meshes of
-256 and 512 chips (``make_production_mesh``) are not ported: they wait
-for the dry-run's counterpart (ROADMAP Queue 1 item 10).
+with its own address, world size and rank). ``make_production_mesh``
+lays the reference's production meshes of 256 and 512 cards over a fake
+process group in this one process: the dry run (``launch.dryrun``) runs
+rank 0's step on ``meta`` tensors, and the collectives of a fake group
+move nothing.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """Single pod: (16, 16) ("data", "model") = 256 cards. Multi-pod: (2,
+    16, 16) ("pod", "data", "model") = 512 cards. The mesh lives on
+    torch's ``"fake"`` process-group backend, whose collectives return at
+    once and move nothing, so no check may read a value they produce:
+    tensors on it are ``meta``. The fake group is initialised here when
+    none exists (this process is rank 0) and replaced when a fake group of
+    another size is live; a live group of another backend must have the
+    mesh's size, else this raises. No card is touched."""
+    from torch.distributed.device_mesh import DeviceMesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for s in shape:
+        n *= s
+    if dist.is_initialized() and dist.get_world_size() != n:
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"a {dist.get_backend()} process group of "
+                f"{dist.get_world_size()} ranks is live: the production "
+                f"mesh needs {n}")
+        dist.destroy_process_group()
+    if not dist.is_initialized():
+        # importing it registers the "fake" backend
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=n)
+    return DeviceMesh("cpu", torch.arange(n).reshape(shape),
+                      mesh_dim_names=axes)
 
 
 def make_host_mesh(model: int = 1, data: int = 0, device_type=None):
@@ -36,4 +69,4 @@ def make_host_mesh(model: int = 1, data: int = 0, device_type=None):
                       mesh_dim_names=("data", "model"))
 
 
-__all__ = ["make_host_mesh"]
+__all__ = ["make_host_mesh", "make_production_mesh"]

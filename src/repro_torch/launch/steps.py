@@ -10,11 +10,13 @@
     CUDA graph instead).
   * train shapes give ``make_train_step`` (loss + grads + AdamW), or with
     a ``DeviceMesh`` the sharded ``make_sharded_train_step``;
-  * prefill shapes give ``make_prefill_step``;
+  * prefill shapes give ``make_prefill_step``, or with a mesh
+    ``make_sharded_prefill_step``;
   * decode shapes give ``make_serve_step`` (ONE new token against a KV
     cache of seq_len capacity: ring-buffer capped for sliding/local
     attention; ``adapt_for_shape`` turns full attention into a sliding
-    window of ``LONG_CONTEXT_WINDOW`` at ``long_500k``).
+    window of ``LONG_CONTEXT_WINDOW`` at ``long_500k``), or with a mesh
+    ``make_sharded_serve_step``.
 
 Besides: ``frontend_inputs``, the stubbed modality frontend's inputs, and
 the planner wiring of a launch (``cluster_from_mesh``, ``launch_policy``,
@@ -29,10 +31,22 @@ FSDP shards them) and run through the DEP walk (``core.dep``), whose
 exchanges are differentiable. Each rank's batch is its ``batch_pspec``
 shard; the loss each rank differentiates is its own over the world size,
 so the summed gradients are those of the global mean loss. AdamW then
-updates each rank's shards in place. Prefill and decode bundles take no
-mesh: sharded serving is the engine's (``ServingEngine(ep_group=)``), and
-sequence-sharded decode attention is not ported (ROADMAP Queue 1 item
-10).
+updates each rank's shards in place.
+
+The sharded prefill and decode steps lay every argument out as the
+reference's specs give its device at the inference FSDP threshold:
+parameters by ``params_pspecs``, tokens by ``batch_pspec``, caches by
+``cache_pspecs``. Each rank computes its own share, as GSPMD lowers the
+reference: the model runs with a ``models.parallel.TensorParallel``
+(heads, hidden units and vocab split over the model axis, combined by
+``all_reduce``/``all_gather`` of activations), the MoE layers walk DEP,
+and a cache whose KV heads do not divide the model axis is split along
+the sequence and decoded by ``attention.decode_core_seqsharded``. A leaf
+FSDP splits over the data axes is gathered at the start of the step
+(``local_params``). The steps take the rank's parameter shards (DTensors
+or local tensors), the GLOBAL tokens (each rank takes its rows) and the
+rank's cache shards, and return the rank's rows and cache shards.
+Sharded serving with an engine is ``ServingEngine(ep_group=)``'s.
 """
 from __future__ import annotations
 
@@ -50,7 +64,8 @@ from repro_torch.models.layers import MetaGenerator
 from repro_torch.models.transformer import ExecutionContext, Model, \
     layer_kinds
 from repro_torch.sharding.partition import (PSpec, axis_sizes, batch_axes,
-                                            batch_pspec, local_shard,
+                                            batch_pspec, cache_pspecs,
+                                            gather_shards, local_shard,
                                             params_pspecs, placements,
                                             tree_placements)
 from repro_torch.training.optimizer import (AdamWConfig, OptState,
@@ -250,13 +265,14 @@ def resolve_launch_plan(cfg: ModelConfig, mesh, policy, seq_len: int,
 def make_model(cfg: ModelConfig, mesh=None, moe_impl: Optional[str] = None,
                remat: bool = False, dtype=torch.bfloat16,
                device: DeviceLike = None, attn_impl: str = "xla",
-               batch_sharded: bool = False) -> Model:
+               batch_sharded: bool = False, tp=None) -> Model:
     """The model of a launch. With a ``DeviceMesh`` an MoE config runs
     DEP over the mesh's groups (``DepGroups.from_mesh``) and its experts
     are padded to divide the model axis. ``batch_sharded`` marks each
-    rank's tokens as its data shard (the sharded train step).
-    ``device=None`` means the card; ``"meta"`` gives a model for shapes
-    only."""
+    rank's tokens as its data shard (the sharded steps); ``tp`` (a
+    ``models.parallel.TensorParallel``) makes every parameter the rank's
+    shard (the sharded prefill and decode steps). ``device=None`` means
+    the card; ``"meta"`` gives a model for shapes only."""
     if moe_impl is None:
         moe_impl = "dep" if (mesh is not None and cfg.is_moe) else "capacity"
     groups = None
@@ -267,7 +283,7 @@ def make_model(cfg: ModelConfig, mesh=None, moe_impl: Optional[str] = None,
         groups = DepGroups.from_mesh(mesh)
     ctx = ExecutionContext(attn_impl=attn_impl, moe_impl=moe_impl,
                            groups=groups, remat=remat,
-                           batch_sharded=batch_sharded)
+                           batch_sharded=batch_sharded, tp=tp)
     return build_model(cfg, ctx=ctx, dtype=dtype, device=device,
                        num_experts_padded=experts_padded(cfg, mesh))
 
@@ -482,7 +498,7 @@ def shard_batch(x: torch.Tensor, mesh) -> torch.Tensor:
 def sharded_loss_and_grads(model: Model, params, mesh, tokens, extra=None,
                            accum_steps: int = 1, accum_dtype=torch.float32,
                            ce_chunk: Optional[int] = None,
-                           model_axis: str = "model"):
+                           model_axis: str = "model", plan=None):
     """(global mean loss, grads) of ``model.loss`` over a mesh. ``params``
     is a tree of DTensors (``distribute_params``); ``tokens`` (and
     ``extra``) is this rank's batch shard. Every non-expert leaf is
@@ -492,7 +508,8 @@ def sharded_loss_and_grads(model: Model, params, mesh, tokens, extra=None,
     walk's backward sums give each rank its shards' gradients of the
     global mean loss. ``grads`` are DTensors with the parameters'
     placements, in ``accum_dtype`` when ``accum_steps`` > 1 (the
-    parameter's dtype otherwise)."""
+    parameter's dtype otherwise). ``plan`` is the MoE layers' DEP
+    schedule."""
     from torch.distributed.tensor import DTensor
     from repro_torch.sharding.partition import gather_shards
     model_dim = tuple(mesh.mesh_dim_names).index(model_axis)
@@ -507,7 +524,7 @@ def sharded_loss_and_grads(model: Model, params, mesh, tokens, extra=None,
                     for w, (names, p) in zip(wrt, paths)]
             tree = tree_unflatten(params, full)
             kw = {} if ce_chunk is None else {"ce_chunk": ce_chunk}
-            loss = model.loss(tree, tok, extra_embeds=ex, **kw)
+            loss = model.loss(tree, tok, extra_embeds=ex, plan=plan, **kw)
             got = torch.autograd.grad(loss / world, wrt, allow_unused=True)
         return loss.detach(), [torch.zeros_like(a) if g is None else g
                                for a, g in zip(wrt, got)]
@@ -541,7 +558,7 @@ def sharded_loss_and_grads(model: Model, params, mesh, tokens, extra=None,
 def make_sharded_train_step(model: Model, mesh,
                             opt_cfg: Optional[AdamWConfig] = None,
                             accum_steps: int = 1, accum_dtype=torch.float32,
-                            ce_chunk: Optional[int] = None):
+                            ce_chunk: Optional[int] = None, plan=None):
     """``train_step(params, opt_state, tokens, extra=None) -> (params,
     opt_state, {"loss", "grad_norm"})`` on a ``DeviceMesh``: ``params``
     and the AdamW states are DTensor trees (``distribute_params``,
@@ -560,12 +577,127 @@ def make_sharded_train_step(model: Model, mesh,
         ex = shard_batch(extra, mesh) if extra is not None else None
         loss, grads = sharded_loss_and_grads(model, params, mesh, tok, ex,
                                              accum_steps, accum_dtype,
-                                             ce_chunk)
+                                             ce_chunk, plan=plan)
         params, opt_state, gnorm = apply_updates(params, grads, opt_state,
                                                  opt_cfg)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# the sharded prefill and decode steps
+# ---------------------------------------------------------------------------
+
+def _local(x):
+    from torch.distributed.tensor import DTensor
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _model_dim(mesh, model_axis: str = "model") -> int:
+    return tuple(mesh.mesh_dim_names).index(model_axis)
+
+
+def local_params(params, pls, mesh, model_axis: str = "model"):
+    """The rank's parameters for a sharded prefill or decode step: each
+    leaf's shard (a DTensor's local tensor, or the tensor itself) laid out
+    by ``pls`` (``StepBundle.placements[0]``), gathered over every mesh
+    dimension but the model axis (what FSDP splits over the data axes is
+    gathered just before use)."""
+    keep = _model_dim(mesh, model_axis)
+    return tree_unflatten(params, [
+        gather_shards(_local(p), mesh, pl, keep)
+        for p, pl in zip(tree_leaves(params), tree_leaves(pls, tuple))])
+
+
+def local_abstract(tree, pls, mesh):
+    """``meta`` tensors of the rank's shards of the abstract (global)
+    ``tree`` laid out by ``pls`` (the tree of each leaf's placements)."""
+    from torch.distributed.tensor import Shard
+    out = []
+    for x, pl in zip(tree_leaves(tree), tree_leaves(pls, tuple)):
+        shape = list(x.shape)
+        for i, p in enumerate(pl):
+            if isinstance(p, Shard):
+                shape[p.dim] //= mesh.size(i)
+        out.append(_meta(tuple(shape), x.dtype))
+    return tree_unflatten(tree, out)
+
+
+def arg_bytes(bundle: "StepBundle", mesh) -> int:
+    """Bytes of one rank's arguments of a sharded ``bundle``: its shard
+    of every abstract argument by the bundle's placements (the
+    reference's ``memory_analysis().argument_size_in_bytes``; the
+    optimizer's step counter is whole on every rank)."""
+    n = 0
+    for arg, pls in zip(bundle.abstract_args, bundle.placements):
+        if isinstance(arg, OptState):
+            n += arg.step.numel() * arg.step.element_size()
+            pairs = ((arg.mu, pls.mu), (arg.nu, pls.nu))
+        else:
+            pairs = ((arg, pls),)
+        for tree, pl in pairs:
+            for x in tree_leaves(local_abstract(tree, pl, mesh)):
+                n += x.numel() * x.element_size()
+    return n
+
+
+def make_sharded_prefill_step(model: Model, mesh, pls, plan=None):
+    """``prefill_step(params, tokens, extra=None) -> (logits [Bl,1,V],
+    the rank's cache shards)`` on a mesh: ``params`` are the rank's
+    shards (DTensors or local tensors) laid out by ``pls``, ``tokens``
+    (and ``extra``) the GLOBAL batch, of which the rank takes its rows.
+    ``plan`` is the MoE layers' DEP schedule."""
+    def prefill_step(params, tokens, extra=None):
+        with torch.no_grad():
+            p = local_params(params, pls, mesh)
+            tok = shard_batch(tokens, mesh)
+            ex = shard_batch(extra, mesh) if extra is not None else None
+            memory = None
+            if model.cfg.is_encoder_decoder and ex is not None:
+                memory = model.encode(p, ex)
+                ex = None
+            return model.prefill(p, tok, extra_embeds=ex, memory=memory,
+                                 plan=plan)
+    return prefill_step
+
+
+def sharded_decode(model: Model, mesh, pls, params, tokens, caches,
+                   memory=None, plan=None):
+    """One decode step on a mesh -> (logits [Bl,1,V] of the rank's rows,
+    the rank's cache shards, written in place): ``params`` the rank's
+    shards, ``tokens`` (and ``memory``) the GLOBAL batch, ``caches`` the
+    rank's shards."""
+    with torch.no_grad():
+        p = local_params(params, pls, mesh)
+        tok = shard_batch(tokens, mesh)
+        mem = shard_batch(memory, mesh) if memory is not None else None
+        return model.decode_step(p, tok, tree_map(_local, caches),
+                                 memory=mem, plan=plan)
+
+
+def make_sharded_serve_step(model: Model, mesh, pls, plan=None):
+    """``serve_step(params, tokens, caches, memory=None) -> (next tokens
+    [Bl, 1] int64 of the rank's rows, the rank's cache shards)``:
+    ``sharded_decode`` and its greedy token."""
+    def serve_step(params, tokens, caches, memory=None):
+        logits, caches = sharded_decode(model, mesh, pls, params, tokens,
+                                        caches, memory, plan)
+        return logits[:, -1].argmax(-1)[:, None], caches
+    return serve_step
+
+
+def _seq_cache(cfg: ModelConfig, capacity: int, mo: int) -> bool:
+    """Whether ``cache_pspecs`` splits the attention caches of a step of
+    ``capacity`` along the sequence (the KV heads do not divide the model
+    axis and the capacity does; MLA caches are never split)."""
+    from repro_torch.models.attention import cache_capacity, is_ring
+    if not cfg.uses_attention or cfg.mla_kv_lora_rank:
+        return False
+    acfg = (dataclasses.replace(cfg, attention="local")
+            if cfg.family == "hybrid" else cfg)
+    C = cache_capacity(acfg, capacity) if is_ring(acfg) else capacity
+    return cfg.num_kv_heads % mo != 0 and C % mo == 0
 
 
 # ---------------------------------------------------------------------------
@@ -577,22 +709,30 @@ def build(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
           moe_impl: Optional[str] = None, remat: Optional[bool] = None,
           accum_steps: Optional[int] = None,
           attn_impl: Optional[str] = None, ce_chunk: Optional[int] = None,
-          device: DeviceLike = None) -> StepBundle:
+          device: DeviceLike = None, plan=None) -> StepBundle:
     """The ``StepBundle`` of ``cfg`` (adapted to ``shape`` by the caller,
-    as the reference's callers do) at ``shape``. ``mesh`` (a
-    ``DeviceMesh``) takes train shapes only. ``device=None`` means the
-    card; the abstract arguments are ``meta`` tensors whatever it is."""
-    if mesh is not None and shape.mode != "train":
-        raise ValueError("prefill and decode bundles take no mesh: "
-                         "sharded serving is ServingEngine(ep_group=...)")
+    as the reference's callers do) at ``shape``, with a ``DeviceMesh`` its
+    sharded step. ``plan`` is the MoE layers' DEP schedule on a mesh (a
+    ``Plan``, an ``ExecProgram`` or None for the unchunked one).
+    ``device=None`` means the card; the abstract arguments are ``meta``
+    tensors (global shapes) whatever it is."""
     if remat is None:
         remat = shape.mode == "train"
     if accum_steps is None:
         accum_steps = default_accum_steps(cfg, shape, mesh)
+    if plan is not None and hasattr(plan, "exec_program"):
+        plan = plan.exec_program()
+    tp = None
+    if mesh is not None and shape.mode != "train":
+        from repro_torch.models.parallel import TensorParallel
+        budget = shape.seq_len + (cfg.frontend_tokens
+                                  if cfg.family == "vlm" else 0)
+        mo = axis_sizes(mesh)["model"]
+        tp = TensorParallel.from_mesh(mesh, _seq_cache(cfg, budget, mo))
     model = make_model(cfg, mesh, moe_impl=moe_impl, remat=remat,
                        dtype=dtype, device=device,
                        attn_impl=attn_impl or "xla",
-                       batch_sharded=mesh is not None)
+                       batch_sharded=mesh is not None, tp=tp)
     params_abs = abstract_params(model, dtype)
     # FSDP policy: train shards aggressively (opt states dominate);
     # inference keeps weights resident unless truly huge
@@ -601,6 +741,10 @@ def build(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
     pspecs = params_pspecs(params_abs, cfg, mesh=mesh,
                            fsdp_threshold_elems=fsdp_threshold)
     inputs = input_specs(cfg, shape, dtype)
+    ppl = tree_placements(pspecs, mesh) if mesh is not None else None
+    ipl = (tree_placements(input_pspecs(inputs, shape, mesh), mesh)
+           if mesh is not None else None)
+    name = f"{cfg.name}:{shape.name}:{shape.mode}"
 
     if shape.mode == "train":
         opt_cfg = opt_cfg or AdamWConfig(state_dtype=torch.bfloat16)
@@ -616,19 +760,16 @@ def build(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
         if mesh is None:
             fn = make_train_step(model, opt_cfg, accum_steps=accum_steps,
                                  ce_chunk=ce_chunk)
-            return StepBundle(name=f"{cfg.name}:{shape.name}:train",
-                              step_fn=fn, abstract_args=tuple(args),
-                              model=model, accum_steps=accum_steps)
+            return StepBundle(name=name, step_fn=fn,
+                              abstract_args=tuple(args), model=model,
+                              accum_steps=accum_steps)
         fn = make_sharded_train_step(model, mesh, opt_cfg,
                                      accum_steps=accum_steps,
-                                     ce_chunk=ce_chunk)
-        ppl = tree_placements(pspecs, mesh)
-        ipl = tree_placements(input_pspecs(inputs, shape, mesh), mesh)
+                                     ce_chunk=ce_chunk, plan=plan)
         pls = [ppl, OptState(step=None, mu=ppl, nu=ppl), ipl["tokens"]]
         if "extra" in inputs:
             pls.append(ipl["extra"])
-        return StepBundle(name=f"{cfg.name}:{shape.name}:train",
-                          step_fn=fn, abstract_args=tuple(args),
+        return StepBundle(name=name, step_fn=fn, abstract_args=tuple(args),
                           model=model, accum_steps=accum_steps,
                           placements=tuple(pls))
 
@@ -636,15 +777,30 @@ def build(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
         args = [params_abs, inputs["tokens"]]
         if "extra" in inputs:
             args.append(inputs["extra"])
-        return StepBundle(name=f"{cfg.name}:{shape.name}:prefill",
-                          step_fn=make_prefill_step(model),
-                          abstract_args=tuple(args), model=model)
+        if mesh is None:
+            return StepBundle(name=name, step_fn=make_prefill_step(model),
+                              abstract_args=tuple(args), model=model)
+        pls = [ppl, ipl["tokens"]] + ([ipl["extra"]] if "extra" in inputs
+                                      else [])
+        return StepBundle(name=name,
+                          step_fn=make_sharded_prefill_step(model, mesh, ppl,
+                                                            plan),
+                          abstract_args=tuple(args), model=model,
+                          placements=tuple(pls))
 
     # decode
     caches_abs = decode_cache_specs(model, cfg, shape, dtype)
     args = [params_abs, inputs["tokens"], caches_abs]
     if "memory" in inputs:
         args.append(inputs["memory"])
-    return StepBundle(name=f"{cfg.name}:{shape.name}:decode",
-                      step_fn=make_serve_step(model),
-                      abstract_args=tuple(args), model=model)
+    if mesh is None:
+        return StepBundle(name=name, step_fn=make_serve_step(model),
+                          abstract_args=tuple(args), model=model)
+    cpl = tree_placements(cache_pspecs(caches_abs, cfg, mesh,
+                                       shape.global_batch), mesh)
+    pls = [ppl, ipl["tokens"], cpl] + ([ipl["memory"]] if "memory" in inputs
+                                       else [])
+    return StepBundle(name=name,
+                      step_fn=make_sharded_serve_step(model, mesh, ppl, plan),
+                      abstract_args=tuple(args), model=model,
+                      placements=tuple(pls))

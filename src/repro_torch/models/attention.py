@@ -30,8 +30,18 @@ runs prefill through ``_sdpa`` (``repro/models/attention.py:211-218``),
 while the port runs it through the flash kernel (with the window, if
 any; on MLA's Kv == H tensors) — the same function, held against
 ``_sdpa`` by the tests. MLA decode runs the plain masked ``_sdpa`` under
-every impl, as the reference does. Sequence-sharded decode (a mesh) is
-not ported (ROADMAP Queue 1 item 10).
+every impl, as the reference does.
+
+On a mesh (``tp``, a ``models.parallel.TensorParallel``: the sharded
+prefill and decode steps) each rank attends its own heads where the
+heads divide the model axis, with its projections' columns, and sums its
+share of ``wo`` over the axis; otherwise it gathers the q/k/v
+activations and attends every head. Where the KV heads do not divide
+the axis and the capacity does, the cache is split along the sequence
+and decode with a scalar index runs ``decode_core_seqsharded``, the
+reference's ``_decode_core_seqsharded`` (a distributed softmax: each
+rank's slots, ``all_reduce`` MAX and SUM in place of ``pmax``/``psum``),
+under the reference's own condition (``use_seqsharded_decode``).
 
 The encoder-decoder family adds two blocks. The encoder's bidirectional
 self-attention (``encoder_self_attention``, the reference's
@@ -46,15 +56,18 @@ the reference runs ``_sdpa``, and every other call the plain ``_sdpa``
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.decode_attention import ref as dec_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import parallel as tp_lib
 from repro_torch.models.layers import apply_rope, dense_apply, dense_init
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -191,32 +204,41 @@ def _project_qkv(params, cfg: ModelConfig, x, positions):
 
 
 def attention_fullseq(params, cfg: ModelConfig, x, positions,
-                      cache: Optional[dict] = None, impl: str = "xla"):
+                      cache: Optional[dict] = None, impl: str = "xla",
+                      tp=None):
     """Prefill attention over the whole sequence, masked by the window
     under local/sliding attention. ``impl`` "flash" or "decode_kernel"
     runs the flash kernel, "xla" the plain masked SDPA. If ``cache`` is
     given it is filled with this segment's K/V; returns
-    (out, cache_or_None)."""
+    (out, cache_or_None). ``tp`` runs the rank's share on a mesh (the
+    module docstring)."""
     _check_supported(cfg)
     if impl not in ATTN_IMPLS:
         raise ValueError(f"attn impl {impl!r} not in {ATTN_IMPLS}")
+    if tp is not None:
+        return _attention_fullseq_tp(params, cfg, x, positions, cache, impl,
+                                     tp)
     B, S, _ = x.shape
-    window = cfg.sliding_window if is_ring(cfg) else None
     q, k, v, to_cache = _project_qkv(params, cfg, x, positions)
-    if impl in ("flash", "decode_kernel"):
-        if cfg.mla_kv_lora_rank:
-            # the kernel reads dense rows: MLA's v is a strided view of
-            # the up-projection
-            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out = flash_ops.flash_attention(q, k, v, causal=True, window=window)
-    else:
-        mask = _causal_mask(positions[0], positions[0], window)
-        out = _sdpa(q, k, v, mask)
+    out = _fullseq_core(cfg, q, k, v, positions, impl)
     out = dense_apply(params["wo"], out.reshape(B, S, -1))
     new_cache = None
     if cache is not None:
         new_cache = _prefill_cache(cache, to_cache, S)
     return out, new_cache
+
+
+def _fullseq_core(cfg: ModelConfig, q, k, v, positions, impl: str):
+    """Causal (windowed under local/sliding attention) attention of q
+    [B,S,H,Dh] over k/v [B,S,Kv,Dh] -> [B,S,H,Dh]."""
+    window = cfg.sliding_window if is_ring(cfg) else None
+    if impl in ("flash", "decode_kernel"):
+        # the kernel reads dense rows: MLA's v is a strided view of the
+        # up-projection, a rank's heads a slice
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        return flash_ops.flash_attention(q, k, v, causal=True, window=window)
+    mask = _causal_mask(positions[0], positions[0], window)
+    return _sdpa(q, k, v, mask)
 
 
 def _prefill_cache(cache, to_cache, S: int):
@@ -233,6 +255,26 @@ def _prefill_cache(cache, to_cache, S: int):
         if keep == C and S % C:
             seg = torch.roll(seg, S % C, dims=1)
         new[name][:, :keep].copy_(seg)
+    new["index"] = torch.full_like(cache["index"], S)
+    return new
+
+
+def _prefill_cache_seqsplit(cache, to_cache, S: int, tp):
+    """``_prefill_cache`` on a cache split along the sequence: this rank
+    holds slots [r·Cl, (r+1)·Cl) of the C = Cl·mo, and writes the part of
+    the segment's kept (rolled) rows that lands there."""
+    Cl = cache["k"].shape[1]
+    C = Cl * tp.size
+    keep = min(S, C)
+    lo = tp.rank * Cl
+    hi = min(lo + Cl, keep)
+    new = dict(cache)
+    for name, val in to_cache.items():
+        seg = val[:, S - keep:S]
+        if keep == C and S % C:
+            seg = torch.roll(seg, S % C, dims=1)
+        if hi > lo:
+            new[name][:, :hi - lo].copy_(seg[:, lo:hi])
     new["index"] = torch.full_like(cache["index"], S)
     return new
 
@@ -293,7 +335,8 @@ def _cached_kv(params, cfg: ModelConfig, cache, dtype):
 
 
 def attention_decode(params, cfg: ModelConfig, x, cache, impl: str = "xla",
-                     lengths=None, paged: Optional[PagedAddress] = None):
+                     lengths=None, paged: Optional[PagedAddress] = None,
+                     tp=None):
     """x: [B, 1, M]; cache index == number of tokens already cached.
     ``lengths`` ([B] int32, optional) is the KV ledger's per-slot context
     length — the positions THIS step attends over; without it the length
@@ -304,42 +347,60 @@ def attention_decode(params, cfg: ModelConfig, x, cache, impl: str = "xla",
     (``repro_torch.runtime.paging``). ``impl="decode_kernel"`` runs the
     ragged decode kernel on a full-attention GQA cache; a ring cache, an
     MLA cache (K/V recomputed from the latent, ``_cached_kv``) and any
-    other impl run the plain masked SDPA. Returns (out [B,1,M], cache
-    with the row written in place)."""
+    other impl run the plain masked SDPA. ``tp`` runs the rank's share on
+    a mesh (the module docstring). Returns (out [B,1,M], cache with the
+    row written in place)."""
     if paged is not None:
+        if tp is not None:
+            raise NotImplementedError("paged KV decode on a mesh")
         return _attention_decode_paged(params, cfg, x, cache, impl, paged)
     _check_supported(cfg)
     B = x.shape[0]
     index = cache["index"]
     positions = (index.expand(B)[:, None] if index.dim() == 0
                  else index[:, None]).to(torch.int32)
+    if tp is not None:
+        return _attention_decode_tp(params, cfg, x, cache, impl, lengths,
+                                    positions, tp)
     q, _, _, to_cache = _project_qkv(params, cfg, x, positions)
+    out, new_cache = _decode_core(params, cfg, q, cache, to_cache,
+                                  positions, impl, lengths)
+    out = dense_apply(params["wo"], out.reshape(B, 1, -1))
+    return out, new_cache
+
+
+def _decode_core(params, cfg: ModelConfig, q, cache, to_cache, positions,
+                 impl: str, lengths):
+    """Write the new rows ``to_cache`` into ``cache`` in place and attend
+    q [B,1,H,Dh] over it -> (out [B,1,H,Dh], cache with the index
+    advanced)."""
+    B = q.shape[0]
+    index = cache["index"]
     C = cache_len(cache)
     ring = is_ring(cfg)
+    dev = q.device
 
     # per-slot scatter of the new row, in place: at index % C in a ring,
     # else at min(index, C-1)
     pos = positions[:, 0].long()
     slot = pos % C if ring else torch.clamp(pos, max=C - 1)
-    batch_ix = torch.arange(B, device=x.device)
+    batch_ix = torch.arange(B, device=dev)
     for name, val in to_cache.items():
         cache[name].index_put_((batch_ix, slot),
                                val[:, 0].to(cache[name].dtype))
     new_cache = dict(cache, index=index + 1)
-    k_all, v_all = _cached_kv(params, cfg, new_cache, x.dtype)
+    k_all, v_all = _cached_kv(params, cfg, new_cache, q.dtype)
 
     if ring:
         # slot s holds the latest absolute position p <= index with
         # p = s (mod C); it is attended when 0 <= p and index - p < C
         idx = pos[:, None]                                      # [B, 1]
-        slots = torch.arange(C, device=x.device)[None, :]
+        slots = torch.arange(C, device=dev)[None, :]
         base = torch.div(idx - slots, C, rounding_mode="floor") * C + slots
         k_pos = torch.where(base > idx, base - C, base)
         mask = ((k_pos >= 0) & (k_pos <= idx)
                 & (idx - k_pos < C))[:, None, :]                # [B, 1, C]
-        out = _sdpa(q, k_all, v_all, mask)
-        out = dense_apply(params["wo"], out.reshape(B, 1, -1))
-        return out, new_cache
+        return _sdpa(q, k_all, v_all, mask), new_cache
 
     if lengths is not None:
         lens = torch.clamp(lengths.to(torch.int32), 0, C)
@@ -347,13 +408,13 @@ def attention_decode(params, cfg: ModelConfig, x, cache, impl: str = "xla",
         lens = torch.clamp(positions[:, 0] + 1, max=C)
 
     if impl == "decode_kernel" and not cfg.mla_kv_lora_rank:
-        out = dec_ops.decode_attention(q[:, 0].contiguous(), k_all, v_all,
+        out = dec_ops.decode_attention(q[:, 0].contiguous(),
+                                       k_all.contiguous(), v_all.contiguous(),
                                        lens.contiguous())[:, None]
     else:
-        mask = (torch.arange(C, device=x.device)[None, None, :]
+        mask = (torch.arange(C, device=dev)[None, None, :]
                 < lens[:, None, None])                          # [B, 1, C]
         out = _sdpa(q, k_all, v_all, mask)
-    out = dense_apply(params["wo"], out.reshape(B, 1, -1))
     return out, new_cache
 
 
@@ -396,29 +457,223 @@ def _attention_decode_paged(params, cfg: ModelConfig, x, cache, impl,
 
 
 # ---------------------------------------------------------------------------
+# a rank's share on a mesh (tensor parallel over the model axis)
+# ---------------------------------------------------------------------------
+
+def use_seqsharded_decode(cfg: ModelConfig, mo: int, capacity: int) -> bool:
+    """The reference's rule (``repro/models/attention.py:248-260``):
+    sequence-shard the decode cache over a model axis of ``mo`` when the
+    KV-head count does not divide it and the capacity does (never MLA)."""
+    if cfg.mla_kv_lora_rank:
+        return False
+    return cfg.num_kv_heads % mo != 0 and capacity % mo == 0
+
+
+def _tp_heads(cfg: ModelConfig, tp, every: bool = False):
+    """((q_lo, q_hi), (kv_lo, kv_hi)): the heads this rank attends. When
+    the heads divide the axis each rank takes its block of q heads and
+    the KV heads they read (a whole number of groups, or part of one
+    group); else, or with ``every``, all of them."""
+    H, Kv = cfg.num_heads, cfg.num_kv_heads
+    if not every and H % tp.size == 0:
+        Hl, g = H // tp.size, H // Kv
+        if Hl % g == 0 or g % Hl == 0:
+            qa, qb = tp.rank * Hl, (tp.rank + 1) * Hl
+            return (qa, qb), (qa // g, (qb - 1) // g + 1)
+    return (0, H), (0, Kv)
+
+
+def _tp_cfg(cfg: ModelConfig, heads, kv) -> ModelConfig:
+    return dataclasses.replace(cfg, num_heads=heads[1] - heads[0],
+                               num_kv_heads=kv[1] - kv[0],
+                               head_dim=cfg.head_dim)
+
+
+def _tp_project(params, cfg: ModelConfig, x, positions, tp, heads, kv,
+                cache_kv):
+    """The rank's q (heads ``heads``), k and v (KV heads ``kv``) with
+    RoPE, and the rows to cache (KV heads ``cache_kv``; MLA: the whole
+    latent)."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    H, Kv = cfg.num_heads, cfg.num_kv_heads
+
+    def take(p, inp, n, width, rng):
+        y = tp_lib.take_columns(p, inp, n * width, rng[0] * width,
+                                rng[1] * width, tp)
+        return y.reshape(B, S, rng[1] - rng[0], width)
+
+    q = apply_rope(take(params["wq"], x, H, hd, heads), positions,
+                   cfg.rope_theta)
+    if cfg.mla_kv_lora_rank:
+        ckv = dense_apply(params["w_dkv"], x)
+        kv_ = take(params["w_ukv"], ckv, H, 2 * hd, heads)
+        k_nope, v = torch.split(kv_, hd, dim=-1)
+        kpe = apply_rope(dense_apply(params["w_kpe"], x)[:, :, None, :],
+                         positions, cfg.rope_theta)
+        return q, k_nope + kpe, v, {"ckv": ckv, "kpe": kpe[:, :, 0, :]}
+    k_c = apply_rope(take(params["wk"], x, Kv, hd, cache_kv), positions,
+                     cfg.rope_theta)
+    v_c = take(params["wv"], x, Kv, hd, cache_kv)
+    a, b = kv[0] - cache_kv[0], kv[1] - cache_kv[0]
+    return q, k_c[:, :, a:b], v_c[:, :, a:b], {"k": k_c, "v": v_c}
+
+
+def _tp_out(params, cfg: ModelConfig, out, tp):
+    """``wo`` of the rank's heads' output [B,S,h,Dh] (row-parallel: the
+    rank's rows, summed over the axis)."""
+    B, S = out.shape[:2]
+    return tp_lib.row_parallel(params["wo"], out.reshape(B, S, -1),
+                               cfg.num_heads * cfg.head_dim, tp)
+
+
+def _cache_kv_heads(cfg: ModelConfig, tp, kv):
+    """The KV heads a rank's cache holds: its block when the KV heads
+    divide the axis (the cache is split by heads), else all of them."""
+    if cfg.num_kv_heads % tp.size == 0:
+        return kv
+    return (0, cfg.num_kv_heads)
+
+
+def _attention_fullseq_tp(params, cfg: ModelConfig, x, positions, cache,
+                          impl: str, tp):
+    if cfg.mla_kv_lora_rank and cfg.num_heads % tp.size:
+        raise NotImplementedError("MLA on a mesh whose model axis does not "
+                                  "divide the heads")
+    S = x.shape[1]
+    heads, kv = _tp_heads(cfg, tp)
+    if cfg.mla_kv_lora_rank:
+        kv = heads
+    q, k, v, to_cache = _tp_project(params, cfg, x, positions, tp, heads, kv,
+                                    _cache_kv_heads(cfg, tp, kv))
+    out = _fullseq_core(_tp_cfg(cfg, heads, kv), q, k, v, positions, impl)
+    new_cache = None
+    if cache is not None:
+        if tp.seq_cache and not cfg.mla_kv_lora_rank:
+            new_cache = _prefill_cache_seqsplit(cache, to_cache, S, tp)
+        else:
+            new_cache = _prefill_cache(cache, to_cache, S)
+    return _tp_out(params, cfg, out, tp), new_cache
+
+
+def _attention_decode_tp(params, cfg: ModelConfig, x, cache, impl, lengths,
+                         positions, tp):
+    if cfg.mla_kv_lora_rank and cfg.num_heads % tp.size:
+        raise NotImplementedError("MLA on a mesh whose model axis does not "
+                                  "divide the heads")
+    seq = tp.seq_cache and not cfg.mla_kv_lora_rank
+    if seq and cache["index"].dim() != 0:
+        raise NotImplementedError("a sequence-split cache decodes at one "
+                                  "scalar index (the reference's rule)")
+    # a cache not split by heads holds every KV head: attend every head
+    every = seq or (cfg.num_kv_heads % tp.size != 0
+                    and not cfg.mla_kv_lora_rank)
+    heads, kv = _tp_heads(cfg, tp, every)
+    if cfg.mla_kv_lora_rank:
+        kv = heads
+    q, _, _, to_cache = _tp_project(params, cfg, x, positions, tp, heads,
+                                    kv, _cache_kv_heads(cfg, tp, kv))
+    if seq:
+        out, k, v = decode_core_seqsharded(
+            q, to_cache["k"], to_cache["v"], cache["k"], cache["v"],
+            cache["index"], tp, is_ring(cfg))
+        new_cache = dict(cache, k=k, v=v, index=cache["index"] + 1)
+    else:
+        # MLA recomputes the rank's heads from the latent: its w_ukv block
+        local = params
+        if cfg.mla_kv_lora_rank:
+            hd = cfg.head_dim
+            w = params["w_ukv"]
+            if w["kernel"].shape[1] == cfg.num_heads * 2 * hd:
+                lo, hi = heads[0] * 2 * hd, heads[1] * 2 * hd
+                w = {n: t[..., lo:hi] for n, t in w.items()}
+            local = dict(params, w_ukv=w)
+        out, new_cache = _decode_core(local, _tp_cfg(cfg, heads, kv), q,
+                                      cache, to_cache, positions, impl,
+                                      lengths)
+    return _tp_out(params, cfg, out, tp), new_cache
+
+
+def decode_core_seqsharded(q, k_new, v_new, cache_k, cache_v, index, tp,
+                           ring: bool):
+    """The reference's ``_decode_core_seqsharded`` on one rank of the
+    model axis. q: [B,1,H,Dh]; k_new/v_new: [B,1,Kv,Dh]; cache_[kv]: this
+    rank's slots [r·Cl, (r+1)·Cl) of a [B,C,Kv,Dh] cache; ``index`` a
+    scalar. The new row is written in place by the rank that owns its
+    slot; each rank runs the softmax over its own valid slots (the ring's
+    position rule under local/sliding attention), and the max, the sum
+    and the weighted values are reduced over the axis (``all_reduce``
+    MAX and SUM for ``pmax`` and ``psum``). Returns (out [B,1,H,Dh],
+    cache_k, cache_v)."""
+    B, C_loc, Kv, Dh = cache_k.shape
+    C = C_loc * tp.size
+    H = q.shape[2]
+    g = H // Kv
+    dev = q.device
+    slot = index % C if ring else torch.clamp(index, max=C - 1)
+    loc = slot.long() - tp.rank * C_loc
+    in_range = (loc >= 0) & (loc < C_loc)
+    loc_c = torch.clamp(loc, 0, C_loc - 1).reshape(1)
+    for ck, new in ((cache_k, k_new), (cache_v, v_new)):
+        old = ck.index_select(1, loc_c)
+        ck.index_copy_(1, loc_c, torch.where(in_range, new.to(ck.dtype),
+                                             old))
+    slots = tp.rank * C_loc + torch.arange(C_loc, device=dev)
+    idx = index.long()
+    if ring:
+        base = torch.div(idx - slots, C, rounding_mode="floor") * C + slots
+        k_pos = torch.where(base > idx, base - C, base)
+        valid = (k_pos >= 0) & (k_pos <= idx) & (idx - k_pos < C)
+    else:
+        valid = slots <= idx
+    qh = q[:, 0].reshape(B, Kv, g, Dh)
+    logits = torch.einsum("bkgd,bskd->bkgs", qh.float(),
+                          cache_k.to(qh.dtype).float()) / math.sqrt(Dh)
+    logits = torch.where(valid[None, None, None], logits,
+                         torch.full_like(logits, NEG_INF))
+    m = tp.all_reduce(logits.amax(-1), dist.ReduceOp.MAX)
+    p = torch.exp(logits - m[..., None])
+    p = torch.where(valid[None, None, None], p, torch.zeros_like(p))
+    l = tp.all_reduce(p.sum(-1))
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(cache_v.dtype), cache_v)
+    o = tp.all_reduce(o.float())
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, 1, H, Dh).to(q.dtype), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
 # encoder self-attention and cross attention (encoder-decoder)
 # ---------------------------------------------------------------------------
 
 def encoder_self_attention(params, cfg: ModelConfig, h, positions,
-                           impl: str = "xla"):
+                           impl: str = "xla", tp=None):
     """Bidirectional self-attention of an encoder layer: the GQA
     projections with RoPE, every position attending every other. "flash"
     and "decode_kernel" run the flash kernel with ``causal=False``, "xla"
-    the plain ``_sdpa`` under an all-ones mask."""
+    the plain ``_sdpa`` under an all-ones mask. ``tp``: the rank's share
+    on a mesh."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"attn impl {impl!r} not in {ATTN_IMPLS}")
     B, S, _ = h.shape
     hd = cfg.head_dim
-    q = dense_apply(params["wq"], h).reshape(B, S, cfg.num_heads, hd)
-    k = dense_apply(params["wk"], h).reshape(B, S, cfg.num_kv_heads, hd)
-    v = dense_apply(params["wv"], h).reshape(B, S, cfg.num_kv_heads, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if tp is not None:
+        heads, kv = _tp_heads(cfg, tp)
+        q, k, v, _ = _tp_project(params, cfg, h, positions, tp, heads, kv,
+                                 kv)
+    else:
+        q = dense_apply(params["wq"], h).reshape(B, S, cfg.num_heads, hd)
+        k = dense_apply(params["wk"], h).reshape(B, S, cfg.num_kv_heads, hd)
+        v = dense_apply(params["wv"], h).reshape(B, S, cfg.num_kv_heads, hd)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     if impl == "xla":
         mask = torch.ones((S, S), dtype=torch.bool, device=h.device)
         out = _sdpa(q, k, v, mask)
     else:
-        out = flash_ops.flash_attention(q, k, v, causal=False)
+        out = flash_ops.flash_attention(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), causal=False)
+    if tp is not None:
+        return _tp_out(params, cfg, out, tp)
     return dense_apply(params["wo"], out.reshape(B, S, -1))
 
 
@@ -436,27 +691,41 @@ def cross_attention_init(gen, cfg: ModelConfig, dtype=torch.float32):
 
 
 def cross_attention_apply(params, cfg: ModelConfig, x, memory,
-                          impl: str = "xla"):
+                          impl: str = "xla", tp=None):
     """x: [B,Sq,M] decoder states; memory: [B,Sk,M] encoder output. K/V
     are projected from the whole memory at every call, as the reference
     does. One query a row (decode) under "decode_kernel" runs the dense
     decode kernel with every row's length Sk (a device tensor: a captured
-    step replays it); everything else the plain ``_sdpa``."""
+    step replays it); everything else the plain ``_sdpa``. ``tp``: the
+    rank's share on a mesh."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"attn impl {impl!r} not in {ATTN_IMPLS}")
     B, Sq, _ = x.shape
     Sk = memory.shape[1]
     hd = cfg.head_dim
-    q = dense_apply(params["wq"], x).reshape(B, Sq, cfg.num_heads, hd)
-    k = dense_apply(params["wk"], memory).reshape(B, Sk, cfg.num_kv_heads,
-                                                  hd)
-    v = dense_apply(params["wv"], memory).reshape(B, Sk, cfg.num_kv_heads,
-                                                  hd)
+    if tp is not None:
+        heads, kv = _tp_heads(cfg, tp)
+        q = tp_lib.take_columns(params["wq"], x, cfg.num_heads * hd,
+                                heads[0] * hd, heads[1] * hd, tp)
+        k = tp_lib.take_columns(params["wk"], memory, cfg.num_kv_heads * hd,
+                                kv[0] * hd, kv[1] * hd, tp)
+        v = tp_lib.take_columns(params["wv"], memory, cfg.num_kv_heads * hd,
+                                kv[0] * hd, kv[1] * hd, tp)
+        q = q.reshape(B, Sq, -1, hd)
+        k, v = k.reshape(B, Sk, -1, hd), v.reshape(B, Sk, -1, hd)
+    else:
+        q = dense_apply(params["wq"], x).reshape(B, Sq, cfg.num_heads, hd)
+        k = dense_apply(params["wk"], memory).reshape(B, Sk,
+                                                      cfg.num_kv_heads, hd)
+        v = dense_apply(params["wv"], memory).reshape(B, Sk,
+                                                      cfg.num_kv_heads, hd)
     if impl == "decode_kernel" and Sq == 1:
         lengths = torch.full((B,), Sk, dtype=torch.int32, device=x.device)
-        out = dec_ops.decode_attention(q[:, 0].contiguous(), k, v,
-                                       lengths)[:, None]
+        out = dec_ops.decode_attention(q[:, 0].contiguous(), k.contiguous(),
+                                       v.contiguous(), lengths)[:, None]
     else:
         mask = torch.ones((Sq, Sk), dtype=torch.bool, device=x.device)
         out = _sdpa(q, k, v, mask)
+    if tp is not None:
+        return _tp_out(params, cfg, out, tp)
     return dense_apply(params["wo"], out.reshape(B, Sq, -1))

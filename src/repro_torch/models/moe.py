@@ -18,7 +18,6 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.kernels.moe_gemm.ops import moe_gemm
@@ -88,11 +87,19 @@ def route_topk(router_params, x_flat, mcfg: MoEConfig,
     return Routing(weights=weights, experts=experts, probs=probs)
 
 
+def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` (int64) as one comparison against
+    ``arange(n)``: the same values on every device, and the same ops
+    (``F.one_hot`` reads the indices' range on the host on the CPU and
+    scatters on the card, which a step counter would see apart)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def load_balance_loss(routing: Routing, mcfg: MoEConfig) -> torch.Tensor:
     """Switch-style auxiliary loss: E * sum_e f_e * P_e over real experts."""
     E = mcfg.num_experts
     probs = routing.probs[..., :E]
-    onehot = F.one_hot(routing.experts, probs.shape[-1])[..., :E].float()
+    onehot = one_hot(routing.experts, probs.shape[-1])[..., :E].float()
     f = onehot.sum(dim=(-3, -2)) / (routing.experts.shape[0] * mcfg.top_k)
     p = probs.mean(dim=0)
     return E * torch.sum(f * p)
@@ -155,7 +162,7 @@ def moe_apply_dense(params, x, mcfg: MoEConfig, num_experts_padded: int = 0,
     aux = load_balance_loss(routing, mcfg)
     y = y.reshape(B, S, M)
     if return_stats:
-        load = F.one_hot(routing.experts, E_pad).float().sum(dim=(0, 1))
+        load = one_hot(routing.experts, E_pad).float().sum(dim=(0, 1))
         zero = torch.zeros((), dtype=torch.int32, device=x.device)
         return y, aux, MoEStats(load=load, dropped=zero)
     return y, aux
@@ -202,11 +209,11 @@ def moe_dispatch(params, xf, mcfg: MoEConfig, capacity: int,
     E_pad = num_experts_padded or mcfg.num_experts
     routing = route_topk(params["router"], xf, mcfg, num_experts_padded)
     experts = routing.experts
-    flat = F.one_hot(experts.reshape(T * k), E_pad)            # [Tk, E]
+    flat = one_hot(experts.reshape(T * k), E_pad)            # [Tk, E]
     load = flat.sum(dim=0).float()                             # [E]
     if expert_map is not None:
         experts = expert_map.to(experts.device, torch.long)[experts]
-        flat = F.one_hot(experts.reshape(T * k), E_pad)
+        flat = one_hot(experts.reshape(T * k), E_pad)
     pos = torch.cumsum(flat, dim=0) - flat
     slot = (pos * flat).sum(-1).reshape(T, k)                  # [T, k]
     keep = slot < capacity

@@ -61,35 +61,55 @@ def rglru_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
     }
 
 
-def _gates(params, xw):
-    """a_t and the gated input b_t, both f32; xw: [B,S,W] conv output."""
+def _gates(params, xw, lo: int = 0, hi: int = None):
+    """a_t and the gated input b_t, both f32, of channels [lo, hi) (the
+    ``w_a``/``w_i`` columns given; all by default); xw: [B,S,W] conv
+    output."""
     r = torch.sigmoid(dense_apply(params["w_a"], xw).float())
     i = torch.sigmoid(dense_apply(params["w_i"], xw).float())
-    log_a = -_C * r * F.softplus(-params["lam"].float())  # log sigmoid^(c r)
+    hi = xw.shape[-1] if hi is None else hi
+    lam = params["lam"].float()
+    if lam.shape[0] != hi - lo:
+        lam = lam[lo:hi]
+    log_a = -_C * r * F.softplus(-lam)              # log sigmoid^(c r)
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
-    b = mult * (i * xw.float())
+    b = mult * (i * xw[..., lo:hi].float())
     return a, b
 
 
-def rglru_apply(params, cfg: ModelConfig, x, state=None):
-    """Full-sequence block. x: [B,S,M] -> (y [B,S,M], final state)."""
+def rglru_apply(params, cfg: ModelConfig, x, state=None, tp=None):
+    """Full-sequence block. x: [B,S,M] -> (y [B,S,M], final state).
+    ``tp`` (a mesh's ``models.parallel.TensorParallel``): the rank holds
+    its column block of ``in_x``, ``in_gate``, ``w_a`` and ``w_i``, its
+    rows of ``out`` and its channels of ``h``; the conv runs over the
+    gathered branch (its state is whole on every rank), the gates and the
+    scan over the rank's channels, and ``out`` sums over the axis."""
     if state is None:
         state = rglru_state(cfg, x.shape[0], device=x.device)
+    W = cfg.recurrent.lru_width or cfg.d_model
+    split = tp is not None and params["in_x"]["kernel"].shape[1] != W
     branch_x = dense_apply(params["in_x"], x)
+    if split:
+        branch_x = tp.gather_last(branch_x)
     # jax.nn.gelu's default is the tanh approximation
     gate = F.gelu(dense_apply(params["in_gate"], x), approximate="tanh")
     xc, conv_state = conv1d_apply(params["conv"], branch_x, state["conv"])
-    a, b = _gates(params, xc)                       # [B,S,W] each, f32
+    lo, hi = tp.block(W) if split else (0, W)
+    a, b = _gates(params, xc, lo, hi)               # [B,S,W] each, f32
     hs, h_last = rg_lru_scan(a, b, state["h"].float())
-    y = dense_apply(params["out"], hs.to(x.dtype) * gate)
+    if tp is None:
+        y = dense_apply(params["out"], hs.to(x.dtype) * gate)
+    else:
+        from repro_torch.models.parallel import row_parallel
+        y = row_parallel(params["out"], hs.to(x.dtype) * gate, W, tp)
     return y, {"h": h_last, "conv": conv_state}
 
 
-def rglru_step(params, cfg: ModelConfig, x, state):
+def rglru_step(params, cfg: ModelConfig, x, state, tp=None):
     """Single-token decode, x: [B,1,M]: the full-sequence block at S = 1
     (one scan launch)."""
-    return rglru_apply(params, cfg, x, state)
+    return rglru_apply(params, cfg, x, state, tp)
 
 
 def rglru_block_pattern(cfg: ModelConfig):

@@ -33,10 +33,18 @@ its share of the experts (``Model.init(expert_shard=)``) and everything
 else whole: a DEP layer takes the rank's slice of the tokens (its data
 shard, and in sequence mode its part of the sequence) and gathers every
 rank's output back, so each rank computes the same residual stream.
+
+On a mesh the sharded prefill and decode steps (``launch.steps.build``)
+give the context a ``models.parallel.TensorParallel`` (``tp``): each rank
+then holds its shards of every parameter by the partition specs, and the
+embedding, attention, MLP, RG-LRU block and readout compute the rank's
+share and combine it over the model axis (``models.parallel``); caches
+are the rank's shards (``init_cache``).
 """
 from __future__ import annotations
 
 import dataclasses
+import types
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -47,6 +55,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import parallel as tp_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (dense_apply, dense_init,
@@ -81,6 +90,10 @@ class ExecutionContext:
     #: sharded train step): a DEP layer splits only the sequence over the
     #: expert axis, and gathers only over it
     batch_sharded: bool = False
+    #: tensor parallelism over the model axis (``models.parallel``): the
+    #: sharded prefill and decode steps, whose parameters and caches are
+    #: each rank's shards
+    tp: Optional[Any] = None
 
     def __post_init__(self):
         if self.attn_impl not in attn.ATTN_IMPLS:
@@ -227,25 +240,26 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, positions, cache,
             cache = rglru_lib.rglru_state(cfg, x.shape[0], device=x.device)
         fn = rglru_lib.rglru_step if mode == "decode" else \
             rglru_lib.rglru_apply
-        y, cache = fn(p["rglru"], cfg, h, cache)
+        y, cache = fn(p["rglru"], cfg, h, cache, tp=ctx.tp)
         x = x + y
         h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-        return x + mlp_apply(p["mlp"], h), cache, aux
+        return x + _mlp(p["mlp"], h, cfg.ffn_dim, ctx.tp), cache, aux
     # the hybrid family's attention blocks are local, whatever the config
     acfg = (dataclasses.replace(cfg, attention="local")
             if kind == "attn" and cfg.family == "hybrid" else cfg)
     if mode == "decode":
         a, cache = attn.attention_decode(p["attn"], acfg, h, cache,
                                          impl=ctx.attn_impl, lengths=lengths,
-                                         paged=paged)
+                                         paged=paged, tp=ctx.tp)
     else:
         a, cache = attn.attention_fullseq(p["attn"], acfg, h, positions,
-                                          cache, impl=ctx.attn_impl)
+                                          cache, impl=ctx.attn_impl,
+                                          tp=ctx.tp)
     x = x + a
     if memory is not None and "cross" in p:
         hx = rmsnorm_apply(p["ln_x"], x, cfg.norm_eps)
         x = x + attn.cross_attention_apply(p["cross"], cfg, hx, memory,
-                                           impl=ctx.attn_impl)
+                                           impl=ctx.attn_impl, tp=ctx.tp)
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
     if kind == "attn_moe":
         y, aux, *st = _apply_moe(p, cfg, h, ctx, plan, placement,
@@ -256,8 +270,13 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, positions, cache,
         if stats_sink is not None:
             stats_sink.append(st[0])
     else:
-        y = mlp_apply(p["mlp"], h)
+        y = _mlp(p["mlp"], h, cfg.ffn_dim, ctx.tp)
     return x + y, cache, aux
+
+
+def _mlp(p, h, ffn_dim: int, tp):
+    return mlp_apply(p, h) if tp is None else tp_lib.mlp_apply(p, h, ffn_dim,
+                                                              tp)
 
 
 def _stack_moe_stats(sink) -> Optional[moe_lib.MoEStats]:
@@ -355,34 +374,78 @@ class Model:
             h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
             x = x + attn.encoder_self_attention(p["attn"], bidir, h,
                                                 positions,
-                                                impl=self.ctx.attn_impl)
+                                                impl=self.ctx.attn_impl,
+                                                tp=self.ctx.tp)
             h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-            x = x + mlp_apply(p["mlp"], h)
+            x = x + _mlp(p["mlp"], h, cfg.ffn_dim, self.ctx.tp)
         return rmsnorm_apply(params["enc_norm"], x, cfg.norm_eps)
 
     def _embed_inputs(self, params, tokens, extra_embeds):
         """Token embeddings; a vlm model puts the patch embeddings,
         through ``proj``, in front of them."""
-        x = embedding_apply(params["embed"], tokens.to(self.device),
-                            self.dtype)
+        x = self._embed(params, tokens)
         if extra_embeds is not None and self.cfg.family == "vlm":
-            vis = dense_apply(params["proj"],
-                              extra_embeds.to(self.device, self.dtype))
+            extra = extra_embeds.to(self.device, self.dtype)
+            if self.ctx.tp is None:
+                vis = dense_apply(params["proj"], extra)
+            else:
+                vis = tp_lib.dense_gathered(params["proj"], extra,
+                                            self.cfg.d_model, self.ctx.tp)
             x = torch.cat([vis, x], dim=1)
         return x
+
+    def _embed(self, params, tokens):
+        tokens = tokens.to(self.device)
+        if self.ctx.tp is None:
+            return embedding_apply(params["embed"], tokens, self.dtype)
+        return tp_lib.embed(params["embed"], tokens, self.cfg.vocab_size,
+                            self.dtype, self.ctx.tp)
 
     # ---- caches ------------------------------------------------------------
     def init_cache(self, batch: int, seq_len: int, dtype=None) -> List[dict]:
         """One cache per layer: KV caches in ``dtype`` (default: the
         model's) for attention layers, float32 states for recurrent ones."""
         dtype = dtype if dtype is not None else self.dtype
+        if self.ctx.tp is not None:
+            return self._local_caches(batch, seq_len, dtype)
         return [init_layer_cache(self.cfg, kind, batch, seq_len, dtype,
                                  self.device)
                 for kind in self.kinds]
 
+    def _local_caches(self, batch: int, seq_len: int, dtype):
+        """This rank's shards of the caches on a mesh: the model-axis
+        split of ``sharding.partition.cache_pspecs`` (``batch`` is already
+        the rank's). A layer whose cache has a split leaf (attention's
+        k/v, the RG-LRU state: all zeros at the start) gets zeros of the
+        shard's shape; any other is made whole, as without a mesh (the
+        recurrent states' m starts at -1e30)."""
+        from repro_torch.sharding.partition import (PSpec, cache_pspecs,
+                                                    local_shape)
+        from repro_torch.training.tree import tree_leaves, tree_unflatten
+        # a mesh of the model axis alone, for the spec builders
+        axis = types.SimpleNamespace(shape={"model": self.ctx.tp.size})
+        out = []
+        for kind in self.kinds:
+            full = init_layer_cache(self.cfg, kind, batch, seq_len, dtype,
+                                    "meta")
+            specs = tree_leaves(cache_pspecs(full, self.cfg, axis, batch),
+                                PSpec)
+            if not any(any(sp) for sp in specs):
+                out.append(init_layer_cache(self.cfg, kind, batch, seq_len,
+                                            dtype, self.device))
+                continue
+            out.append(tree_unflatten(full, [
+                torch.zeros(local_shape(x.shape, sp, axis), dtype=x.dtype,
+                            device=self.device)
+                for x, sp in zip(tree_leaves(full), specs)]))
+        return out
+
     # ---- forward pieces -----------------------------------------------------
     def _readout(self, params, x):
         """Logits in float32."""
+        if self.ctx.tp is not None:
+            return tp_lib.readout(params, x, self.cfg.vocab_size,
+                                  self.cfg.tie_embeddings, self.ctx.tp)
         if self.cfg.tie_embeddings:
             return embedding_attend(params["embed"], x)
         return x.float() @ params["lm_head"]["kernel"].float()
@@ -495,8 +558,7 @@ class Model:
         holds the advanced indices and the other new recurrent states.
         ``return_moe_stats`` appends the stacked ``moe.MoEStats``."""
         cfg = self.cfg
-        x = embedding_apply(params["embed"], tokens.to(self.device),
-                            self.dtype)
+        x = self._embed(params, tokens)
         if lengths is not None:
             lengths = lengths.to(device=self.device, dtype=torch.int32)
         paged = None

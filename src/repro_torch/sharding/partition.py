@@ -285,6 +285,20 @@ def distribute_params(params, pls, mesh):
     return tree_unflatten(params, out)
 
 
+def local_shape(shape, spec: PSpec, mesh) -> Tuple[int, ...]:
+    """The shape of one shard of a ``shape`` tensor laid out by ``spec``
+    on ``mesh`` (anything with the axis sizes): each dim over the product
+    of the axes its entry names."""
+    sizes = axis_sizes(mesh)
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for a in ((entry,) if isinstance(entry, str) else entry):
+            out[d] //= sizes[a]
+    return tuple(out)
+
+
 def local_shard(x: torch.Tensor, pl, mesh) -> torch.Tensor:
     """This rank's shard of the full tensor ``x`` under ``pl`` (even
     division, which ``sanitize_spec`` guarantees): mesh dimensions in
@@ -360,5 +374,5 @@ def gather_shards(local: torch.Tensor, mesh, pl, keep: Optional[int] = None
 __all__ = ["COL", "ROW", "REPL", "FSDP_EXCLUDE", "FSDP_THRESHOLD_ELEMS",
            "PSpec", "apply_fsdp", "axis_sizes", "batch_axes", "batch_pspec",
            "cache_pspecs", "distribute_params", "gather_shards",
-           "local_shard", "params_pspecs", "placements", "sanitize_spec",
+           "local_shape", "local_shard", "params_pspecs", "placements", "sanitize_spec",
            "tree_placements"]

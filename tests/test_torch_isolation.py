@@ -4,7 +4,9 @@ ships with JAX and is missing where the port runs on the card), and
 their entry points run on the card unless the caller asks for the
 CPU. The launch layer (``launch/steps.py``, ``launch/mesh.py``,
 ``sharding/``) imports and builds its specs with those blocked, and only
-its spec builders reach the ``meta`` device."""
+its spec builders reach the ``meta`` device; ``roofline/``,
+``launch/dryrun.py`` and ``launch/recount.py`` import with them blocked
+and count a step on the production mesh."""
 import ast
 import os
 import subprocess
@@ -43,7 +45,10 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 for must in ("repro_torch.launch.steps", "repro_torch.launch.mesh",
-             "repro_torch.sharding", "repro_torch.sharding.partition"):
+             "repro_torch.sharding", "repro_torch.sharding.partition",
+             "repro_torch.roofline", "repro_torch.roofline.analysis",
+             "repro_torch.launch.dryrun", "repro_torch.launch.recount",
+             "repro_torch.models.parallel"):
     assert must in names, must
 print("imported", len(names), "modules")
 """
@@ -75,6 +80,12 @@ mesh = type("M", (), {"shape": {"data": 16, "model": 16}})()
 specs = partition.params_pspecs(b.abstract_args[0], cfg, mesh=mesh)
 caches = partition.cache_pspecs(b.abstract_args[2], cfg, mesh, 1)
 assert b.abstract_args[2][0]["k"].shape[1] == steps.LONG_CONTEXT_WINDOW
+if mod.__name__ in ("repro_torch.launch.dryrun", "repro_torch.launch.recount",
+                    "repro_torch.roofline"):
+    # the dry run itself: a fake group, the production mesh, the counter
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_one("qwen2-moe-a2.7b", "long_500k", verbose=False)
+    assert rec["ok"] and rec["flops_per_device"] > 0
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("ok", mod.__name__)
@@ -92,7 +103,10 @@ def test_port_imports_with_jax_and_repro_blocked():
 
 @pytest.mark.parametrize("module", ["repro_torch.launch.steps",
                                     "repro_torch.launch.mesh",
-                                    "repro_torch.sharding.partition"])
+                                    "repro_torch.sharding.partition",
+                                    "repro_torch.roofline",
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.launch.recount"])
 def test_launch_layer_runs_with_jax_and_repro_blocked(module):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", _LAUNCH_LAYER, module],

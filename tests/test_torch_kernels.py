@@ -177,8 +177,11 @@ def _meta(*shape, dtype=torch.float32):
 @pytest.mark.parametrize("name", ["decode_attention", "moe_gemm",
                                   "flash_attention"])
 def test_wrapper_dispatch_by_device(name):
-    """A CPU call runs the plain version and counts no launch; a tensor on
-    another device is refused (no fallback to the plain version)."""
+    """A CPU call runs the plain version and counts no launch; a ``meta``
+    operand takes the shapes-only branch: an empty ``meta`` output of the
+    plain version's shape and dtype, no launch counted and no aten op
+    dispatched (the plain version would dispatch its loop)."""
+    from repro_torch.roofline import StepCounter
     tk.reset_launch_counts()
     if name == "decode_attention":
         args = (torch.zeros(2, 4, 8), torch.zeros(2, 16, 2, 8),
@@ -200,8 +203,11 @@ def test_wrapper_dispatch_by_device(name):
     out = fn(*args)
     assert out.device.type == "cpu"
     assert tk.launch_counts()[name] == 0
-    with pytest.raises(ValueError):
-        fn(*meta)
+    with StepCounter() as c:
+        got = fn(*meta)
+    assert got.device.type == "meta"
+    assert (got.shape, got.dtype) == (out.shape, out.dtype)
+    assert c.counts.aten_ops == 0 and c.counts.kernels[name]["calls"] == 1
     assert tk.launch_counts()[name] == 0
 
 

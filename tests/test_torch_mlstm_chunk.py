@@ -167,7 +167,8 @@ def test_route_by_s_alone(monkeypatch):
     """The wrapper takes the recurrent kernel below CHUNKWISE_MIN_S (a
     decode step, S = 1) and the chunkwise pair from it on, reading only
     the shape; each call counts one launch. The device checks and the
-    launches are faked: nothing runs a kernel here."""
+    launches are faked: nothing runs a kernel here (the meta operands
+    stand in for CUDA ones, so the wrapper's meta branch is turned off)."""
     assert ops.route(1) == "recurrent"
     assert ops.route(ops.CHUNKWISE_MIN_S - 1) == "recurrent"
     assert ops.route(ops.CHUNKWISE_MIN_S) == "chunkwise"
@@ -175,6 +176,7 @@ def test_route_by_s_alone(monkeypatch):
     taken = []
     monkeypatch.setattr(ops, "check_cuda_operands", lambda *a, **kw: None)
     monkeypatch.setattr(ops, "check_tma_operands", lambda *a, **kw: None)
+    monkeypatch.setattr(ops, "is_meta", lambda t: False)
     monkeypatch.setattr(mk, "mlstm_scan_cuda",
                         lambda *a: taken.append("recurrent"))
     monkeypatch.setattr(mk, "mlstm_scan_chunkwise_cuda",

@@ -273,8 +273,11 @@ def test_paged_plain_matches_pallas_and_oracle(bs, Kv, g, lengths):
 
 
 def test_paged_wrapper_dispatch_by_device():
-    """A CPU call runs the plain version and counts no launch; a tensor on
-    another device is refused (no fallback to the plain version)."""
+    """A CPU call runs the plain version and counts no launch; a ``meta``
+    operand takes the shapes-only branch: an empty ``meta`` output of the
+    plain version's shape and dtype, no launch counted and no aten op
+    dispatched (no fallback to the plain version)."""
+    from repro_torch.roofline import StepCounter
     tk.reset_launch_counts()
     q, _, _, kp, vp, lens, tbl = _paged_case([5, 0], 16, 2, 2)
     out = paged_decode_attention_ref(*(torch.from_numpy(a) for a in
@@ -285,8 +288,12 @@ def test_paged_wrapper_dispatch_by_device():
     assert tk.launch_counts()["decode_attention_paged"] == 0
     meta = [torch.empty(a.shape, dtype=torch.from_numpy(a).dtype,
                         device="meta") for a in (q, kp, vp, lens, tbl)]
-    with pytest.raises(ValueError):
-        decode_attention_paged(*meta)
+    with StepCounter() as c:
+        shell = decode_attention_paged(*meta)
+    assert shell.device.type == "meta"
+    assert (shell.shape, shell.dtype) == (got.shape, got.dtype)
+    assert c.counts.aten_ops == 0
+    assert c.counts.kernels["decode_attention_paged"]["calls"] == 1
     assert tk.launch_counts()["decode_attention_paged"] == 0
 
 

@@ -86,8 +86,11 @@ def test_rg_lru_plain_matches_oracle(B, S, W, dtype):
 
 
 def test_rg_lru_wrapper_dispatch_by_device():
-    """A CPU call runs the plain version and counts no launch; a tensor on
-    another device is refused (no fallback to the plain version)."""
+    """A CPU call runs the plain version and counts no launch; a ``meta``
+    operand takes the shapes-only branch: an empty ``meta`` output of the
+    plain version's shape and dtype, no launch counted and no aten op
+    dispatched (no fallback to the plain version)."""
+    from repro_torch.roofline import StepCounter
     tk.reset_launch_counts()
     a, b, h0 = (torch.from_numpy(x) for x in _scan_inputs(2, 3, 8))
     h, _ = rg_lru_scan(a, b, h0)
@@ -95,8 +98,12 @@ def test_rg_lru_wrapper_dispatch_by_device():
     assert tk.launch_counts()["rg_lru_scan"] == 0
     meta = [torch.empty(x.shape, dtype=x.dtype, device="meta")
             for x in (a, b, h0)]
-    with pytest.raises(ValueError):
-        rg_lru_scan(*meta)
+    with StepCounter() as c:
+        shell = rg_lru_scan(*meta)
+    assert [(t.device.type, t.shape, t.dtype) for t in shell] == \
+        [("meta", t.shape, t.dtype) for t in rg_lru_scan(a, b, h0)]
+    assert c.counts.aten_ops == 0
+    assert c.counts.kernels["rg_lru_scan"]["calls"] == 1
     assert tk.launch_counts()["rg_lru_scan"] == 0
 
 

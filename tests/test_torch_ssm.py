@@ -109,16 +109,23 @@ def test_mlstm_scan_plain_matches_reference(B, H, S, D, bs):
 
 
 def test_mlstm_wrapper_dispatch_by_device():
-    """A CPU call runs the plain version and counts no launch; a tensor on
-    another device is refused (no fallback to the plain version)."""
+    """A CPU call runs the plain version and counts no launch; a ``meta``
+    operand takes the shapes-only branch: an empty ``meta`` output of the
+    plain version's shape and dtype, no launch counted and no aten op
+    dispatched (no fallback to the plain version)."""
+    from repro_torch.roofline import StepCounter
     tk.reset_launch_counts()
     args = [torch.from_numpy(a) for a in _scan_inputs(1, 2, 3, 8)]
     out = mlstm_scan(*args)
     assert out[0].shape == (1, 2, 3, 8)
     assert tk.launch_counts()["mlstm_scan"] == 0
     meta = [torch.empty(a.shape, dtype=a.dtype, device="meta") for a in args]
-    with pytest.raises(ValueError):
-        mlstm_scan(*meta)
+    with StepCounter() as c:
+        shell = mlstm_scan(*meta)
+    assert [(t.device.type, t.shape, t.dtype) for t in shell] == \
+        [("meta", t.shape, t.dtype) for t in out]
+    assert c.counts.aten_ops == 0
+    assert c.counts.kernels["mlstm_scan"]["calls"] == 1
     assert tk.launch_counts()["mlstm_scan"] == 0
 
 
