@@ -31,7 +31,24 @@
               f32 at TOL, bf16 at FLASH_TOL beside controls with the last
               key dropped and with a causal mask, each failing in every
               batch row) and the dense decode kernels at the
-              cross-attention shape (C = 1024 every row, D = 64);
+              cross-attention shape (C = 1024 every row, D = 64); and
+              the scans' backwards (the port's own kernels, no TPU
+              function) against their plain versions in f32: RG-LRU at
+              recurrentgemma-9b's train shape (B = 4, S = 512, W = 4096)
+              bitwise, mLSTM at xlstm-1.3b's train shape (B = 4, H = 4,
+              S = 512, D = 1024) and at B = 1, S = 64, the clamp off
+              and on, within ``SCAN_BWD_TOL`` (relative L2 of each
+              gradient), each
+              beside controls that must miss the limit (dh shifted by
+              one step; for the mLSTM, with the clamp on, m held
+              constant);
+     kernelcheck states  the dense and paged decode kernels over
+              ``analysis.kernelcheck``'s ledger states (the paging
+              manager's boundary tables, the all-unallocated table, the
+              boundary lengths of caches the chunk does not divide) with
+              every pool row that no live position references NaN: the
+              output finite and within DECODE_TOL of the plain version,
+              and a control with one live row poisoned non-finite;
   3. small    a smoke-size model on the card (kernels) against the same
               model on the CPU (plain versions): prefill and decode logits
               and greedy tokens (deepseek-v2-lite's MLA through the flash
@@ -71,7 +88,11 @@
               are profiled over 3 decode steps, graph and eager (serve
               also over one batched prefill call of 8 x 300 tokens); a
               paired decode-step timing takes turns between the dense
-              graph, dense eager and paged graph engines;
+              graph, dense eager and paged graph engines, and one eager decode
+              step of the dense engine runs under
+              ``torch.cuda.set_sync_debug_mode("error")`` with no
+              synchronizing call (``check_sync_guard``: a step followed
+              by ``.item()`` must raise);
      dep      the same model, weights and requests with the FinDEP
               policy on the profile the calibrate phase measured (its
               plans printed beside the PAPER_A6000 ones at every prefill
@@ -161,8 +182,9 @@
               per layer and per step beside the expert GEMM; parameters
               against ModelConfig.num_params(), tokens/s, decode step and
               prefill-call ms, peak GB and wall seconds printed;
-     ep       sharded serving: qwen2-moe-a2.7b at full width (seed 0,
-              bf16) on an expert group of two ranks, two spawned
+     ep       sharded serving: qwen2-moe-a2.7b at full width cut to
+              ``EP_LAYERS`` (12 of 24; seed 0, bf16) on an expert group of
+              two ranks, two spawned
               processes sharing the card over gloo (NCCL refuses two
               ranks of one communicator on one card), each drawing and
               holding 30 of the 60 experts (per-expert fingerprints equal
@@ -171,7 +193,7 @@
               max_context 1024, eager, FinDEP on the calibrate phase's
               profile, every request finished and both ranks holding the
               same tokens, the launches read on each rank (expert GEMM
-              24 x sum(r1·r2)); the expert GEMM against its plain
+              L x sum(r1·r2)); the expert GEMM against its plain
               version at every (E = 30, C) of the serve; 11 teacher-forced
               steps at a capacity factor that drops nothing within
               ``EP_LOGIT_TOL`` of the one-rank engine (every expert,
@@ -191,9 +213,9 @@
               beside two baselines of one rank: its DEP walk against its
               capacity path (bf16, 24 layers) and its bf16 against its f32
               logits at ``EP_F32_LAYERS``;
-  5. xlstm    ServingEngine with xlstm-1.3b at full width cut to 24 of
-              its 48 layers (``XLSTM_LAYERS``: 21 mLSTM through the mLSTM
-              scan kernels, 3 sLSTM): 16
+  5. xlstm    ServingEngine with xlstm-1.3b at full width cut to 8 of
+              its 48 layers (``XLSTM_LAYERS``: 7 mLSTM through the mLSTM
+              scan kernels, 1 sLSTM): 16
               requests, 8 slots, max_context 1024, with the graph; held
               against an eager engine as in phase 4 and timed beside it;
               profiled over 3 decode steps (graph and eager) and one
@@ -266,9 +288,23 @@
               loss falls 0.2 nat or more) and ``--preset tiny --steps
               200`` (1 nat or more), each checkpoint loading back bit
               for bit;
+  8b. train_recurrent  xlstm-1.3b (8 of 48 layers: 7 mLSTM + 1 sLSTM)
+              and recurrentgemma-9b (6 of 38: two rec, rec, attn
+              patterns) at full width, bf16 weights from seed 0, AdamW
+              with bf16 states, ``TRAIN_RECURRENT_STEPS`` steps of 4 x 512
+              Markov tokens under attn_impl="xla": every gradient leaf
+              finite and non-zero after the first backward, the loss and
+              grad norm finite, the scan's forward and backward kernels
+              each launched once per scan layer at every step and no
+              other kernel; a step counted on the card and on a meta twin
+              (equal counts) and timed beside its least time; the scan's
+              autograd Function timed at the path's shape, forward and
+              backward, beside their bounds; step ms, tokens/s and peak
+              GB printed;
   9. report   every phase's wall seconds and the total; one JSON line with
               every kernel's numbers (launches from the dep path for the
-              kernels of qwen2-moe's dense KV, and per serve or train
+              kernels of qwen2-moe's dense KV, from the train_recurrent
+              runs for the two backwards, and per serve or train
               path in ``launches_by_path``: the placement path's expert
               GEMM counts the REP task's launches; the backbone paths'
               shapes under ``backbones``; the expert GEMM's train shape,
@@ -281,7 +317,7 @@ CUDA device it exits non-zero and prints no result.
 
 Run from the repository root:  python3 chip_smoke.py
 (``--no-serve`` stops after phase 3 and the ring check: a quick check of
-new kernels; ``--train-only`` builds and runs phase 8 alone.) The
+new kernels; ``--train-only`` builds and runs phases 8 and 8b alone.) The
 calibration's profile store is a temporary directory under
 ``.repro-profiles/``, the train loop's checkpoints are under
 ``.repro-train/``, all removed at the end.
@@ -337,8 +373,10 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa:
 from repro_torch.kernels.mlstm_scan import kernel as mlstm_kernel  # noqa: E402
 from repro_torch.kernels.mlstm_scan import ops as mlstm_ops  # noqa: E402
 from repro_torch.kernels.mlstm_scan.ops import (  # noqa: E402
-    mlstm_scan, mlstm_scan_work)
-from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref  # noqa: E402
+    MLSTMScanFunction, mlstm_scan, mlstm_scan_backward,
+    mlstm_scan_backward_work, mlstm_scan_work)
+from repro_torch.kernels.mlstm_scan.ref import (  # noqa: E402
+    mlstm_scan_backward_ref, mlstm_scan_ref)
 from repro_torch.kernels.moe_gemm import kernel as gemm_kernel  # noqa: E402
 from repro_torch.kernels.moe_gemm import ops as gemm_ops  # noqa: E402
 from repro_torch.kernels.moe_gemm.ops import (moe_gemm,  # noqa: E402
@@ -347,8 +385,11 @@ from repro_torch.kernels.moe_gemm.ops import (moe_gemm,  # noqa: E402
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref  # noqa: E402
 from repro_torch.kernels.rg_lru import kernel as rglru_kernel  # noqa: E402
 from repro_torch.kernels.rg_lru.ops import (  # noqa: E402
-    rg_lru_scan, rg_lru_scan_work)
-from repro_torch.kernels.rg_lru.ref import rg_lru_scan_ref  # noqa: E402
+    RGLRUScanFunction, rg_lru_scan, rg_lru_scan_backward,
+    rg_lru_scan_backward_work, rg_lru_scan_work)
+from repro_torch.kernels.rg_lru.ref import (  # noqa: E402
+    rg_lru_scan_backward_ref, rg_lru_scan_ref)
+from repro_torch.analysis import kernelcheck  # noqa: E402
 from repro_torch.models import ExecutionContext, build_model  # noqa: E402
 from repro_torch.data import DataConfig, MarkovTextDataset  # noqa: E402
 from repro_torch.launch import serve_moe  # noqa: E402
@@ -390,7 +431,7 @@ from repro_torch.sched import FinDEPPolicy, PlanCache  # noqa: E402
 from repro_torch.training import (AdamWConfig, apply_updates,  # noqa: E402
                                   init_opt_state, load_checkpoint)
 from repro_torch.training.tree import (tree_leaves,  # noqa: E402
-                                       tree_unflatten)
+                                       tree_map, tree_unflatten)
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -472,7 +513,8 @@ def device_events(prof):
 PER_CALL = {"decode_attention_": 2, "decode_attention_split": 1,
             "decode_attention_combine": 1, "moe_gemm_": 2,
             "flash_attention_": 1, "mlstm_chunk_prep": 1,
-            "mlstm_chunk_scan": 1, "rg_lru_scan": 1}
+            "mlstm_chunk_scan": 1, "rg_lru_scan": 1,
+            "rg_lru_scan_backward": 1, "mlstm_bwd_": 5}
 
 
 def trace_span(prof) -> str:
@@ -1584,6 +1626,285 @@ def check_rg_lru(gen):
 
 
 # ---------------------------------------------------------------------------
+# the scans' backwards (the port's own kernels: no TPU function)
+# ---------------------------------------------------------------------------
+
+#: the scans' backwards against their plain versions, f32, relative L2 of
+#: each gradient. The RG-LRU backward takes the plain version's rounded
+#: steps, so it must also be bitwise equal; the mLSTM backward sums in
+#: another order (tiles, warps, shared-memory atomics): this check read
+#: 1.3e-7 to 1.4e-6, 7.6e-7 at the train shape (NVIDIA H100 80GB HBM3,
+#: 700 W), so the CPU tests' 1e-5 holds here too
+SCAN_BWD_TOL = 1e-5
+#: the reference code the backwards take the place of (neither has a TPU
+#: kernel: the reference differentiates these with jax.grad)
+BWD_REPLACES = {
+    "rg_lru_scan_backward": "none (no TPU function): jax.grad of "
+                            "src/repro/models/rglru.py:61-98",
+    "mlstm_scan_backward": "none (no TPU function): jax.grad of "
+                           "src/repro/models/ssm.py:89-128"}
+
+
+def check_grads_against(name: str, label: str, got, want, names,
+                        bitwise: bool = False) -> float:
+    """Each gradient finite, of the plain version's shape and dtype, within
+    SCAN_BWD_TOL relative L2 (and bitwise equal with ``bitwise``); returns
+    the worst relative L2."""
+    torch.cuda.synchronize()
+    worst, same = 0.0, True
+    for n, g, w in zip(names, got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"{name} {label} {n}: {tuple(g.shape)} {g.dtype}, plain "
+                 f"{tuple(w.shape)} {w.dtype}")
+        if not torch.isfinite(g).all():
+            fail(f"{name} {label} {n}: non-finite kernel output")
+        err = rel_l2(g, w)
+        worst = max(worst, err)
+        same = same and torch.equal(g, w)
+        if err > SCAN_BWD_TOL:
+            fail(f"{name} {label} {n}: relative L2 {err:.3e} beyond "
+                 f"{SCAN_BWD_TOL}")
+    if bitwise and not same:
+        fail(f"{name} {label}: not bitwise equal to the plain version")
+    print(f"  {label}: worst relative L2 {worst:.3e} over "
+          f"{', '.join(names)} (limit {SCAN_BWD_TOL}); "
+          f"{'bitwise equal' if same else 'not bitwise'}")
+    return worst
+
+
+def check_control(name: str, label: str, what: str, got, control,
+                  which) -> float:
+    """A plain backward with one slip (``control``) must miss
+    SCAN_BWD_TOL against the kernel in at least one of the gradients
+    ``which``; returns the worst ratio to the limit."""
+    ratio = max(rel_l2(got[i], control[i]) for i in which) / SCAN_BWD_TOL
+    print(f"  {label} control {what}: {ratio:.3g}x the limit")
+    if ratio <= 1:
+        fail(f"{name} {label}: the control {what} passes SCAN_BWD_TOL")
+    return ratio
+
+
+def check_rg_lru_backward(gen):
+    """The RG-LRU backward against its plain version in f32 at the
+    recurrentgemma-9b train shape (B = 4, S = 512, W = 4096), a ragged
+    shape and S = 1, gradients on h and h_last; bitwise; a control whose
+    dh is shifted by one step; device times (warm and cold L2) at the
+    train shape."""
+    print("[kernels] rg_lru_scan_backward")
+    name, names = "rg_lru_scan_backward", ("da", "db", "dh0")
+    errs, timing, controls = {}, {}, {}
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for B, S, W in ((4, 512, 4096), (3, 37, 1000), (2, 1, 8)):
+        a = 0.8 + 0.199 * torch.rand((B, S, W), generator=gen, device="cuda")
+        b = randn(gen, (B, S, W), torch.float32, 0.1)
+        h0 = randn(gen, (B, W), torch.float32)
+        hs, _ = rg_lru_scan(a, b, h0)
+        dhs = randn(gen, (B, S, W), torch.float32)
+        dl = randn(gen, (B, W), torch.float32)
+        label = f"B={B} S={S} W={W} f32"
+        got = rg_lru_scan_backward(a, h0, hs, dhs, dl)
+        want = rg_lru_scan_backward_ref(a, h0, hs, dhs, dl)
+        errs[(B, S)] = check_grads_against(name, label, got, want, names,
+                                           bitwise=True)
+        if S > 1:
+            controls[label] = check_control(
+                name, label, "dh shifted by one step", got,
+                rg_lru_scan_backward_ref(a, h0, hs, dhs.roll(1, dims=1),
+                                         dl), range(3))
+        if (B, S) == (4, 512):
+            def run():
+                return rg_lru_scan_backward(a, h0, hs, dhs, dl)
+            b_ms, by = work_bound(rg_lru_scan_backward_work, a, h0, hs, dhs,
+                                  dl)
+            ms, dev = timed(run, name, bound=b_ms)
+            cold = device_ms(lambda: (flush.zero_(), run()), name)
+            plain = time_ms(lambda: rg_lru_scan_backward_ref(
+                a, h0, hs, dhs, dl), iters=3, warmup=1)
+            timing = dict(ms=ms, device_ms=dev, cold_device_ms=cold,
+                          plain_ms=plain, bound_ms=b_ms, bound_by=by)
+            print(f"  {label}: kernel {ms:.4f} ms events, {dev:.4f} ms "
+                  f"device, {cold:.4f} ms cold; plain {plain:.3f} ms; "
+                  f"bound {b_ms:.4f} ms ({by}), the kernel at "
+                  f"{b_ms / dev:.1%} of it")
+        del a, b, h0, hs, dhs, dl, got, want
+        torch.cuda.empty_cache()
+    return dict(name=name, source=rglru_kernel.BACKWARD_SOURCE,
+                replaces=BWD_REPLACES[name], max_abs_err=errs[(4, 512)],
+                error="relative L2", bitwise_f32=True, library_ms=None,
+                controls=controls, shape="B=4 S=512 W=4096 f32", **timing)
+
+
+def check_mlstm_backward(gen):
+    """The mLSTM backward against its plain version in f32 (relative L2
+    of each of the eight gradients, gradients on h and the final C, n,
+    m): at the train_recurrent path's shape (xlstm-1.3b: B = 4, H = 4,
+    S = 512, D = 1024; the plain version keeps 513 states of 64 MiB, 32
+    GiB), at B = 1, S = 64, each with the clamp off and on (q scaled by
+    0.02: the denominator held at 1), at D = 48, S = 37 (a D no tile
+    divides, an S no chunk divides) and at S = 1; controls: dh shifted by
+    one step, and, with the clamp on, a backward that holds m constant
+    (``drop_dm``), each of which must miss the limit. Device times at the
+    train shape (clamp off; the plain version's is the shifted control's
+    call, one call with CUDA events) and at B = 1, S = 64."""
+    print("[kernels] mlstm_scan_backward")
+    name = "mlstm_scan_backward"
+    names = ("dq", "dk", "dv", "di", "dlf", "dC0", "dn0", "dm0")
+    errs, timing, controls = {}, {}, {}
+    for B, H, S, D, qs in ((4, 4, 512, 1024, 1.0), (4, 4, 512, 1024, 0.02),
+                           (1, 4, 64, 1024, 1.0), (1, 4, 64, 1024, 0.02),
+                           (2, 2, 37, 48, 1.0), (1, 1, 1, 64, 1.0)):
+        args = list(mlstm_inputs(gen, B, H, S, D))
+        args[0] = args[0] * qs
+        h = mlstm_scan(*args)[0]
+        grads = (randn(gen, (B, H, S, D), torch.float32),
+                 randn(gen, (B, H, D, D), torch.float32),
+                 randn(gen, (B, H, D), torch.float32),
+                 randn(gen, (B, H), torch.float32))
+        label = f"B={B} H={H} S={S} D={D} q x{qs}"
+        got = mlstm_scan_backward(*args, h, *grads)
+        want = mlstm_scan_backward_ref(*args, *grads)
+        errs[label] = check_grads_against(name, label, got, want, names)
+        del want
+        if S > 1:
+            shifted, plain = event_ms_once(lambda: mlstm_scan_backward_ref(
+                *args, grads[0].roll(1, dims=2), *grads[1:]))
+            controls[f"{label} dh shifted"] = check_control(
+                name, label, "dh shifted by one step", got, shifted,
+                range(8))
+            del shifted
+        if qs < 1:
+            controls[f"{label} m held constant"] = check_control(
+                name, label, "m held constant (clamp on)", got,
+                mlstm_scan_backward_ref(*args, *grads, drop_dm=True),
+                (3, 4, 7))
+        if D == 1024 and qs == 1.0:
+            def run():
+                return mlstm_scan_backward(*args, h, *grads)
+            b_ms, by = work_bound(mlstm_scan_backward_work, *args, h,
+                                  *grads)
+            ms, dev = timed(run, "mlstm_bwd_", iters=5, bound=b_ms)
+            timing[(B, S)] = dict(ms=ms, device_ms=dev, plain_ms=plain,
+                                  bound_ms=b_ms, bound_by=by)
+            print(f"  {label}: kernels {ms:.4f} ms events, {dev:.4f} ms "
+                  f"device (5 kernels a call); plain {plain:.3f} ms (one "
+                  f"call); bound {b_ms:.4f} ms ({by}), the kernels at "
+                  f"{b_ms / dev:.1%} of it")
+        del args, h, grads, got
+        torch.cuda.empty_cache()
+    train = "B=4 H=4 S=512 D=1024"
+    return dict(name=name, source=mlstm_kernel.BACKWARD_SOURCE,
+                replaces=BWD_REPLACES[name],
+                max_abs_err=max(errs[f"{train} q x1.0"],
+                                errs[f"{train} q x0.02"]),
+                error="relative L2", library_ms=None, controls=controls,
+                **timing[(4, 512)], shape=f"{train} f32 (train_recurrent)",
+                s64=dict(timing[(1, 64)], shape="B=1 H=4 S=64 D=1024 f32"))
+
+
+def event_ms_once(fn) -> tuple:
+    """(``fn()``, its CUDA-event ms): one call, for a plain version too
+    slow to call again."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+# ---------------------------------------------------------------------------
+# kernelcheck's ledger states on the card
+# ---------------------------------------------------------------------------
+
+def _poisoned(pool, live_rows):
+    """A copy of ``pool`` (rows of [Kv, D] along a flat first axis) with
+    NaN in every row not in ``live_rows``."""
+    flat = pool.reshape(-1, *pool.shape[-2:]).clone()
+    dead = torch.ones(flat.shape[0], dtype=torch.bool)
+    dead[sorted(live_rows)] = False
+    flat[dead.to(flat.device)] = float("nan")
+    return flat.reshape(pool.shape)
+
+
+def phase_kernelcheck_states(gen) -> dict:
+    """The decode kernels over ``analysis.kernelcheck``'s boundary states,
+    bf16, H = 8, Kv = 2, D = 128: the paged kernel over the port's paging
+    ledger (bs 16 and 48: shared prefixes, a full row, decode growth, a
+    reset and an untouched slot) and the all-unallocated table, the dense
+    kernel over the boundary lengths of caches the chunk does not divide.
+    Every pool row that no live position references (page 0 and the dead
+    tail of each dense row among them) holds NaN; the output must be
+    finite and within DECODE_TOL of the plain version on the clean cache
+    (an empty row: zeros). Control: one live position's row poisoned must
+    make that batch row non-finite."""
+    H, Kv, D, dt = 8, 2, 128, torch.bfloat16
+    out = {}
+
+    def check(label, got, want, control_got=None, control_row=None):
+        torch.cuda.synchronize()
+        if not torch.isfinite(got.float()).all():
+            fail(f"kernelcheck states {label}: non-finite output over NaN "
+                 "rows no live position references")
+        worst = _worst(got.float(), want.float(), DECODE_TOL[dt])
+        if worst > 1:
+            fail(f"kernelcheck states {label}: {worst:.2f} of DECODE_TOL")
+        ok = control_got is None or not bool(
+            torch.isfinite(control_got[control_row].float()).all())
+        if not ok:
+            fail(f"kernelcheck states {label}: the control (a live row "
+                 "poisoned) stayed finite")
+        out[label] = worst
+        print(f"  {label}: finite over the NaN rows, {worst:.3f} of "
+              f"DECODE_TOL; control {'non-finite' if control_got is not None else 'n/a'}")
+
+    print("[kernelcheck states] the decode kernels over the ledger states")
+    for bs in (16, 48):
+        kv = kernelcheck.ledger_states(bs)
+        tbl, lens = kv._tables, kv.lengths()
+        B, n_blocks = tbl.shape
+        P = kv.pool.num_blocks
+        live = {int(tbl[b, p // bs]) * bs + p % bs
+                for b in range(B) for p in range(lens[b])}
+        kp = randn(gen, (P, bs, Kv, D), dt)
+        vp = randn(gen, (P, bs, Kv, D), dt)
+        q = randn(gen, (B, H, D), dt)
+        L = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        T = torch.from_numpy(tbl.copy()).cuda()
+        want = paged_decode_attention_ref(q, kp, vp, L, T)
+        got = decode_attention_paged(q, _poisoned(kp, live),
+                                     _poisoned(vp, live), L, T)
+        b0 = 1                            # a row with live positions
+        bad = _poisoned(kp, live - {int(tbl[b0, 0]) * bs})
+        ctrl = decode_attention_paged(q, bad, _poisoned(vp, live), L, T)
+        check(f"paged ledger bs={bs} lengths {lens}", got, want, ctrl, b0)
+    empty = torch.full((3, 4), -1, dtype=torch.int32, device="cuda")
+    kp = randn(gen, (8, 16, Kv, D), dt)
+    q = randn(gen, (3, H, D), dt)
+    L0 = torch.zeros(3, dtype=torch.int32, device="cuda")
+    got = decode_attention_paged(q, _poisoned(kp, set()),
+                                 _poisoned(kp, set()), L0, empty)
+    check("paged all-unallocated", got, torch.zeros_like(got))
+    for C in kernelcheck.DENSE_CACHES:
+        lens = kernelcheck._boundary_lengths(C)
+        B = len(lens)
+        live = {b * C + p for b in range(B) for p in range(min(lens[b], C))}
+        kc = randn(gen, (B, C, Kv, D), dt)
+        vc = randn(gen, (B, C, Kv, D), dt)
+        q = randn(gen, (B, H, D), dt)
+        L = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        want = decode_attention_ref(q, kc, vc, L)
+        got = decode_attention(q, _poisoned(kc, live), _poisoned(vc, live),
+                               L)
+        b0 = B - 1                        # the row past capacity
+        ctrl = decode_attention(q, _poisoned(kc, live - {b0 * C}),
+                                _poisoned(vc, live), L)
+        check(f"dense C={C} lengths {lens}", got, want, ctrl, b0)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: a small model on the card against the same model on the CPU
 # ---------------------------------------------------------------------------
 
@@ -2119,6 +2440,38 @@ def forced_prompts(vocab: int, shared=()):
             for n in FORCED_LENGTHS]
 
 
+def check_sync_guard(eng) -> dict:
+    """The card's half of ``analysis.capturelint``: one eager decode step
+    of ``eng`` (a serve engine without graphs, after its last timing: its
+    public ``decode_fn``, what a graph captures) under
+    ``torch.cuda.set_sync_debug_mode("error")`` must run without a
+    synchronizing call, for both sampling keys; the control, a step
+    followed by ``.item()`` on its tokens, must raise."""
+    step = eng.decode_fn
+    for key in (GraphKey(False), GraphKey(True)):
+        step(key)                         # first use allocates outside
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for key in (GraphKey(False), GraphKey(True)):
+            step(key)
+        try:
+            step(GraphKey(False))[0].sum().item()
+            control = None
+        except RuntimeError as e:
+            control = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if control is None:
+        fail("sync guard: the control (.item() after a step) did not raise "
+             "under set_sync_debug_mode('error')")
+    print("[sync guard] an eager decode step (both sampling keys) ran under "
+          "set_sync_debug_mode('error') with no synchronizing call; the "
+          f"control raised: {control[:120]}")
+    return {"eager_step_syncs": 0, "control": control[:120]}
+
+
 def phase_serve():
     """The paged path with the dense footprint as its pool, then the dense
     path (slice 1) on the same weights, whose tokens the paged run must
@@ -2189,6 +2542,7 @@ def phase_serve():
           f"greedy requests give the dense run's tokens; {same}/"
           f"{len(sampled)} sampled requests match too")
     compare_decode({"graph": eng, "eager": eager, "paged": paged_eng}, cfg)
+    check_sync_guard(eager)
     del eng, eager, paged_eng
     torch.cuda.empty_cache()
 
@@ -4013,6 +4367,15 @@ EP_LOGIT_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.3}
 #: ep phase to 248 s and the whole run to 1047 s of its 1200 on a slow
 #: host; 12 layers take about half the f32 part
 EP_F32_LAYERS = 12
+#: the ep serve's depth: qwen2-moe-a2.7b at full width cut from 24 layers
+#: to 12 (24 until PR 27), for the run's time; the f32 check already runs
+#: at this depth
+EP_LAYERS = 12
+
+
+def ep_config():
+    return dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                               num_layers=EP_LAYERS)
 #: a near-tie of the router: a token whose k-th and (k+1)-th router
 #: probabilities in the one-rank f32 run lie closer than this may route
 #: to other experts on two ranks by rounding alone (the two runs' router
@@ -4160,7 +4523,7 @@ def check_rows(eng, one_fps, rows, path: str, what: str) -> None:
 def ep_rank_work(rank, groups, device, store_dir, profile) -> dict:
     """One rank of the ep phase (see ``phase_ep``)."""
     t0 = time.perf_counter()
-    cfg = get_config("qwen2-moe-a2.7b")
+    cfg = ep_config()
     E = cfg.moe.num_experts
     E_loc = E // EP_RANKS
     lo = rank * E_loc
@@ -4547,8 +4910,9 @@ def ep_f32_reference(cfg) -> tuple:
 
 
 def phase_ep(profile, setup=None) -> dict:
-    """Sharded serving on one card: full qwen2-moe-a2.7b (24 layers, 60
-    experts, bf16, seed 0) on an expert group of two ranks, two spawned
+    """Sharded serving on one card: qwen2-moe-a2.7b at full width cut to
+    ``EP_LAYERS`` (60 experts, bf16, seed 0) on an expert group of two
+    ranks, two spawned
     processes sharing the card over gloo, each holding 30 experts. First
     the one-rank engine (every expert, capacity path, eager, capacity
     factor E / top_k) takes 11 teacher-forced decode steps over
@@ -4557,7 +4921,7 @@ def phase_ep(profile, setup=None) -> dict:
     [r·30, (r+1)·30); the decode graph over gloo is refused; the 16
     ``mixed_requests`` (8 slots, max_context 1024, eager, FinDEP on the
     calibrate phase's profile) all finish, the expert GEMM launching
-    24 x Σ r1·r2 (``dep_expect``, read on each rank); the expert GEMM
+    L x Σ r1·r2 (``dep_expect``, read on each rank); the expert GEMM
     against its plain version at every (E = 30, C) of the serve;
     11 teacher-forced steps at no drop within ``EP_LOGIT_TOL`` of the
     one-rank engine's, and a control with rank 1's shard off by one
@@ -4570,7 +4934,7 @@ def phase_ep(profile, setup=None) -> dict:
     import multiprocessing
     import queue
     t0 = time.perf_counter()
-    cfg = get_config("qwen2-moe-a2.7b")
+    cfg = ep_config()
     one = ServingEngine(no_drop(cfg), num_slots=8, max_context=1024,
                         dtype=EP_DTYPE, device=EP_DEVICE, seed=0,
                         decode_graph=False, track_expert_load=True)
@@ -4664,10 +5028,11 @@ def phase_ep(profile, setup=None) -> dict:
 
 
 #: the xLSTM path's depth: xlstm-1.3b at full width cut from 48 layers to
-#: 24 (its 7:1 mLSTM:sLSTM pattern kept, 21 + 3), which halves the
-#: phase's sLSTM prefill loop to make room for the launch layer's
-#: checks; every layer kind and kernel shape is the full model's
-XLSTM_LAYERS = 24
+#: one 7:1 pattern, 8 (7 mLSTM + 1 sLSTM; 24 from PR 26, 48 before), which
+#: keeps every layer kind and kernel shape of the full model and makes room
+#: for the recurrent train path (its sLSTM prefill loop was most of the
+#: phase)
+XLSTM_LAYERS = 8
 
 
 def phase_serve_xlstm():
@@ -6324,6 +6689,204 @@ def phase_train(setup=None) -> tuple:
     return paths, gemm, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 8b: the recurrent families trained through the scans' backwards
+# ---------------------------------------------------------------------------
+
+#: (arch, layers, scan) of the recurrent train path: full width, depth cut
+#: for memory and time. xlstm-1.3b at one 7:1 pattern of its 48 layers
+#: (7 mLSTM + 1 sLSTM); recurrentgemma-9b at two (rec, rec, attn)
+#: patterns of its 38 (bf16 weights, gradients and two AdamW states, 8
+#: bytes a parameter: all 38 layers would exceed 80 GB)
+TRAIN_RECURRENT = (("xlstm-1.3b", 8, "mlstm_scan"),
+                   ("recurrentgemma-9b", 6, "rg_lru_scan"))
+TRAIN_RECURRENT_STEPS = 3
+
+
+def scan_operands(cfg, scan: str, gen):
+    """The scan's f32 operands at the train path's shape (``TRAIN_BATCH``
+    x ``TRAIN_SEQ``), the incoming state fresh as the model makes it, and
+    a gradient for h: (forward operands, dh)."""
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    if scan == "mlstm_scan":
+        H = cfg.num_heads
+        D = 2 * cfg.d_model // H
+        args = mlstm_inputs(gen, B, H, S, D, fresh=True)
+        return args, randn(gen, (B, H, S, D), torch.float32)
+    W = cfg.recurrent.lru_width or cfg.d_model
+    a = 0.8 + 0.199 * torch.rand((B, S, W), generator=gen, device="cuda")
+    return ((a, randn(gen, (B, S, W), torch.float32, 0.1),
+             torch.zeros((B, W), device="cuda")),
+            randn(gen, (B, S, W), torch.float32))
+
+
+def time_scan_function(cfg, scan: str, gen) -> dict:
+    """The scan's autograd Function at the train shape, as the train path
+    calls it (the projections' outputs require a gradient, the fresh
+    state does not, only h is used): the forward (``Function.apply``
+    under grad mode) and the backward (``torch.autograd.grad`` of h,
+    which gives the Function zeros for its unused outputs) timed apart
+    by CUDA events, each beside its bound from its ``*_work`` formula;
+    and the backward wrapper alone on the same operands, so the
+    Function's own share shows."""
+    args, dh = scan_operands(cfg, scan, gen)
+    if scan == "mlstm_scan":
+        fn, wrapper = MLSTMScanFunction, mlstm_scan_backward
+        leaves = args[:5]
+        f_b = work_bound(mlstm_scan_work, *args)
+    else:
+        fn, wrapper = RGLRUScanFunction, rg_lru_scan_backward
+        leaves = args[:2]
+        f_b = work_bound(rg_lru_scan_work, *args, dtype=torch.float32)
+    for t in leaves:
+        t.requires_grad_(True)
+
+    def fwd():
+        with torch.enable_grad():
+            return fn.apply(*args)
+    out = fwd()
+    h = out[0]
+    plain = [t.detach() for t in args]
+    zeros = [torch.zeros_like(t) for t in out[1:]]
+    if scan == "mlstm_scan":
+        wargs = (*plain, h.detach(), dh, *zeros)
+        b_b = work_bound(mlstm_scan_backward_work, *wargs)
+    else:
+        wargs = (plain[0], plain[2], h.detach(), dh, *zeros)
+        b_b = work_bound(rg_lru_scan_backward_work, *wargs)
+    row = dict(shape=" x ".join(str(d) for d in args[0].shape) + " f32",
+               forward_ms=time_ms(fwd, iters=5), forward_bound_ms=f_b[0],
+               forward_bound_by=f_b[1],
+               backward_ms=time_ms(lambda: torch.autograd.grad(
+                   h, leaves, dh, retain_graph=True), iters=5),
+               backward_wrapper_ms=time_ms(lambda: wrapper(*wargs),
+                                           iters=5),
+               backward_bound_ms=b_b[0], backward_bound_by=b_b[1])
+    print(f"[train_recurrent] {fn.__name__} at {row['shape']} on {card()}:"
+          f" forward {row['forward_ms']:.3f} ms (bound {f_b[0]:.3f}, "
+          f"{f_b[1]}), backward {row['backward_ms']:.3f} ms (the wrapper "
+          f"alone {row['backward_wrapper_ms']:.3f}; bound {b_b[0]:.3f}, "
+          f"{b_b[1]}) (CUDA events)")
+    del out, h, args, leaves, plain, zeros, wargs
+    return row
+
+
+def train_recurrent_one(arch: str, layers: int, scan: str) -> tuple:
+    """``arch`` at full width cut to ``layers``, bf16 weights from seed 0,
+    ``TRAIN_RECURRENT_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ``
+    Markov tokens with the default AdamW (bf16 states), under
+    ``attn_impl="xla"``: step 1 ``loss_and_grads`` with every gradient
+    leaf checked (finite, not all zero), then ``make_train_step``; every
+    step the loss and grad norm finite and the scan's forward and
+    backward each launched once per scan layer, no other kernel. Then one
+    step counted on the card and on a meta twin (equal counts) and timed
+    beside its least time, and the scan's Function timed at the path's
+    shape. Returns (launches over the steps, the row)."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    model = build_model(cfg, dtype=torch.bfloat16, device=TRAIN_DEVICE)
+    params = model.init(generator_for(model.device, 0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    kind = "mlstm" if scan == "mlstm_scan" else "rec"
+    n_scan = model.kinds.count(kind)
+    opt_cfg = AdamWConfig(state_dtype=torch.bfloat16)
+    state = init_opt_state(params, opt_cfg)
+    step_fn = make_train_step(model, opt_cfg)
+    data = MarkovTextDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH, seed=0))
+    batches = [torch.from_numpy(data.sample_batch(s)).to(model.device)
+               for s in range(TRAIN_RECURRENT_STEPS + 1)]
+    want = {scan: n_scan, f"{scan}_backward": n_scan}
+    total = {k: 0 for k in kernel_lib.launch_counts()}
+    losses, norms, step_s = [], [], []
+    if TRAIN_DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for s in range(TRAIN_RECURRENT_STEPS):
+        before = kernel_lib.launch_counts()
+        sync()
+        t = time.perf_counter()
+        if s == 0:
+            loss, grads = loss_and_grads(model, params, batches[s])
+            check_gradients(grads)
+            params, state, gnorm = apply_updates(params, grads, state,
+                                                 opt_cfg)
+            del grads
+            metrics = {"loss": loss, "grad_norm": gnorm}
+        else:
+            params, state, metrics = step_fn(params, state, batches[s])
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        sync()
+        step_s.append(time.perf_counter() - t)
+        delta = launch_delta(before)
+        expect_launches(f"train_recurrent {arch} step {s}", delta, want)
+        for k, v in delta.items():
+            total[k] += v
+        if not (np.isfinite(losses[-1]) and np.isfinite(norms[-1])):
+            fail(f"train_recurrent {arch}: step {s} loss {losses[-1]} grad "
+                 f"norm {norms[-1]}")
+    peak = (torch.cuda.max_memory_allocated() / 1e9
+            if TRAIN_DEVICE == "cuda" else 0.0)
+
+    batch = batches[TRAIN_RECURRENT_STEPS]
+
+    def run():
+        return step_fn(params, state, batch)[2]["loss"]
+    on_card, _ = count_step(run)
+    twin = build_model(cfg, dtype=torch.bfloat16, device="meta")
+    # the card's leaves as they are (RG-LRU's lam stays f32), not
+    # abstract_params' (the reference's dry run casts every leaf)
+    mparams = tree_map(lambda t: torch.empty_like(t, device="meta"), params)
+    mstate = init_opt_state(mparams, opt_cfg)
+    mbatch = meta(tuple(batch.shape), batch.dtype)
+    on_meta, _ = count_step(lambda: make_train_step(twin, opt_cfg)(
+        mparams, mstate, mbatch))
+    label = f"{arch} train step {TRAIN_BATCH} x {TRAIN_SEQ}, {layers} layers"
+    same_counts(label, on_card, on_meta)
+    roof = roofline_share(label, on_card.counts,
+                          time_ms(run, iters=2, warmup=0))
+    step_ms = float(np.median(step_s[1:])) * 1e3
+    row = dict(config=f"{cfg.name} {layers} of {get_config(arch).num_layers}"
+               f" layers ({n_scan} {kind})", params=n_params,
+               batch=f"{TRAIN_BATCH} x {TRAIN_SEQ}", losses=losses,
+               grad_norms=norms, step_ms=step_ms,
+               step_ms_all=[x * 1e3 for x in step_s],
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+               peak_gb=peak, launches_per_step=want, roofline=roof)
+    print(f"[train_recurrent] {row['config']} ({n_params / 1e9:.3f} B "
+          f"params, bf16, AdamW bf16 states) on {card()}: losses "
+          + ", ".join(f"{v:.4f}" for v in losses)
+          + "; grad norms " + ", ".join(f"{v:.3f}" for v in norms)
+          + f"; step {step_ms:.1f} ms (median of steps 2-"
+          f"{TRAIN_RECURRENT_STEPS}; all "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in step_s)}), "
+          f"{row['tokens_per_s']:.0f} tokens/s, peak {peak:.2f} GB; "
+          f"{scan} {n_scan} forward and {n_scan} backward launches a step")
+    del model, twin, params, state, batches, metrics, loss, mparams, mstate
+    sync()
+    if TRAIN_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        row["function"] = time_scan_function(cfg, scan, gen)
+        torch.cuda.empty_cache()
+    row["wall_s"] = time.perf_counter() - t0
+    return total, row
+
+
+def phase_train_recurrent() -> dict:
+    """xlstm-1.3b and recurrentgemma-9b trained on the card through the
+    scans' autograd Functions (``train_recurrent_one``). Returns {path:
+    launches}."""
+    counts, rows = {}, {}
+    for arch, layers, scan in TRAIN_RECURRENT:
+        counts[f"train_recurrent {arch}"], rows[arch] = train_recurrent_one(
+            arch, layers, scan)
+    print("[train_recurrent summary] " + json.dumps(rows))
+    return counts
+
+
 #: the device-side names of the repo's CUDA kernels (src/repro_torch/csrc)
 OWN_KERNELS = ("decode_attention_split_kernel",
                "decode_attention_combine_kernel", "moe_gemm_",
@@ -6550,7 +7113,9 @@ def _leaves(tree):
 #: the serve path whose run gives each kernel's launch count in the report
 KERNEL_PATH = {"decode_attention": "dep", "moe_gemm": "dep",
                "flash_attention": "dep", "decode_attention_paged": "paged",
-               "mlstm_scan": "xlstm", "rg_lru_scan": "hybrid"}
+               "mlstm_scan": "xlstm", "rg_lru_scan": "hybrid",
+               "mlstm_scan_backward": "train_recurrent xlstm-1.3b",
+               "rg_lru_scan_backward": "train_recurrent recurrentgemma-9b"}
 
 
 def main(argv=None) -> int:
@@ -6581,14 +7146,17 @@ def main(argv=None) -> int:
     phase("build", phase_build)
     if args.train_only:
         phase("train", phase_train)
+        phase("train_recurrent", phase_train_recurrent)
         print(f"[phase] wall s: {json.dumps(walls)}")
         return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     entries = phase("kernels", lambda: [
         check_decode(gen), check_decode_paged(gen), check_moe_gemm(gen),
-        check_flash(gen), check_mlstm(gen), check_rg_lru(gen)])
+        check_flash(gen), check_mlstm(gen), check_rg_lru(gen),
+        check_rg_lru_backward(gen), check_mlstm_backward(gen)])
     backbones = phase("backbone kernels", check_backbone_kernels, gen)
+    phase("kernelcheck states", phase_kernelcheck_states, gen)
     torch.cuda.empty_cache()
     phase("small", phase_small)
     phase("ring", phase_ring)
@@ -6620,6 +7188,7 @@ def main(argv=None) -> int:
             counts["long"] = phase("long", phase_long)
             train_counts, train_gemm, _ = phase("train", phase_train)
             counts.update(train_counts)
+            counts.update(phase("train_recurrent", phase_train_recurrent))
     print(f"[phase] wall s: {json.dumps(walls)}; total "
           f"{sum(walls.values()):.1f} s")
 

@@ -25,17 +25,19 @@ from repro_torch.kernels.build import DTYPE_CODES
 
 def refuse_grad(name: str, *tensors) -> None:
     """Raise when autograd would need the backward of a kernel that has
-    none: grad mode is on and an operand requires a gradient. Called
-    before the device dispatch, so the plain version on the CPU refuses
-    what the kernel on the card would; serving never trips it (its
-    parameters require no gradient)."""
+    none (the attention kernels: the reference never differentiates them
+    either, it trains with ``attn_impl='xla'``): grad mode is on and an
+    operand requires a gradient. Called before the device dispatch, so
+    the plain version on the CPU refuses what the kernel on the card
+    would; serving never trips it (its parameters require no
+    gradient)."""
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad
             for t in tensors):
         raise RuntimeError(
-            f"{name}: no backward (ROADMAP Queue 1 item 10): an operand "
-            "requires a gradient; train with attn_impl='xla', or run "
-            "under torch.no_grad()")
+            f"{name}: no backward: an operand requires a gradient; the "
+            "reference trains with attn_impl='xla' (train with it), or "
+            "run under torch.no_grad()")
 
 
 #: the active step counters (``roofline.StepCounter``), innermost last
@@ -111,15 +113,19 @@ def _ops():
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, decode_attention_paged)
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
+    from repro_torch.kernels.mlstm_scan.ops import (mlstm_scan,
+                                                    mlstm_scan_backward)
     from repro_torch.kernels.moe_gemm.ops import moe_gemm
-    from repro_torch.kernels.rg_lru.ops import rg_lru_scan
+    from repro_torch.kernels.rg_lru.ops import (rg_lru_scan,
+                                                rg_lru_scan_backward)
     return {"decode_attention": decode_attention,
             "decode_attention_paged": decode_attention_paged,
             "moe_gemm": moe_gemm,
             "flash_attention": flash_attention,
             "mlstm_scan": mlstm_scan,
-            "rg_lru_scan": rg_lru_scan}
+            "rg_lru_scan": rg_lru_scan,
+            "mlstm_scan_backward": mlstm_scan_backward,
+            "rg_lru_scan_backward": rg_lru_scan_backward}
 
 
 def launch_counts() -> Dict[str, int]:

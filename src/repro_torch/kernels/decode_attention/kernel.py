@@ -53,3 +53,57 @@ def decode_attention_paged_cuda(q, k_pages, v_pages, lengths, block_table,
                lengths.data_ptr(), block_table.data_ptr(),
                scratch.data_ptr(), out.data_ptr(), B, H, Kv, bs,
                block_table.shape[1], D)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' index arithmetic, stated in Python: the CUDA source computes
+# its indices itself, so ``analysis.kernelcheck`` evaluates these mirrors
+# over boundary cases. Each names the lines of csrc/decode_attention.cu it
+# states; a change there changes them.
+# ---------------------------------------------------------------------------
+
+def split_block(x: int, n_chunks: int, B: int, Kv: int) -> tuple:
+    """(chunk j, row b, KV head) of split block ``x`` of the grid's
+    ``B * Kv * n_chunks``: the chunk-major decode of ``blockIdx.x``
+    (decode_attention.cu:174-178)."""
+    grid = B * Kv * n_chunks                    # gridDim.x
+    n_bk = grid // n_chunks
+    j = x // n_bk
+    bk = x - j * n_bk
+    b = bk // Kv
+    return j, b, bk - b * Kv
+
+
+def chunk_live(j: int, length: int, C: int) -> int:
+    """Live positions of chunk ``j`` of a row of ``length`` (clamped to
+    [0, C]); 0: the block returns at once (decode_attention.cu:179-182)."""
+    p0 = j * CHUNK
+    ln = max(0, min(length, C))
+    return 0 if p0 >= ln else min(CHUNK, ln - p0)
+
+
+def partial_slot(b: int, kvh: int, j: int, Kv: int, n_chunks: int,
+                 g: int) -> int:
+    """The first (m, l) pair the split block (b, kvh, j) writes in the
+    scratch: ``((b * Kv + kvh) * n_chunks + j) * g``
+    (decode_attention.cu:336-338); it writes g of them."""
+    return ((b * Kv + kvh) * n_chunks + j) * g
+
+
+def dense_rows(b: int, p0: int, n: int, C: int) -> list:
+    """``DenseRows::prepare``: the [Kv, D] row of each of the chunk's n
+    positions from p0 in the [B * C] rows of the cache
+    (decode_attention.cu:113-119)."""
+    return [b * C + p0 + p for p in range(n)]
+
+
+def paged_rows(table_row, p0: int, n: int, bs: int) -> list:
+    """``PagedRows::prepare``: the row of each position in the pool's
+    [P * bs] rows, through the row's table entries, each clamped to 0 (an
+    unallocated entry, -1, reads the scratch page)
+    (decode_attention.cu:121-138)."""
+    first = p0 // bs
+    n_ent = (p0 + n - 1) // bs - first + 1
+    ent = [max(int(table_row[first + t]), 0) for t in range(n_ent)]
+    return [ent[(p0 + p) // bs - first] * bs + (p0 + p) % bs
+            for p in range(n)]

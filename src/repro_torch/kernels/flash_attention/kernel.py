@@ -21,3 +21,10 @@ def flash_attention_cuda(q, k, v, out, causal: bool, window) -> None:
                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                B, S, H, Kv, D, int(bool(causal)),
                int(window) if window is not None else 0)
+
+
+def kv_head(h: int, H: int, Kv: int) -> int:
+    """The KV head query head ``h`` reads, the GQA fold
+    ``kvh = h / (H / Kv)`` of both kernels (flash_attention.cu:89, 280),
+    stated in Python for ``analysis.kernelcheck``."""
+    return h // (H // Kv)

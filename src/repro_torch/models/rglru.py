@@ -14,7 +14,11 @@ path does: the reference's model calls ``rglru_apply`` without
 ``use_kernel`` (a ``jax.lax.associative_scan``) and ``rglru_step`` as a
 plain update, while the port runs both through the scan op (S = 1 at
 decode). The function is the same; the tests hold the port against both
-of the reference's routes.
+of the reference's routes. The family trains: under autograd the op takes
+``RGLRUScanFunction``, whose backward is the same scan run in reverse
+time (``csrc/rg_lru_bwd.cu`` on the card, its plain version on the CPU);
+the tests hold the gradients against ``jax.grad`` of the reference's
+``associative_scan``.
 """
 from __future__ import annotations
 

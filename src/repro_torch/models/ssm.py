@@ -12,8 +12,13 @@ reference's ``apply_layer`` calls ``mlstm_apply`` with its default
 runs the recurrence through the ``mlstm_scan`` op — the hand-written
 kernel on the card, its plain version on the CPU — for prefill and for
 single-token decode alike. The function is the same, and the tests hold
-the two routes against each other. sLSTM has no kernel in the reference
-and stays plain PyTorch: its scan is a Python loop over time.
+the two routes against each other. The family trains: under autograd the
+op takes ``MLSTMScanFunction``, whose backward is the hand-written
+reverse scan (``csrc/mlstm_scan_bwd.cu``) on the card and its plain
+version on the CPU; the tests hold the gradients against ``jax.grad`` of
+the reference's ``lax.scan``. sLSTM has no kernel in the reference and
+stays plain PyTorch: its scan is a Python loop over time, differentiated
+by autograd.
 """
 from __future__ import annotations
 

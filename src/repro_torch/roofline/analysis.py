@@ -108,6 +108,11 @@ _GATHER = {"index", "embedding", "index_select", "gather", "take"}
 _SCATTER = {"index_put_", "index_put", "_index_put_impl_", "index_copy_",
             "index_copy", "scatter_", "scatter", "index_add_",
             "index_add", "scatter_add_", "scatter_add", "masked_scatter_"}
+#: ops with a scratch operand whose size depends on the device (CUDA
+#: leaves log_sigmoid's buffer empty, the CPU and meta fill it): op ->
+#: ("out" or "in", the operand's index), left out of the op's bytes
+_DEVICE_SCRATCH = {"log_sigmoid_forward": ("out", 1),
+                   "log_sigmoid_backward": ("in", 2)}
 #: allocations: no byte moves
 _ALLOC = {"empty", "empty_like", "empty_strided", "new_empty",
           "new_empty_strided", "empty_permuted"}
@@ -312,6 +317,12 @@ class StepCounter(TorchDispatchMode):
                 for r in schema.returns):
             return 0.0
         ins = _tensors((args, kwargs))
+        if name in _DEVICE_SCRATCH:
+            side, i = _DEVICE_SCRATCH[name]
+            if side == "out":
+                outs = outs[:i] + outs[i + 1:]
+            else:
+                ins = ins[:i] + ins[i + 1:]
         if name in _GATHER:
             index = sum(_nbytes(t) for t in ins[1:]
                         if not t.is_floating_point())

@@ -1054,6 +1054,15 @@ class ServingEngine:
             self._prefill_group(group)
         return step_plan
 
+    @property
+    def decode_fn(self):
+        """The engine's decode step bound to its buffers
+        (``decode_graph.bind_step``), a function of the ``GraphKey``:
+        what each decode graph captures and what the eager path runs.
+        One call decodes every slot once with the static buffers as they
+        stand; it does no request bookkeeping."""
+        return self._step
+
     def _decode_step(self, lengths, use_topk: bool, program=None,
                      cap_scale: float = 1.0) -> torch.Tensor:
         """Copy this step's per-slot ``lengths`` (the KV ledger's, which

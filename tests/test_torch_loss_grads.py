@@ -1,14 +1,14 @@
 """Port parity: ``Model.loss`` and its gradients. The reference's
 parameters (``Model.init(PRNGKey(0))`` through numpy) give the port's
 smoke model the reference's loss (f32, CPU, ``ce_chunk`` = 12 over 31
-targets: the padded, masked last chunk) and, for the families that
-train, every gradient leaf of ``jax.grad`` (relative L2 per leaf); the
-recurrent families' loss is compared under ``torch.no_grad()``, and under
-autograd their scan kernels refuse. The expert GEMM's backward against
-autograd of its plain version, remat on and off, and the refusals of
-the kernels without a backward, and the DEP layer's gradients.
+targets: the padded, masked last chunk) and every gradient leaf of
+``jax.grad`` (relative L2 per leaf), the recurrent family through the
+mLSTM scan's backward. The expert GEMM's backward against autograd of
+its plain version, remat on and off, the refusals of the kernels without
+a backward (the attention kernels), and the DEP layer's gradients.
 ``test_torch_loss_grads_multimodal.py`` runs the same checks on the vlm,
-audio and hybrid families."""
+audio and hybrid families; ``test_torch_scan_grads.py`` holds the scans'
+backwards themselves."""
 import functools
 
 import numpy as np
@@ -29,11 +29,9 @@ from repro_torch.core.dep import moe_apply_dep  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     decode_attention, decode_attention_paged)
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
-from repro_torch.kernels.mlstm_scan.ops import mlstm_scan  # noqa: E402
 from repro_torch.kernels.moe_gemm.ops import (  # noqa: E402
     MoEGemmFunction, moe_gemm, moe_gemm_backward)
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref  # noqa: E402
-from repro_torch.kernels.rg_lru.ops import rg_lru_scan  # noqa: E402
 from repro_torch.launch.steps import loss_and_grads  # noqa: E402
 from repro_torch.models import (ExecutionContext, build_model,  # noqa: E402
                                 frontend_shape)
@@ -43,13 +41,13 @@ B, S, CE_CHUNK = 2, 32, 12
 #: the loss: f32, the same reductions in another order
 LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
 #: each gradient leaf's relative L2 against jax.grad's (the worst read
-#: 2.4e-6 over the five families that train)
+#: 2.4e-6 over the five families that trained before the scans had a
+#: backward)
 GRAD_REL_L2 = 1e-4
-#: the families whose gradients the port computes on both devices, and
-#: the recurrent ones, whose scan kernels have no backward yet
-TRAINS = ("qwen2-moe-a2.7b", "qwen2-1.5b", "deepseek-v2-lite")
-RECURRENT = ("xlstm-1.3b",)
-SCAN_OF = {"xlstm-1.3b": "mlstm_scan", "recurrentgemma-9b": "rg_lru_scan"}
+#: the families of this file, whose loss and gradients the port computes
+#: on both devices
+TRAINS = ("qwen2-moe-a2.7b", "qwen2-1.5b", "deepseek-v2-lite",
+          "xlstm-1.3b")
 
 
 @pytest.fixture(autouse=True)
@@ -100,7 +98,7 @@ def port_model(arch: str, **ctx):
 
 
 def check_loss(arch: str) -> None:
-    params, toks, extra, want, _ = reference(arch, arch not in SCAN_OF)
+    params, toks, extra, want, _ = reference(arch, True)
     model = port_model(arch)
     with torch.no_grad():
         got = model.loss(params_from_numpy(params), torch.from_numpy(toks),
@@ -130,16 +128,7 @@ def check_grads(arch: str) -> None:
     assert not any(t.requires_grad for t in tree_leaves(tp))
 
 
-def check_scan_refuses(arch: str) -> None:
-    params, toks, extra, _, _ = reference(arch, False)
-    model = port_model(arch)
-    with pytest.raises(RuntimeError,
-                       match=f"{SCAN_OF[arch]}: no backward"):
-        loss_and_grads(model, params_from_numpy(params),
-                       torch.from_numpy(toks), ce_chunk=CE_CHUNK)
-
-
-@pytest.mark.parametrize("arch", TRAINS + RECURRENT)
+@pytest.mark.parametrize("arch", TRAINS)
 def test_loss_matches_reference(arch):
     check_loss(arch)
 
@@ -147,11 +136,6 @@ def test_loss_matches_reference(arch):
 @pytest.mark.parametrize("arch", TRAINS)
 def test_gradients_match_jax_grad(arch):
     check_grads(arch)
-
-
-@pytest.mark.parametrize("arch", RECURRENT)
-def test_recurrent_scan_refuses_grad(arch):
-    check_scan_refuses(arch)
 
 
 # ---------------------------------------------------------------------------
@@ -264,39 +248,30 @@ def _refusal_calls():
     table = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
     pages = r(4, 3, 2, 8)
     qs = r(1, 4, 2, 8)
-    ql = r(1, 2, 3, 4)
-    gates = r(1, 2, 3)
-    a = torch.rand(1, 3, 4, generator=torch.Generator().manual_seed(1))
     return {
         "decode_attention": (decode_attention, (q, kc, kc.clone(), lengths)),
         "decode_attention_paged": (decode_attention_paged,
                                    (q, pages, pages.clone(), lengths,
                                     table)),
         "flash_attention": (flash_attention, (qs, qs.clone(), qs.clone())),
-        "mlstm_scan": (mlstm_scan, (ql, ql.clone(), ql.clone(), gates,
-                                    -a[0, :, :2].T[None].contiguous(),
-                                    torch.zeros(1, 2, 4, 4),
-                                    torch.zeros(1, 2, 4),
-                                    torch.zeros(1, 2))),
-        "rg_lru_scan": (rg_lru_scan, (a, r(1, 3, 4), torch.zeros(1, 4))),
     }
 
 
 @pytest.mark.parametrize("name", ["decode_attention",
                                   "decode_attention_paged",
-                                  "flash_attention", "mlstm_scan",
-                                  "rg_lru_scan"])
+                                  "flash_attention"])
 def test_kernel_without_backward_refuses_grad(name):
-    """Each wrapper without a backward raises, naming itself and the
-    ROADMAP item, when grad mode is on and an operand requires a
-    gradient; it runs under no_grad and on operands that need none."""
+    """Each wrapper without a backward (the attention kernels) raises,
+    naming itself and the reference's way to train, when grad mode is on
+    and an operand requires a gradient; it runs under no_grad and on
+    operands that need none."""
     fn, args = _refusal_calls()[name]
     fn(*args)
     first = args[0].clone().requires_grad_()
     with torch.no_grad():
         fn(first, *args[1:])
-    with pytest.raises(RuntimeError, match=rf"{name}: no backward "
-                       r"\(ROADMAP Queue 1 item 10\)"):
+    with pytest.raises(RuntimeError, match=rf"{name}: no backward: .*"
+                       r"the reference trains with attn_impl='xla'"):
         fn(first, *args[1:])
     with pytest.raises(RuntimeError, match=f"{name}: no backward"):
         kernel_lib.refuse_grad(name, None, first)

@@ -191,8 +191,9 @@ def _count(arch: str, mode: str, device: str):
 @pytest.mark.parametrize("arch,mode", [
     ("qwen2-moe-a2.7b", "prefill"), ("qwen2-moe-a2.7b", "decode"),
     ("qwen2-moe-a2.7b", "train"), ("xlstm-1.3b", "prefill"),
-    ("xlstm-1.3b", "decode"), ("recurrentgemma-9b", "prefill"),
-    ("recurrentgemma-9b", "decode"), ("seamless-m4t-large-v2", "decode"),
+    ("xlstm-1.3b", "decode"), ("xlstm-1.3b", "train"),
+    ("recurrentgemma-9b", "prefill"), ("recurrentgemma-9b", "decode"),
+    ("recurrentgemma-9b", "train"), ("seamless-m4t-large-v2", "decode"),
     ("internvl2-1b", "prefill")])
 def test_counts_equal_on_cpu_and_meta(arch, mode):
     cpu, meta = _count(arch, mode, "cpu"), _count(arch, mode, "meta")
@@ -344,6 +345,16 @@ def test_counter_rules():
     with StepCounter() as c:
         dst.copy_(table[:10])
     assert c.counts.hbm_bytes == 2 * 10 * 16 * 4
+    # log_sigmoid's buffer is device scratch (empty on CUDA, full here):
+    # its forward reads x and writes y, its backward reads dy and x and
+    # writes dx
+    x = torch.randn(100, requires_grad=True)
+    with StepCounter() as c:
+        y = torch.nn.functional.logsigmoid(x)
+    assert c.counts.hbm_bytes == 2 * 100 * 4
+    with StepCounter(log=True) as c:
+        torch.autograd.grad(y.sum(), x)
+    assert ("aten.log_sigmoid_backward.default", 0, 3 * 100 * 4) in c.ops
 
 
 def test_analyze_terms():

@@ -3,7 +3,8 @@
 at smoke size.
 
 The calibrate, serve, paged, pressure, dep, drift, placement, obs, mla,
-qwen3, ep, xlstm, hybrid, multimodal, long and train phases run as on
+qwen3, ep, xlstm, hybrid, multimodal, long, train and train_recurrent
+phases run as on
 the card, with the smoke configs
 in place of the full ones (the obs phase's entry point too; the qwen3
 path's smoke config at its 8 layers), every engine on the CPU, the
@@ -21,13 +22,16 @@ graph path's bookkeeping (one warm-up before the serve, one capture per
 key, a replay per step, launches added per replay)
 and chip_smoke's checks of it run. The kernel wrappers count their CPU
 calls here, as their CUDA calls count on the card; the profiles and
-timings are skipped, the MLA recompute's timing with them (they read
+timings are skipped, the MLA recompute's timing and the serve path's
+host-sync guard with them (they read
 device time; a skipped decode profile
 reports the card's host calls per graph step, 1 ``cudaGraphLaunch`` and
 2 ``cudaLaunchKernel``, so that the checks after it run). The obs
 phase's layer trace takes the host clock (no CUDA events on the CPU).
 The train phase holds the expert GEMM's Function at the smoke config's
-shape, trains the smoke config cut to 8 layers and runs the entry
+shape, trains the smoke config cut to 8 layers (the recurrent train
+path: the xlstm and recurrentgemma smoke configs at 8 and 6 layers, the
+scans' backwards' CPU calls counted as launches) and runs the entry
 point's tiny preset for 60 steps of 4 x 64 tokens (its loss must fall
 0.2 nat, the reference's own test; on the card the 100m and tiny
 presets run 200 steps each). This
@@ -123,6 +127,9 @@ def patch() -> None:
             (gemm_ops, moe, "moe_gemm"), (mlstm_ops, ssm, "mlstm_scan"),
             (rglru_ops, rglru, "rg_lru_scan")):
         setattr(model_module, name, counting(ops_module, name))
+    # the scans' Functions look their backward wrappers up at call time
+    counting(mlstm_ops, "mlstm_scan_backward")
+    counting(rglru_ops, "rg_lru_scan_backward")
     chip_smoke.get_config = serve_moe.get_config = get_smoke_config
     chip_smoke.ServingEngine = serve_moe.ServingEngine = engine
     chip_smoke.profile_decode = lambda *a, **k: {
@@ -135,6 +142,7 @@ def patch() -> None:
     chip_smoke.time_mla_recompute = lambda *a, **k: {}
     chip_smoke.time_cross_kv = chip_smoke.step_device_ms = \
         lambda *a, **k: 0.0
+    chip_smoke.check_sync_guard = lambda *a, **k: None
     chip_smoke.DEP_BACKEND = "gloo"
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         setattr(torch.cuda, name, lambda *a, **k: None)
@@ -175,6 +183,7 @@ def main() -> int:
         chip_smoke.phase_multimodal()
         chip_smoke.phase_long()
         chip_smoke.phase_train(setup=patch)
+        chip_smoke.phase_train_recurrent()
     print(f"rehearsal: the calibrate phase, every serve phase and the train "
           f"phase passed on the CPU in "
           f"{time.perf_counter() - t0:.0f} s")
