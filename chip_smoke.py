@@ -422,7 +422,8 @@ from repro_torch.obs import (attribute_overlap, interval_subtract,  # noqa: E402
                              validate_chrome_trace)
 from repro_torch.profiling import (ProfileKey, ProfileStore,  # noqa: E402
                                    calibrate)
-from repro_torch.profiling.microbench import sweeps_for  # noqa: E402
+from repro_torch.profiling.microbench import (sweep_counts,  # noqa: E402
+                                              sweeps_for)
 from repro_torch.runtime import Request, RequestState, ServingEngine  # noqa: E402
 from repro_torch.runtime.decode_graph import GraphKey  # noqa: E402
 from repro_torch.runtime.engine import prefill_split  # noqa: E402
@@ -548,7 +549,9 @@ def device_ms(fn, kernel=None, iters: int = 10, per_call=None,
     inside the trace, before the measured calls, and counts only the
     device events that start after it: the profiler can lose the first
     events of a trace (a call of a few thousand small kernels lost its
-    first 29 late in a run), and the lead call takes that loss."""
+    first 29 late in a run; the mLSTM backward's 25 kernels read 24 in
+    six traces in a row), and the lead call takes that loss. So every
+    trace after a short one leads."""
     if per_call is None:
         per_call = PER_CALL.get(kernel)
     fn()
@@ -556,7 +559,8 @@ def device_ms(fn, kernel=None, iters: int = 10, per_call=None,
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     seen = []
-    for _ in range(6):
+    for attempt in range(6):
+        lead = lead or attempt > 0
         with torch.profiler.profile(activities=acts) as prof:
             if lead:
                 fn()
@@ -4520,6 +4524,191 @@ def check_rows(eng, one_fps, rows, path: str, what: str) -> None:
                  f"one-rank model's experts {rows[0]}..{rows[-1]} ({what})")
 
 
+#: the ep serve's drift threshold (|EWMA residual|), and the decode step
+#: after which rank 0 forces a re-calibration: early enough that its
+#: local sweeps and its comm samples (one a step end) end within the
+#: serve's 64 decode steps
+EP_DRIFT_THRESHOLD = 0.5
+EP_RECAL_STEP = 2
+
+
+def fast_sweep_launches(res, device) -> dict:
+    """Flash and decode launches of a calibration's local sweeps (the
+    engine's fast sweeps, every retry included); none off the card, where
+    the plain versions count no launch."""
+    sweeps = sweeps_for(device, fast=True)
+    calls = sum(sweep_counts(fast=True)) * (device.type == "cuda")
+    return {"flash_attention": len(sweeps.attn) * calls
+            * (1 + res.retries["attn"]),
+            "decode_attention": len(sweeps.decode) * calls
+            * (1 + res.retries["decode"])}
+
+
+def describe_fit(res) -> dict:
+    """Per primitive of a ``CalibrationResult``: alpha, beta, R^2,
+    retries and the proxy flag."""
+    return {k: dict(alpha=getattr(res.profile, k).alpha,
+                    beta=getattr(res.profile, k).beta, r2=res.fit_r2[k],
+                    retries=res.retries[k], proxy=res.samples[k].proxy)
+            for k in res.fit_r2}
+
+
+def print_fit(path: str, what: str, res) -> None:
+    fits = describe_fit(res)
+    print(f"[{path}] {what}: " + "; ".join(
+        f"{k} alpha {f['alpha']:.4e} s, beta {f['beta']:.4e} s/unit, R^2 "
+        f"{f['r2']:.6f}, retries {f['retries']}" for k, f in fits.items()),
+        flush=True)
+    comm = res.profile.comm
+    print(f"[{path}] {what}: comm beta {comm.beta:.4e} s/B implies "
+          f"{1e-9 / comm.beta:.3f} GB/s over host-staged gloo between two "
+          "processes on one card (no wire); samples (bytes, median ms) "
+          + json.dumps([[x, t * 1e3] for x, t in
+                        zip(res.samples["comm"].xs, res.samples["comm"].ts)]),
+          flush=True)
+
+
+def ep_calibration(eng, device, path: str) -> dict:
+    """The rank's calibration at construction (``calibrate=True``: the
+    engine's fast sweeps and the comm sweep over the live expert group, on
+    the main thread, nothing served yet): its own fit, the sweeps'
+    launches against their calls, and its planner's profile (which
+    ``phase_ep`` holds to rank 0's fit on every rank)."""
+    res = eng.calibration
+    counts = kernel_lib.launch_counts()
+    want = fast_sweep_launches(res, device)
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            fail(f"{path}: {name} launched {n} times in the calibration at "
+                 f"construction, its sweeps call it {want.get(name, 0)} "
+                 "times")
+    if res.comm_is_proxy:
+        fail(f"{path}: the comm fit is the copy proxy on a group of "
+             f"{EP_RANKS} ranks")
+    print_fit(path, f"calibrated at construction in {res.wall_s:.2f} s",
+              res)
+    return dict(fits=describe_fit(res), wall_s=res.wall_s,
+                comm_gb_s=1e-9 / res.profile.comm.beta, launches=counts,
+                own=res.profile.as_dict(),
+                planner=eng.plan_policy.planner.hardware.as_dict())
+
+
+class EpRecalibration:
+    """The ep serve's re-calibration on one rank: rank 0 forces one after
+    decode step ``EP_RECAL_STEP`` (``check``, a ``run_stepwise`` check);
+    the rank's local sweeps are timed with the decode steps served
+    meanwhile, each comm sample with the extra ms it adds to its step's
+    end (the serve's all_to_all record ``a2a`` leaves the samples out),
+    and each step's programs and host-clock end are kept, so that
+    ``phase_ep`` can hold the ranks' programs equal step by step and the
+    steps begun while the local sweeps ran are counted (the sweeps start
+    at a step's end, so the next step begins during them unless the
+    serving thread waits for them). It holds the engine's stats and
+    recalibrator, not the engine."""
+
+    def __init__(self, eng, rank: int, a2a):
+        self.rank, self.stats, self.rc = rank, eng.stats, eng.recalibrator
+        self.plan_stats, self.drift = eng.plan_cache.stats, eng.drift.stats
+        self.a2a = a2a
+        self.local, self.samples, self.steps, self.ends = [], [], [], []
+        self.forced, self.ended_at = None, None
+        self._local, self._sample = self.rc.local_fn, self.rc.sample_fn
+        self.rc.local_fn, self.rc.sample_fn = self._timed_local, self._timed
+        self.base = dict(recalibrations=self.rc.recalibrations,
+                         joined=self.rc.joined)
+
+    def _timed_local(self):
+        s0, t0 = self.stats.steps, time.perf_counter()
+        res = self._local()
+        self.local = [s0, self.stats.steps, t0, time.perf_counter()]
+        return res
+
+    def _timed(self, size):
+        keep = dict(self.a2a.sizes)
+        t0 = time.perf_counter()
+        try:
+            return self._sample(size)
+        finally:
+            self.samples.append(dict(step=self.stats.steps, bytes=size,
+                                     ms=(time.perf_counter() - t0) * 1e3))
+            self.a2a.sizes.clear()
+            self.a2a.sizes.update(keep)
+
+    def check(self, before, after, programs) -> None:
+        step = self.stats.steps
+        self.steps.append([step, [describe(p) for _, p in programs]])
+        self.ends.append(time.perf_counter())
+        if self.ended_at is None and self.rc.joined > self.base["joined"]:
+            self.ended_at = step
+        if self.rank == 0 and step == EP_RECAL_STEP and self.forced is None:
+            self.forced = self.rc.maybe_recalibrate(force=True)
+
+    def expect(self, base, device):
+        """``base``'s launches and the forced job's local sweeps'."""
+        def want(st):
+            w = base(st)
+            if self.ended_at is None:
+                fail(f"ep rank {self.rank}: the forced re-calibration did "
+                     "not end within the serve")
+            for k, n in fast_sweep_launches(self.rc.last_result,
+                                            device).items():
+                w[k] = w.get(k, 0) + n
+            return w
+        return want
+
+    def report(self, path: str) -> dict:
+        rc, res = self.rc, self.rc.last_result
+        self.rc.refresher.drain()          # rank 0's fit lands
+        role = dict(recalibrations=self.base["recalibrations"]
+                    + (self.rank == 0), joined=self.base["joined"] + 1)
+        got = dict(recalibrations=rc.recalibrations, joined=rc.joined)
+        start, end, t0, t1 = self.local
+        # (step, its begin and end on the host clock): a step begins when
+        # the one before it has ended
+        spans = [(step, a, b) for (step, _), a, b in
+                 zip(self.steps[1:], self.ends, self.ends[1:])]
+        begun = [step for step, a, _ in spans if t0 <= a < t1]
+        steps = [s["step"] for s in self.samples]
+        seen, new = set(), []
+        for step, progs in self.steps:
+            for p in progs:
+                if p not in seen and step > self.ended_at:
+                    new.append([step, p])
+                seen.add(p)
+        print_fit(path, f"re-calibrated mid-serve ({res.wall_s:.2f} s of "
+                  "sweeps)", res)
+        print(f"[{path}] the re-calibration: forced after decode step "
+              f"{EP_RECAL_STEP} on rank 0; local sweeps {t1 - t0:.3f} s on "
+              f"the refresh worker from the end of decode step {start}; "
+              f"decode steps begun while they ran {begun}, ended while they "
+              f"ran {end - start}; comm samples at step ends "
+              + json.dumps([[s['step'], s['bytes'], round(s['ms'], 3)]
+                            for s in self.samples])
+              + f" (step, bytes, extra ms); the job ended at step "
+              f"{self.ended_at}; {self.plan_stats.refreshes} re-solves, "
+              f"{self.drift.drift_events} drift events; programs first "
+              f"walked after it (step, program): {new}", flush=True)
+        if got != role:
+            fail(f"{path}: {got} after the forced re-calibration, the rank's "
+                 f"role implies {role}")
+        if self.rank == 0 and not self.forced:
+            fail(f"{path}: the re-calibration was not forced")
+        if not begun:
+            fail(f"{path}: no decode step was served while the local sweeps "
+                 f"ran ({t1 - t0:.3f} s)")
+        if len(steps) != len(set(steps)):
+            fail(f"{path}: a step end ran more than one comm sample {steps}")
+        if len(steps) != len(rc.sizes) * (1 + res.retries["comm"]):
+            fail(f"{path}: {len(steps)} comm samples, the sweep has "
+                 f"{len(rc.sizes)} a try")
+        return dict(local=[start, end, t1 - t0], begun=begun,
+                    samples=self.samples,
+                    fits=describe_fit(res), wall_s=res.wall_s,
+                    ended_at=self.ended_at, steps=self.steps,
+                    new_programs=new, refreshes=self.plan_stats.refreshes,
+                    drift_events=self.drift.drift_events, **got)
+
+
 def ep_rank_work(rank, groups, device, store_dir, profile) -> dict:
     """One rank of the ep phase (see ``phase_ep``)."""
     t0 = time.perf_counter()
@@ -4541,13 +4730,19 @@ def ep_rank_work(rank, groups, device, store_dir, profile) -> dict:
             fail(f"{path}: the decode graph on a gloo group was not refused")
         print(f"[{path}] the decode graph on a gloo group of {EP_RANKS} "
               f"ranks is refused: {refused}", flush=True)
+    kernel_lib.reset_launch_counts()
     eng = ServingEngine(cfg, num_slots=8, max_context=1024, dtype=EP_DTYPE,
                         device=device, seed=0,
                         plan_policy=dep_policy(cfg, profile),
-                        profile=profile, ep_group=groups, decode_graph=False,
+                        calibrate=True,
+                        profile_store=os.path.join(store_dir, "profiles"),
+                        recalibrate_max_age_s=EP_NEVER,
+                        drift_threshold=EP_DRIFT_THRESHOLD,
+                        ep_group=groups, decode_graph=False,
                         rebalance_threshold=EP_NEVER)
     init_peak = (torch.cuda.max_memory_allocated() / 1e9
                  if device.type == "cuda" else 0.0)
+    out = {"calibration": ep_calibration(eng, device, path)}
     n_params = sum(t.numel() for t in _leaves(eng.params))
     check_rows(eng, one["fingerprints"], list(range(lo, lo + E_loc)), path,
                "after init")
@@ -4556,13 +4751,15 @@ def ep_rank_work(rank, groups, device, store_dir, profile) -> dict:
           f"{n_params / 1e9:.3f} B params, peak {init_peak:.2f} GB "
           f"allocated while drawing them", flush=True)
 
-    out = {"params_b": n_params / 1e9}
+    out["params_b"] = n_params / 1e9
     reqs = mixed_requests(cfg)
     res = {}
     with GemmWidths() as widths, Alltoalls() as a2a:
-        out["counts"] = serve(eng, reqs, cfg, path,
-                              dep_expect(cfg, expert_ranks=EP_RANKS),
-                              into=res)
+        recal = EpRecalibration(eng, rank, a2a)
+        out["counts"] = serve(eng, reqs, cfg, path, recal.expect(
+            dep_expect(cfg, expert_ranks=EP_RANKS), device),
+                              step_check=recal.check, into=res)
+    out["recal"] = recal.report(path)
     out["tokens"] = [r.output for r in reqs]
     out["serve"] = {k: res[k] for k in ("tokens_per_s", "decode_step_ms",
                                         "prefill_ms_mean", "decode_steps",
@@ -4656,6 +4853,7 @@ def ep_rank_work(rank, groups, device, store_dir, profile) -> dict:
     out["alltoall"] = {n: (c, gloo_ms[n]) for n, c in a2a.sizes.items()}
     out["peak_gb"] = max(init_peak, torch.cuda.max_memory_allocated() / 1e9
                          if device.type == "cuda" else 0.0)
+    eng.close()
     del eng, experts, hot, layers
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -4918,10 +5116,19 @@ def phase_ep(profile, setup=None) -> dict:
     factor E / top_k) takes 11 teacher-forced decode steps over
     ``FORCED_LENGTHS`` and gives its per-expert fingerprints; it is freed
     before the ranks start. Each rank: its rows are the one-rank model's
-    [r·30, (r+1)·30); the decode graph over gloo is refused; the 16
-    ``mixed_requests`` (8 slots, max_context 1024, eager, FinDEP on the
-    calibrate phase's profile) all finish, the expert GEMM launching
-    L x Σ r1·r2 (``dep_expect``, read on each rank); the expert GEMM
+    [r·30, (r+1)·30); the decode graph over gloo is refused; the engine
+    calibrates at construction (``calibrate=True``: every rank's fast
+    sweeps and the comm sweep over the expert group; every rank plans
+    from rank 0's fit, the sweeps launch flash and decode as often as
+    they call them); the 16 ``mixed_requests`` (8 slots, max_context
+    1024, eager, FinDEP, drift at ``EP_DRIFT_THRESHOLD``) all finish
+    while a re-calibration forced on rank 0 after decode step
+    ``EP_RECAL_STEP`` runs (``EpRecalibration``: at least one step served
+    during the local sweeps, one comm sample a step end, the same step
+    ends and the same programs on both ranks, ``recalibrations`` 1 on rank
+    0 and 0 on rank 1), the expert GEMM launching L x Σ r1·r2
+    (``dep_expect``, read on each rank; flash and decode also the local
+    sweeps' calls); the expert GEMM
     against its plain version at every (E = 30, C) of the serve;
     11 teacher-forced steps at no drop within ``EP_LOGIT_TOL`` of the
     one-rank engine's, and a control with rank 1's shard off by one
@@ -4986,6 +5193,22 @@ def phase_ep(profile, setup=None) -> dict:
     for what in ("tokens", "placed_tokens"):
         if any(got[r][what] != got[0][what] for r in range(EP_RANKS)):
             fail(f"ep: the ranks' {what} differ")
+    lead = got[0]["calibration"]["own"]
+    for r in range(EP_RANKS):
+        if got[r]["calibration"]["planner"] != lead:
+            fail(f"ep: rank {r} plans from {got[r]['calibration']['planner']}"
+                 f", not rank 0's fit {lead}")
+        if got[r]["recal"]["steps"] != got[0]["recal"]["steps"]:
+            fail(f"ep: rank {r}'s programs differ from rank 0's at some "
+                 "decode step")
+        if ([s["step"] for s in got[r]["recal"]["samples"]]
+                != [s["step"] for s in got[0]["recal"]["samples"]]):
+            fail(f"ep: rank {r} ran its comm samples at other step ends")
+    print(f"[ep] every rank plans from rank 0's fit at construction; the "
+          f"re-calibration's comm samples ran at the same step ends on both "
+          f"ranks, and both walked the same programs at every decode step; "
+          f"programs first walked after the re-calibration (step, program) "
+          f"{got[0]['recal']['new_programs']}")
     f32 = got[0]["forced_f32"]
     print(f"[ep] the bf16 gap, settled at f32: two ranks against one at "
           f"{EP_F32_LAYERS} layers, f32: worst step {f32[0]:.3e} (limit "
@@ -5022,8 +5245,11 @@ def phase_ep(profile, setup=None) -> dict:
     print("[ep] " + json.dumps({str(r): {k: v for k, v in got[r].items()
                                          if k not in ("tokens",
                                                       "placed_tokens",
-                                                      "alltoall")}
+                                                      "alltoall", "recal")}
                                 for r in got}))
+    print("[ep] re-calibration " + json.dumps(
+        {str(r): {k: v for k, v in got[r]["recal"].items() if k != "steps"}
+         for r in got}))
     return got[0]["counts"]
 
 

@@ -48,7 +48,9 @@ Flags of the port's own:
   --max-context N  KV positions per slot (the reference's 256)
 
 Rank 0 prints the summary; the launcher checks that every rank served
-the same tokens.
+the same tokens. --calibrate and --drift-threshold work on the ranks too:
+every rank measures (the comm sweep over the live expert group) and plans
+from rank 0's fit, which rank 0 alone stores.
 
 Run:  python -m repro_torch.launch.serve_moe --device cpu --requests 4
       python -m repro_torch.launch.serve_moe --full --dep \\
@@ -354,6 +356,23 @@ def report(args, served: Served) -> None:
         print(f"wrote metrics snapshot -> {args.metrics_out}")
 
 
+def print_profile(args, eng: ServingEngine) -> None:
+    """Say where the planner's profile came from: this engine's
+    calibration (on a group of several ranks, rank 0's, which every rank
+    plans from), or ``--profile``."""
+    if eng.calibration is not None:
+        res = eng.calibration
+        r2s = {k: round(v, 4) for k, v in res.fit_r2.items()}
+        print(f"calibrated {res.profile.name!r} in {res.wall_s:.1f}s "
+              f"(R^2 {r2s}"
+              + (", comm=proxy" if res.comm_is_proxy else "")
+              + f") -> {eng.profile_store.root}")
+    elif args.profile:
+        print(f"planning from profile {args.profile!r} "
+              f"(store {eng.profile_store.root} or registry) — no "
+              "re-measurement")
+
+
 def rank_device(args, rank: int):
     """Rank ``rank``'s device: the CPU under ``--device cpu``; else card
     ``rank`` under nccl, and under gloo the cards in turn (ranks share a
@@ -380,12 +399,15 @@ def serve_rank(argv, rank: int, store_dir: str, results) -> None:
                                        args.ep_size, args.backend)
     try:
         eng = build_engine(args, groups=groups, device=device)
+        if rank == 0:
+            print_profile(args, eng)
         served = serve(args, eng)
         if rank == 0:
             print(f"ranks: {args.dp_size} data x {args.ep_size} expert over "
                   f"{args.backend}, {eng.cfg.moe.num_experts // args.ep_size}"
                   " experts a rank")
             report(args, served)
+        eng.close()
         results.put((rank, [r.output for r in served.requests]))
     finally:
         torch.distributed.destroy_process_group()
@@ -438,17 +460,7 @@ def main(argv=None) -> Optional[Served]:
         serve_ranks(args, argv)
         return None
     eng = build_engine(args)
-    if eng.calibration is not None:
-        res = eng.calibration
-        r2s = {k: round(v, 4) for k, v in res.fit_r2.items()}
-        print(f"calibrated {res.profile.name!r} in {res.wall_s:.1f}s "
-              f"(R^2 {r2s}"
-              + (", comm=proxy" if res.comm_is_proxy else "")
-              + f") -> {eng.profile_store.root}")
-    elif args.profile:
-        print(f"planning from profile {args.profile!r} "
-              f"(store {eng.profile_store.root} or registry) — no "
-              "re-measurement")
+    print_profile(args, eng)
     served = serve(args, eng)
     report(args, served)
     return served

@@ -16,7 +16,8 @@ The paper fits its alpha-beta cost models on measured microbenchmarks
                invalidates one PlanCache entry and re-solves it on a
                worker thread while the stale plan keeps serving;
                PeriodicRecalibrator re-runs the microbenchmarks when the
-               stored profile goes stale (cron-style, off-path)
+               stored profile goes stale (cron-style, off-path; on a
+               group of several ranks paced by rank 0's step headers)
   attribution  per-primitive drift attribution: fit gemm/attn/comm scale
                factors from task-graph-tagged residuals so a comm
                slowdown retunes alpha_c/beta_c without inflating the
@@ -28,18 +29,22 @@ from repro_torch.profiling.microbench import (ATTN_SWEEP, ATTN_SWEEP_FAST,
                                               CalibrationResult,
                                               DECODE_SWEEP, DECODE_SWEEP_FAST,
                                               GEMM_SWEEP, GEMM_SWEEP_FAST,
-                                              MICROBENCH_KINDS,
+                                              LOCAL_KINDS, MICROBENCH_KINDS,
+                                              LocalCalibration,
                                               MicrobenchSamples, Sweeps,
-                                              calibrate, measure_all_to_all,
+                                              calibrate, calibrate_local,
+                                              fit_calibration,
+                                              measure_all_to_all,
                                               measure_attention,
+                                              measure_comm_sample,
                                               measure_decode_attention,
                                               measure_gemm,
                                               run_microbenchmarks,
                                               sweeps_for, time_fn)
 from repro_torch.profiling.attribution import (PRIMITIVES, attribution_rows,
                                                fit_primitive_scales)
-from repro_torch.profiling.refresh import (DriftMonitor, DriftStats,
-                                           PeriodicRecalibrator,
+from repro_torch.profiling.refresh import (CalibStep, DriftMonitor,
+                                           DriftStats, PeriodicRecalibrator,
                                            PlanRefresher, planner_of,
                                            rescale_policy_hardware,
                                            rescale_policy_hardware_by)
@@ -50,6 +55,8 @@ from repro_torch.profiling.telemetry import KeyStats, PhaseStats, StepTimer
 
 __all__ = [
     "MicrobenchSamples", "CalibrationResult", "calibrate",
+    "LocalCalibration", "calibrate_local", "fit_calibration",
+    "measure_comm_sample", "LOCAL_KINDS",
     "measure_gemm", "measure_attention", "measure_all_to_all",
     "measure_decode_attention", "run_microbenchmarks", "time_fn",
     "GEMM_SWEEP", "GEMM_SWEEP_FAST", "ATTN_SWEEP", "ATTN_SWEEP_FAST",
@@ -59,6 +66,7 @@ __all__ = [
     "DEFAULT_STORE_DIR",
     "StepTimer", "PhaseStats", "KeyStats",
     "DriftMonitor", "DriftStats", "PlanRefresher", "PeriodicRecalibrator",
+    "CalibStep",
     "planner_of", "rescale_policy_hardware", "rescale_policy_hardware_by",
     "PRIMITIVES", "attribution_rows", "fit_primitive_scales",
 ]

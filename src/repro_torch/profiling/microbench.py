@@ -35,14 +35,21 @@ Where the port differs from the reference, it times what the port runs:
   * ``calibrate`` holds every intercept at alpha >= 0: a least-squares
     line whose intercept is negative (a negative time for small work,
     which the planner would schedule as such and lower into hints that
-    put a task before its dependency) is refitted through the origin.
+    put a task before its dependency) is refitted through the origin;
+  * ``calibrate`` is built from parts a serving group can schedule apart:
+    ``calibrate_local`` (the gemm, attn and decode sweeps, no
+    collective: a worker thread may run them), ``measure_comm_sample``
+    (one size of the comm sweep, run by every rank of the expert group
+    at once) and ``fit_calibration``; a comm sweep is retried when rank
+    0's fit says so (``lead_decides``), not the worst rank's.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
 from functools import partial
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import torch
 import torch.distributed as dist
@@ -237,39 +244,55 @@ def measure_attention(shapes: Optional[Sequence[Tuple[int, int, int, int]]]
     return out
 
 
+def measure_comm_sample(size_bytes: int, groups=None, dtype=None,
+                        device: DeviceLike = None, warmup: int = 2,
+                        iters: int = 15) -> Tuple[float, float]:
+    """One sample of the comm sweep: (z, median seconds) of one
+    ``all_to_all_single`` over the expert group of ``groups`` (a
+    ``core.dep.DepGroups``) moving ``size_bytes`` a rank — a local
+    [mo, c] buffer, one [c] row to each of the mo peers, like one a2e
+    chunk of Eq. 4: the live-wire measurement. Every rank of the expert
+    group must call it with the same size. On a group of one rank, a
+    bytes-proportional on-device copy stands in (``measure_all_to_all``
+    flags it ``proxy``)."""
+    dev = resolve_device(device)
+    dtype = dtype or torch.float32
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    mo = groups.expert_size if groups is not None else 1
+    gen = generator_for(dev, 0)
+    elems = max(int(size_bytes) // itemsize, mo * mo)
+    if mo > 1:
+        c = max(elems // mo, 1)
+        x = _randn(gen, (mo, c), dtype, dev)
+        f = partial(dist.all_to_all_single, torch.empty_like(x),
+                    group=groups.expert)
+        z = float(mo * c * itemsize)
+    else:
+        # proxy: a bytes-proportional on-device copy. Keeps the fit
+        # machinery exercised on hosts with no multi-rank group; the
+        # resulting beta is HBM-ish, NOT a wire bandwidth.
+        x = _randn(gen, (elems,), dtype, dev)
+        f = partial(torch.add, other=1)
+        z = float(elems * itemsize)
+    return z, time_fn(f, x, warmup=warmup, iters=iters)
+
+
 def measure_all_to_all(groups=None,
                        sizes_bytes: Optional[Sequence[int]] = None,
                        dtype=None, device: DeviceLike = None,
                        warmup: int = 2, iters: int = 5) -> MicrobenchSamples:
     """z = bytes per rank moved by one ``all_to_all_single`` over the
-    expert group of ``groups`` (a ``core.dep.DepGroups``): a local
-    [mo, c] buffer, one [c] row to each of the mo peers, like one a2e
-    chunk of Eq. 4 — the live-wire measurement. Falls back to an
-    on-device copy proxy (``proxy=True``) when the group has one rank."""
-    dev = resolve_device(device)
-    dtype = dtype or torch.float32
+    expert group of ``groups``, one ``measure_comm_sample`` per size —
+    the live-wire measurement. Falls back to an on-device copy proxy
+    (``proxy=True``) when the group has one rank."""
     sizes = COMM_SWEEP_BYTES if sizes_bytes is None else sizes_bytes
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    mo = groups.expert_size if groups is not None else 1
-    out = MicrobenchSamples("comm", proxy=mo <= 1)
-    gen = generator_for(dev, 0)
+    out = MicrobenchSamples(
+        "comm", proxy=groups is None or groups.expert_size <= 1)
     for z in sizes:
-        elems = max(int(z) // itemsize, mo * mo)
-        if mo > 1:
-            c = max(elems // mo, 1)
-            x = _randn(gen, (mo, c), dtype, dev)
-            f = partial(dist.all_to_all_single, torch.empty_like(x),
-                        group=groups.expert)
-            z_dev = float(mo * c * itemsize)
-        else:
-            # proxy: a bytes-proportional on-device copy. Keeps the fit
-            # machinery exercised on hosts with no multi-rank group; the
-            # resulting beta is HBM-ish, NOT a wire bandwidth.
-            x = _randn(gen, (elems,), dtype, dev)
-            f = partial(torch.add, other=1)
-            z_dev = float(elems * itemsize)
-        out.xs.append(z_dev)
-        out.ts.append(time_fn(f, x, warmup=warmup, iters=iters))
+        x, t = measure_comm_sample(z, groups, dtype=dtype, device=device,
+                                   warmup=warmup, iters=iters)
+        out.xs.append(x)
+        out.ts.append(t)
     return out
 
 
@@ -317,11 +340,9 @@ def _measure_kind(kind: str, sweeps: Sweeps, groups, dtype, device,
         return measure_attention(sweeps.attn, dtype=dtype, device=device,
                                  warmup=warmup, iters=iters)
     if kind == "comm":
-        # comm samples are the cheapest to take and (on the copy proxy)
-        # the most scheduler-noise-prone — buy stability with extra iters
         return measure_all_to_all(groups, sweeps.comm, dtype=dtype,
                                   device=device, warmup=warmup,
-                                  iters=max(3 * iters, 15))
+                                  iters=comm_iters(iters))
     if kind == "decode":
         return measure_decode_attention(
             sweeps.decode, dtype=dtype, device=device, warmup=warmup,
@@ -332,6 +353,27 @@ def _measure_kind(kind: str, sweeps: Sweeps, groups, dtype, device,
 #: the full primitive set ``calibrate`` sweeps (decode rides along as the
 #: optional fourth alpha-beta — ``fit_profile`` treats it as such)
 MICROBENCH_KINDS = ("gemm", "attn", "comm", "decode")
+#: the primitives a rank measures on its own (no collective)
+LOCAL_KINDS = ("gemm", "attn", "decode")
+#: a sweep fitting below this R^2 is re-measured, at most MAX_RETRIES
+#: times (``calibrate``'s retry rule)
+MIN_R2 = 0.9
+MAX_RETRIES = 2
+
+
+def comm_iters(iters: int) -> int:
+    """Timed calls of a comm sample for ``iters`` of a compute sample: comm
+    samples are the cheapest to take and (on the copy proxy) the most
+    scheduler-noise-prone — buy stability with extra iters."""
+    return max(3 * iters, 15)
+
+
+def sweep_counts(fast: bool, warmup: Optional[int] = None,
+                 iters: Optional[int] = None) -> Tuple[int, int]:
+    """(warm-up, timed) calls a sample: the given ones, else 1 + 5 for the
+    fast sweeps and 2 + 9 for the full ones."""
+    return ((1 if fast else 2) if warmup is None else warmup,
+            (5 if fast else 9) if iters is None else iters)
 
 
 def run_microbenchmarks(fast: bool = False, groups=None, dtype=None,
@@ -344,8 +386,7 @@ def run_microbenchmarks(fast: bool = False, groups=None, dtype=None,
     primitive — ``{k: v.as_xt() ...}`` is exactly the ``measured`` dict
     ``calibrated_stage_models`` expects."""
     dev = resolve_device(device)
-    warmup = (1 if fast else 2) if warmup is None else warmup
-    iters = (5 if fast else 9) if iters is None else iters
+    warmup, iters = sweep_counts(fast, warmup, iters)
     sweeps = sweeps_for(dev, fast)
     return {kind: _measure_kind(kind, sweeps, groups, dtype, dev, warmup,
                                 iters)
@@ -397,55 +438,110 @@ def fit_samples(samples: Dict[str, MicrobenchSamples], name: str
     return profile, {kind: r2 for kind, (_, r2) in fits.items()}
 
 
-def _worst_over_ranks(r2s: Dict[str, float], groups,
-                      device: torch.device) -> Dict[str, float]:
-    """Each primitive's lowest R^2 over the ranks of ``groups``: every rank
-    then re-measures the same primitives, so the all_to_all sweeps of a
-    retry stay matched across the group."""
+def lead_decides(flag: bool, groups) -> bool:
+    """Rank 0's ``flag`` on every rank of ``groups`` (a broadcast over its
+    gloo ``control`` group); ``flag`` itself on a group of one rank."""
     if groups is None or groups.world_size <= 1:
-        return r2s
-    kinds = sorted(r2s)
-    worst = torch.tensor([r2s[k] for k in kinds], dtype=torch.float64,
-                         device=device)
-    dist.all_reduce(worst, op=dist.ReduceOp.MIN, group=groups.world)
-    return dict(zip(kinds, worst.tolist()))
+        return flag
+    buf = torch.tensor([int(flag)], dtype=torch.int64)
+    dist.broadcast(buf, src=0, group=groups.control
+                   if groups.control is not None else groups.world)
+    return bool(buf.item())
+
+
+def _best_sweep(measure: Callable[[], MicrobenchSamples], min_r2: float,
+                max_retries: int, decide: Callable[[bool], bool] = bool
+                ) -> Tuple[MicrobenchSamples, int]:
+    """``measure()``, re-measured up to ``max_retries`` times while
+    ``decide(R^2 < min_r2)`` says so (scheduler noise hit the sweep — a
+    transient, not a property of the hardware), keeping the best-R^2
+    sweep. Returns it and the re-measures."""
+    best = measure()
+    r2 = fit_nonnegative(*best.as_xt())[1]
+    n = 0
+    while n < max_retries and decide(r2 < min_r2):
+        again = measure()
+        n += 1
+        r2_again = fit_nonnegative(*again.as_xt())[1]
+        if r2_again > r2:
+            best, r2 = again, r2_again
+    return best, n
+
+
+@dataclass
+class LocalCalibration:
+    """The part of a calibration a rank takes on its own: the gemm, attn
+    and decode sweeps (no collective), their re-measures and wall s."""
+
+    samples: Dict[str, MicrobenchSamples]
+    retries: Dict[str, int]
+    wall_s: float
+
+
+def calibrate_local(fast: bool = False, dtype=None,
+                    device: DeviceLike = None, min_r2: float = MIN_R2,
+                    max_retries: int = MAX_RETRIES,
+                    warmup: Optional[int] = None,
+                    iters: Optional[int] = None) -> LocalCalibration:
+    """The local sweeps of ``calibrate`` (``LOCAL_KINDS`` over
+    ``sweeps_for(device, fast)``), each re-measured on this rank alone
+    while it fits below ``min_r2``. Issues no collective, so it may run
+    on a worker thread beside a serving one."""
+    t0 = time.perf_counter()
+    dev = resolve_device(device)
+    warmup, iters = sweep_counts(fast, warmup, iters)
+    sweeps = sweeps_for(dev, fast)
+    samples, retries = {}, {}
+    for kind in LOCAL_KINDS:
+        samples[kind], retries[kind] = _best_sweep(
+            partial(_measure_kind, kind, sweeps, None, dtype, dev, warmup,
+                    iters), min_r2, max_retries)
+    return LocalCalibration(samples, retries, time.perf_counter() - t0)
+
+
+def fit_calibration(name: str, local: LocalCalibration,
+                    comm: MicrobenchSamples, comm_retries: int = 0,
+                    wall_s: Optional[float] = None) -> CalibrationResult:
+    """Join a rank's local part and its comm sweep into the fitted
+    ``CalibrationResult`` (``fit_samples``); ``wall_s`` defaults to the
+    local part's."""
+    samples = dict(local.samples, comm=comm)
+    samples = {k: samples[k] for k in MICROBENCH_KINDS}
+    profile, r2s = fit_samples(samples, name)
+    return CalibrationResult(
+        profile=profile, fit_r2=r2s, samples=samples,
+        wall_s=local.wall_s if wall_s is None else wall_s,
+        retries=dict(local.retries, comm=comm_retries))
 
 
 def calibrate(name: str = "calibrated", fast: bool = False, groups=None,
-              dtype=None, device: DeviceLike = None, min_r2: float = 0.9,
-              max_retries: int = 2, warmup: Optional[int] = None,
+              dtype=None, device: DeviceLike = None,
+              min_r2: float = MIN_R2, max_retries: int = MAX_RETRIES,
+              warmup: Optional[int] = None,
               iters: Optional[int] = None) -> CalibrationResult:
     """Measure -> fit: the paper's offline phase on ``device`` (None: the
     card) under ``groups``. Returns the fitted profile (``fit_samples``:
     intercepts held at >= 0) + the R^2 quality of each primitive fit.
 
-    A primitive whose fit lands below ``min_r2`` (scheduler noise hit the
-    sweep — a transient, not a property of the hardware) is re-measured up
-    to ``max_retries`` times, keeping the best-R^2 sweep. ``min_r2=0``
-    disables retries. Every rank of ``groups`` must call this: a primitive
-    is re-measured on all of them when it fits below ``min_r2`` on any."""
+    Built from its parts: the comm sweep (one ``measure_comm_sample`` per
+    size of ``sweeps_for(device, fast).comm``), then ``calibrate_local``,
+    then ``fit_calibration``. The collectives come first: a rank that
+    returns straight after its last one may tear its group down while a
+    peer still reads from it. A primitive whose fit lands
+    below ``min_r2`` is re-measured up to ``max_retries`` times, keeping
+    the best-R^2 sweep; ``min_r2=0`` disables retries. Every rank of
+    ``groups`` must call this: a local primitive is re-measured on its own
+    rank, and the comm sweep on every rank when it fits below ``min_r2``
+    on rank 0 (``lead_decides``), so a retried all_to_all is issued by
+    all of them."""
     t0 = time.perf_counter()
     dev = resolve_device(device)
-    warmup_ = (1 if fast else 2) if warmup is None else warmup
-    iters_ = (5 if fast else 9) if iters is None else iters
-    sweeps = sweeps_for(dev, fast)
-    samples = run_microbenchmarks(fast=fast, groups=groups, dtype=dtype,
-                                  device=dev, warmup=warmup_, iters=iters_)
-    profile, r2s = fit_samples(samples, name)
-    retries = {k: 0 for k in samples}
-    for _ in range(max_retries):
-        bad = [k for k, v in _worst_over_ranks(r2s, groups, dev).items()
-               if v < min_r2]
-        if not bad:
-            break
-        for kind in bad:
-            retaken = _measure_kind(kind, sweeps, groups, dtype, dev,
-                                    warmup_, iters_)
-            retries[kind] += 1
-            _, r2_new = fit_nonnegative(*retaken.as_xt())
-            if r2_new > r2s[kind]:
-                samples[kind] = retaken
-        profile, r2s = fit_samples(samples, name)
-    return CalibrationResult(profile=profile, fit_r2=r2s, samples=samples,
-                             wall_s=time.perf_counter() - t0,
-                             retries=retries)
+    warmup, iters = sweep_counts(fast, warmup, iters)
+    comm, retries = _best_sweep(
+        partial(_measure_kind, "comm", sweeps_for(dev, fast), groups, dtype,
+                dev, warmup, iters), min_r2, max_retries,
+        partial(lead_decides, groups=groups))
+    local = calibrate_local(fast, dtype, dev, min_r2, max_retries, warmup,
+                            iters)
+    return fit_calibration(name, local, comm, retries,
+                           wall_s=time.perf_counter() - t0)

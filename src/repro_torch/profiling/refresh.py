@@ -34,7 +34,9 @@ Two refinements ride on the task-graph IR and the profile store:
     the stored profile for this host goes stale
     (``StoredProfile.is_stale``), re-run ``microbench.calibrate()`` on
     the worker pool and refresh every cached plan, instead of waiting
-    for drift to trip.
+    for drift to trip. On a group of several ranks the port splits the
+    job: the local sweeps on the worker, the comm samples one a step on
+    the main thread, in lock step (``CalibStep``).
 
 Thread-safety: the refresh worker only touches ``PlanCache`` /
 ``FinDEPPlanner`` dicts (GIL-atomic ops); a concurrent engine-thread miss
@@ -46,12 +48,15 @@ import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Hashable, Mapping, Optional
+from functools import partial
+from typing import (Callable, Dict, Hashable, List, Mapping, NamedTuple,
+                    Optional)
 
 import torch
 
 from repro_torch.profiling.attribution import (attribution_rows,
                                                fit_primitive_scales)
+from repro_torch.profiling import microbench as mb
 from repro_torch.profiling.telemetry import StepTimer
 
 
@@ -315,6 +320,46 @@ class DriftMonitor:
         self.refresher.close()
 
 
+NO_SAMPLE = -1
+JOB_DONE = -2
+
+
+class CalibStep(NamedTuple):
+    """The calibration field of a decode call's lock-step header: what
+    every rank of a group does at this step's end, as rank 0 decided.
+    ``start`` 1: begin a job's local sweeps on the refresh worker;
+    ``sample`` >= 0: run that comm sample (``size`` bytes a rank) on the
+    main thread; ``JOB_DONE``: the job's samples are all taken, fit it;
+    ``NO_SAMPLE``: nothing."""
+
+    start: int = 0
+    sample: int = NO_SAMPLE
+    size: int = 0
+
+#: the field of a step that runs nothing of a calibration
+IDLE = CalibStep()
+
+
+@dataclass
+class _GroupJob:
+    """One re-calibration on a group of several ranks, as one rank holds
+    it: ``sizes`` is one comm sweep (empty when ``calibrate_fn`` gives
+    the whole result), ``plan`` the sizes rank 0 issues (a sweep, again
+    per retry), ``sweeps`` the comm samples this rank took, one
+    ``MicrobenchSamples`` per sweep. ``local`` is the worker's result,
+    set before ``ready``."""
+
+    number: int
+    sizes: tuple
+    plan: list
+    sweeps: list = field(default_factory=list)
+    issued: int = 0
+    sample_s: float = 0.0
+    local: object = None
+    error: Optional[BaseException] = None
+    ready: threading.Event = field(default_factory=threading.Event)
+
+
 class PeriodicRecalibrator:
     """Cron-style background re-calibration: when the stored profile for
     this host goes stale (``StoredProfile.is_stale(max_age_s)``), re-run
@@ -340,6 +385,24 @@ class PeriodicRecalibrator:
     ``calibrate_fn`` defaults to ``microbench.calibrate(fast=True)`` on
     ``device`` under ``groups`` at ``dtype`` (f32 by default); tests
     inject a stub.
+
+    On a group of several ranks (``lockstep``, the engine's active
+    ``runtime.lockstep.LockStep``) no collective may leave the main
+    thread, and every rank must issue the same ones in the same order, so
+    a job is split (``microbench.calibrate``'s parts) and paced by rank
+    0's decode headers (``next_step``, ``at_step``): only rank 0 polls
+    the store and decides; every rank runs ``local_fn`` (the local sweeps)
+    on its worker from the step whose header says so; then one comm
+    sample (``sample_fn(size)`` -> (bytes, median s)) a step, run by
+    every rank at the step's end on the main thread; rank 0 retries the
+    comm sweep while its own fit lies below ``microbench.MIN_R2`` (up to
+    ``MAX_RETRIES`` times). At the job's end every rank fits its own result
+    (``last_result``; ``joined`` counts the jobs), and rank 0 alone
+    stores it, reprofiles its policy and re-solves its cached plans on
+    the worker (``recalibrations`` counts those, so it stays 0 on the
+    other ranks): its programs reach them through the call headers. A
+    ``calibrate_fn`` gives the whole result there too, and the job takes
+    no comm sample. ``sample_log`` lists each comm sample this rank ran.
     """
 
     _JOB_KEY = ("__recalibrate__",)
@@ -350,7 +413,10 @@ class PeriodicRecalibrator:
                  refresher: Optional[PlanRefresher] = None,
                  timer: Optional[StepTimer] = None,
                  calibrate_fn: Optional[Callable[[], object]] = None,
-                 poll_interval_s: float = 30.0, metrics=None):
+                 poll_interval_s: float = 30.0, metrics=None,
+                 lockstep=None,
+                 local_fn: Optional[Callable[[], object]] = None,
+                 sample_fn: Optional[Callable[[int], tuple]] = None):
         from repro_torch.profiling.store import ProfileKey
         self.cache = cache
         self.store = store
@@ -375,6 +441,31 @@ class PeriodicRecalibrator:
             self._m_recal = metrics.counter(
                 "repro_recalibrations_total",
                 "completed background microbenchmark re-calibrations")
+        self.lockstep = lockstep
+        self.wide = lockstep is not None and lockstep.active
+        self.lead = not self.wide or lockstep.lead
+        self.local_fn, self.sample_fn = local_fn, sample_fn
+        self.sizes: tuple = ()
+        if self.wide:
+            dev = torch.device(device) if device is not None else None
+            self.sizes = tuple(mb.sweeps_for(
+                dev if dev is not None else torch.device("cuda"),
+                fast).comm)
+            warmup, iters = mb.sweep_counts(fast)
+            if self.local_fn is None:
+                self.local_fn = partial(mb.calibrate_local, fast,
+                                        self.dtype, device)
+            if self.sample_fn is None:
+                self.sample_fn = partial(
+                    mb.measure_comm_sample, groups=groups, dtype=self.dtype,
+                    device=device, warmup=warmup,
+                    iters=mb.comm_iters(iters))
+        self._start_pending = False
+        self._job: Optional[_GroupJob] = None
+        self._jobs = 0
+        self.joined = 0
+        self.last_result = None
+        self.sample_log: List[Dict[str, float]] = []
 
     def due(self) -> bool:
         """True when no stored profile exists for this host's key or the
@@ -384,27 +475,43 @@ class PeriodicRecalibrator:
         except KeyError:
             return True
 
+    def _poll_due(self) -> bool:
+        """``due()``, read at most once per ``poll_interval_s``."""
+        now = time.monotonic()
+        if (self._last_poll is not None
+                and now - self._last_poll < self.poll_interval_s):
+            return False
+        self._last_poll = now
+        return self.due()
+
     def maybe_recalibrate(self, force: bool = False) -> bool:
         """Kick off a background re-calibration when due; returns True
-        when a job was scheduled. Never blocks on the microbenchmarks."""
-        now = time.monotonic()
-        if not force:
-            if (self._last_poll is not None
-                    and now - self._last_poll < self.poll_interval_s):
+        when a job was scheduled. Never blocks on the microbenchmarks. On
+        a group only rank 0 decides (the others return False), and its job
+        starts at its next decode header."""
+        if self.wide:
+            if not self.lead or self.busy:
                 return False
-            self._last_poll = now
-            if not self.due():
+            if not force and not self._poll_due():
                 return False
+            self._start_pending = True
+            return True
+        if not force and not self._poll_due():
+            return False
         return self.refresher.request_job(self._JOB_KEY, self._recalibrate)
 
     def _recalibrate(self) -> None:
         if self.calibrate_fn is not None:
             result = self.calibrate_fn()
         else:
-            from repro_torch.profiling.microbench import calibrate
-            result = calibrate(name=self.name, fast=self.fast,
-                               groups=self.groups, dtype=self.dtype,
-                               device=self.device)
+            result = mb.calibrate(name=self.name, fast=self.fast,
+                                  groups=self.groups, dtype=self.dtype,
+                                  device=self.device)
+        self._apply(result)
+
+    def _apply(self, result) -> None:
+        """Store ``result``, reprofile the policy on its profile and
+        re-solve every cached plan (stale plans keep serving)."""
         self.store.put_calibration(result, self.key, name=self.name)
         reprofile = getattr(self.cache.policy, "reprofile", None)
         if callable(reprofile):
@@ -421,9 +528,131 @@ class PeriodicRecalibrator:
         if self._m_recal is not None:
             self._m_recal.inc()
 
+    # ------------------------------------------------------------------
+    # a group of several ranks: the job paced by rank 0's decode headers
+    # ------------------------------------------------------------------
+    @property
+    def busy(self) -> bool:
+        """A group job is scheduled or running on this rank."""
+        return self._start_pending or self._job is not None
+
+    def next_step(self, wait: bool = False) -> CalibStep:
+        """Rank 0's calibration field for this step's decode header (IDLE
+        on the other ranks and on one rank): start a scheduled job, the
+        next comm sample once its local sweeps are done (``wait``: block
+        until they are, rather than send nothing), or the job's end."""
+        if not self.wide or not self.lead:
+            return IDLE
+        job = self._job
+        if job is None:
+            if not self._start_pending:
+                return IDLE
+            self._start_pending = False
+            return CalibStep(start=1)
+        if wait:
+            job.ready.wait()
+        if not job.ready.is_set():
+            return IDLE
+        if job.error is None and job.issued < len(job.plan):
+            return CalibStep(sample=job.issued, size=job.plan[job.issued])
+        return CalibStep(sample=JOB_DONE)
+
+    def at_step(self, step: CalibStep) -> None:
+        """Do at this step's end what rank 0's header ``step`` says; every
+        rank of the group calls this with the same ``step``."""
+        if step.start:
+            self._begin()
+        elif step.sample >= 0:
+            self._run_sample(step.sample, step.size)
+        elif step.sample == JOB_DONE:
+            self._end()
+
+    def _begin(self) -> None:
+        self._jobs += 1
+        sizes = () if self.calibrate_fn is not None else self.sizes
+        job = self._job = _GroupJob(self._jobs, sizes, list(sizes))
+        fn = self.calibrate_fn or self.local_fn
+        if not self.refresher.request_job(self._JOB_KEY + (job.number,),
+                                          partial(self._run_local, job, fn)):
+            raise RuntimeError(f"calibration job {job.number} is in flight")
+
+    @staticmethod
+    def _run_local(job: _GroupJob, fn) -> None:
+        try:
+            job.local = fn()
+        except BaseException as e:      # noqa: BLE001 - reported at _end
+            job.error = e
+            raise
+        finally:
+            job.ready.set()
+
+    def _run_sample(self, index: int, size: int) -> None:
+        """One comm sample on the main thread, after this rank's own local
+        sweeps (so that they do not share the card with it)."""
+        job = self._job
+        job.ready.wait()
+        t0 = time.perf_counter()
+        z, median_s = self.sample_fn(size)
+        wall = time.perf_counter() - t0
+        job.sample_s += wall
+        sweep, i = divmod(index, len(job.sizes))
+        if sweep == len(job.sweeps):
+            job.sweeps.append(mb.MicrobenchSamples("comm"))
+        job.sweeps[sweep].xs.append(z)
+        job.sweeps[sweep].ts.append(median_s)
+        job.issued = index + 1
+        self.sample_log.append(dict(job=job.number, index=index,
+                                    bytes=size, z=z, median_s=median_s,
+                                    wall_s=wall))
+        if self.lead and i == len(job.sizes) - 1:
+            # rank 0 alone decides a retry, from its own fit; the others
+            # follow the samples its headers give
+            if (len(job.sweeps) <= mb.MAX_RETRIES
+                    and max(self._r2(s) for s in job.sweeps) < mb.MIN_R2):
+                job.plan.extend(job.sizes)
+
+    @staticmethod
+    def _r2(sweep) -> float:
+        return mb.fit_nonnegative(*sweep.as_xt())[1]
+
+    def _end(self) -> None:
+        """Fit this rank's result; on rank 0 store it, reprofile and
+        re-solve on the worker."""
+        job, self._job = self._job, None
+        job.ready.wait()
+        if job.error is not None:
+            return                  # the refresher counted it failed
+        if self.calibrate_fn is not None:
+            result = job.local
+        else:
+            best = max(job.sweeps, key=self._r2)
+            result = mb.fit_calibration(
+                self.name, job.local, best, len(job.sweeps) - 1,
+                wall_s=job.local.wall_s + job.sample_s)
+        self.last_result = result
+        self.joined += 1
+        if self.lead:
+            self.refresher.request_job(self._JOB_KEY + (job.number, "fit"),
+                                       partial(self._apply, result))
+
     def drain(self, timeout: Optional[float] = None) -> None:
+        """Wait for the background work. On a group every rank calls this
+        at the same point: a job rank 0 has scheduled or started runs to
+        its end here, its steps carried by headers of their own."""
+        if self.wide:
+            while True:
+                step = CalibStep(*self.lockstep.follow(
+                    self.next_step(wait=True)))
+                if step == IDLE:
+                    break
+                self.at_step(step)
         self.refresher.drain(timeout=timeout)
 
     def close(self) -> None:
+        """Stop the worker. A group job still open is abandoned: its comm
+        samples run only at step ends that every rank reaches, so no rank
+        waits in one for a rank that closed."""
+        self._start_pending = False
+        self._job = None
         if self._owns_refresher:
             self.refresher.close()

@@ -40,10 +40,16 @@ rank submits the same requests. The ranks step in lock step
 prefill chunk and capacity scale, the placement to install and the
 sampled tokens, and the others follow its headers; every rank admits on
 its own and raises when rank 0 admitted otherwise. A new placement moves
-expert rows between the ranks. Calibration and re-calibration are
-refused on such a group (``profile=`` is rank 0's, broadcast), and so is
-the decode graph over gloo, which stages collectives through host
-memory.
+expert rows between the ranks. Rank 0's profile is every rank's
+(``profile=``, or ``calibrate=True``, which every rank measures at
+construction, the comm sweep over the live expert group). A periodic
+re-calibration is paced by rank 0's decode headers
+(``PeriodicRecalibrator``): the local sweeps on each rank's refresh
+worker, then one comm sample a step, run by every rank on the main
+thread at the step's end, so no collective leaves the main thread. A
+drift episode retunes each rank's own policy; rank 0's programs are the
+ones served. The decode graph over gloo, which stages collectives
+through host memory, is refused.
 
 The measured cost models (``repro_torch.profiling``) close the loop as
 in the reference: ``calibrate=True`` measures the microbenchmarks on the
@@ -111,10 +117,11 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import TraceRecorder, use_tracer
 from repro_torch.placement import (ExpertLoadTracker, Placement, SkewSummary,
                                    capacity_scale, max_rank_load, rebalance)
-from repro_torch.profiling import (DriftMonitor, PeriodicRecalibrator,
-                                   PlanRefresher, ProfileKey, ProfileStore,
-                                   StepTimer)
+from repro_torch.profiling import (CalibStep, DriftMonitor,
+                                   PeriodicRecalibrator, PlanRefresher,
+                                   ProfileKey, ProfileStore, StepTimer)
 from repro_torch.profiling import calibrate as run_calibration
+from repro_torch.profiling.refresh import IDLE
 from repro_torch.runtime.batching import BatchScheduler, PrefillGroup, StepPlan
 from repro_torch.runtime.decode_graph import (CudaGraph, DecodeGraphs,
                                               GraphKey, StagedBuffer,
@@ -126,11 +133,11 @@ from repro_torch.runtime.request import Request, RequestState
 from repro_torch.sched import PlanCache, SchedulePolicy
 from repro_torch.sched.occupancy import bucket_length
 
-def _calibrate_off_graphs(lock: threading.Lock, stream, name: str, **kw):
-    """``profiling.calibrate`` (fast sweeps; the card's on a CUDA device)
-    on ``stream`` (None: the current one), holding ``lock``."""
+def _off_graphs(lock: threading.Lock, stream, fn, *args, **kw):
+    """``fn(*args, **kw)`` (a calibration or a part of one) on ``stream``
+    (None: the current one), holding ``lock``."""
     with lock, torch.cuda.stream(stream):
-        return run_calibration(name=name, fast=True, **kw)
+        return fn(*args, **kw)
 
 
 def _check_shard(params, cfg: ModelConfig, mo: int) -> None:
@@ -246,9 +253,10 @@ class ServingEngine:
     ``mesh=None``). On a group of several ranks this engine is one rank
     of a lock-stepped set (module docstring): ``params``, if given, hold
     this rank's ``E_pad / mo`` experts per MoE layer
-    (``bridge.shard_experts``); ``calibrate``, ``recalibrate_max_age_s``
-    and ``drift_recalibrate`` with a ``drift_threshold`` raise; and a
-    gloo group needs ``decode_graph=False`` on a CUDA device.
+    (``bridge.shard_experts``); ``profile_store`` is written by rank 0
+    alone (ranks of a host share its directory); ``close()`` abandons an
+    unfinished re-calibration at a step end that every rank reached; and
+    a gloo group needs ``decode_graph=False`` on a CUDA device.
     ``interleave`` is the DEP walk's emission, "streams"
     (scheduled start order) or "off" (stream after stream): the same
     values either way. ``validate`` runs ``analysis.graphcheck`` on every
@@ -336,15 +344,6 @@ class ServingEngine:
                     f"attention={cfg.attention!r}, "
                     f"mla={cfg.mla_kv_lora_rank})")
         wide = ep_group is not None and ep_group.world_size > 1
-        if wide and (calibrate or recalibrate_max_age_s is not None
-                     or (drift_threshold is not None and drift_recalibrate)):
-            raise NotImplementedError(
-                f"calibration on a group of {ep_group.world_size} ranks "
-                "(calibrate=True, recalibrate_max_age_s, or a "
-                "drift_threshold with drift_recalibrate): its collectives "
-                "would run on the refresh worker beside the serving ones; "
-                "not ported (ROADMAP Queue 1 item 11). Pass profile= "
-                "(rank 0's is broadcast) and drift_recalibrate=False")
         if wide and self.decode_graph and ep_group.backend != "nccl":
             raise ValueError(
                 f"decode_graph on a {ep_group.backend} group of "
@@ -362,10 +361,12 @@ class ServingEngine:
         # no calibration job runs on the card while a decode graph is
         # warmed up or captured: both hold this lock
         self._device_lock = threading.Lock()
+        self._off_graphs = partial(
+            _off_graphs, self._device_lock,
+            torch.cuda.Stream(self.device) if cuda else None)
         self._calibrate = partial(
-            _calibrate_off_graphs, self._device_lock,
-            torch.cuda.Stream(self.device) if cuda else None,
-            groups=ep_group, dtype=dtype, device=self.device)
+            self._off_graphs, run_calibration, fast=True, groups=ep_group,
+            dtype=dtype, device=self.device)
         self.calibration = None
         self._apply_profile(profile, calibrate, profile_store, ep_group,
                             dtype)
@@ -406,9 +407,18 @@ class ServingEngine:
                 device=self.device, dtype=dtype,
                 max_age_s=recalibrate_max_age_s,
                 refresher=self.drift.refresher if self.drift else None,
-                timer=self.telemetry, metrics=self.metrics)
-            self.recalibrator.calibrate_fn = partial(
-                self._calibrate, self.recalibrator.name)
+                timer=self.telemetry, metrics=self.metrics,
+                lockstep=self._lockstep)
+            if self.recalibrator.wide:
+                # on the calibration stream, under the device lock: the
+                # local sweeps on the worker, the comm samples on the main
+                # thread at a step's end
+                rc = self.recalibrator
+                rc.local_fn = partial(self._off_graphs, rc.local_fn)
+                rc.sample_fn = partial(self._off_graphs, rc.sample_fn)
+            else:
+                self.recalibrator.calibrate_fn = partial(
+                    self._calibrate, name=self.recalibrator.name)
         # plans reach the model only when the DEP executor can act on them
         self._dep_active = ep_group is not None and cfg.is_moe
         self.interleave = interleave
@@ -679,10 +689,12 @@ class ServingEngine:
         if calibrate:
             key = ProfileKey.for_host(groups, dtype, self.device)
             name = profile if isinstance(profile, str) else key.slug()
-            result = self._calibrate(name)
+            # on a group every rank measures (the comm sweep is a
+            # collective); rank 0's fit is followed below
+            result = self._calibrate(name=name)
             hw = result.profile
             self.calibration = result
-            if store is not None:
+            if store is not None and self._lockstep.lead:
                 store.put_calibration(result, key, name=name)
         elif isinstance(profile, HardwareProfile):
             hw = profile
@@ -1193,8 +1205,11 @@ class ServingEngine:
         skew = self._current_skew()
         plan = self._resolve_plan("decode", occupancy=occ, skew=skew)
         plan_key = ("decode", occ) if skew is None else ("decode", occ, skew)
-        program, _, cap = self._lockstep.follow_call(
-            self._exec_program(plan), 0, self._capacity_scale(skew))
+        # the header also carries rank 0's calibration step (nothing at
+        # one rank and between jobs)
+        program, cap, calib = self._lockstep.follow_decode(
+            self._exec_program(plan), self._capacity_scale(skew),
+            self.recalibrator.next_step() if self.recalibrator else IDLE)
         if program is not None:
             self.stats.programs.append(("decode", program))
         use_topk = any(r is not None and r.top_k > 0 for r in self.slots)
@@ -1232,6 +1247,13 @@ class ServingEngine:
                 self.slots[i] = None
                 self.kv.free(i)
         self.stats.steps += 1
+        if calib != IDLE:
+            # a calibration step, between this step and the next
+            if self.recalibrator is None:
+                raise RuntimeError(
+                    f"rank {self._lockstep.rank} left lock step: rank 0 "
+                    "re-calibrates, this rank has no recalibrator")
+            self.recalibrator.at_step(CalibStep(*calib))
         return True
 
     def run(self, max_steps: int = 10_000) -> List[Request]:

@@ -13,14 +13,20 @@ the groups' gloo ``control`` group (host tensors; no device sync):
     m_e, the hot-expert count and placement epoch, the interleave and
     its priority hints, which fix where the SHARED tasks run), the
     prefill chunk and the dispatch capacity scale;
+  * on the decode call's header, the calibration field
+    (``profiling.refresh.CalibStep``: start a re-calibration's local
+    sweeps, run comm sample i of so many bytes, or end the job), so a
+    step that runs no sample sends nothing more;
   * the placement to install, if any;
   * the admitted and rejected request ids: every rank runs its own
     scheduler, and a rank whose decision differs from rank 0's raises;
   * the sampled tokens, after the token readback.
 
-A header is a fixed-size int64 vector: its length, then its values. At
-world size 1 (``LockStep(None)``) every call returns its argument and no
-collective is issued.
+A header is a fixed-size int64 vector: its length, then its values; the
+values past it (the priority hints of a program of many chunks) follow
+in a second broadcast of their own size, which every rank knows from the
+length. At world size 1 (``LockStep(None)``) every call returns its
+argument and no collective is issued.
 """
 from __future__ import annotations
 
@@ -33,8 +39,10 @@ import torch.distributed as dist
 from repro_torch.core.taskgraph import ExecProgram, lower_exec
 from repro_torch.placement import Placement
 
-#: int64 values of a header (its length first); a header must fit
+#: int64 values of a header's first broadcast (its length first)
 HEADER_INTS = 512
+#: values of a decode header's calibration field
+CALIB_INTS = 3
 
 _ORDERS = ("ASAS", "AASS")
 _INTERLEAVES = ("off", "streams")
@@ -95,8 +103,9 @@ def decode_placement(v: Sequence[int]) -> Optional[Placement]:
 class LockStep:
     """Rank 0's decisions on every rank of ``groups`` (a
     ``core.dep.DepGroups`` with a ``control`` group; None: a group of
-    one rank, where nothing is sent). ``size`` is the header length in
-    int64 values (at least ``HEADER_INTS``; the same on every rank)."""
+    one rank, where nothing is sent). ``size`` is the first broadcast's
+    length in int64 values (at least ``HEADER_INTS``; the same on every
+    rank); ``headers`` counts the broadcasts."""
 
     def __init__(self, groups=None, size: int = HEADER_INTS):
         self.group = None if groups is None else groups.control
@@ -117,16 +126,23 @@ class LockStep:
         values = [int(x) for x in values]
         if self.group is None:
             return values
+        room = self.size - 1
         buf = torch.zeros(self.size, dtype=torch.int64)
         if self.lead:
-            if len(values) >= self.size:
-                raise ValueError(f"a lock-step header of {len(values)} "
-                                 f"values exceeds {self.size - 1}")
             buf[0] = len(values)
-            buf[1:1 + len(values)] = torch.tensor(values, dtype=torch.int64)
+            head = values[:room]
+            buf[1:1 + len(head)] = torch.tensor(head, dtype=torch.int64)
         dist.broadcast(buf, src=0, group=self.group)
         self.headers += 1
-        return buf[1:1 + int(buf[0])].tolist()
+        n = int(buf[0])
+        got = buf[1:1 + min(n, room)].tolist()
+        if n > room:
+            rest = (torch.tensor(values[room:], dtype=torch.int64)
+                    if self.lead else torch.zeros(n - room, dtype=torch.int64))
+            dist.broadcast(rest, src=0, group=self.group)
+            self.headers += 1
+            got += rest.tolist()
+        return got
 
     def agree(self, what: str, values: Sequence[int]) -> List[int]:
         """Rank 0's ``values``, which must equal this rank's: a rank that
@@ -158,6 +174,24 @@ class LockStep:
                         + encode_program(program))
         got, _ = decode_program(v[2:])
         return got, v[0], bits_float(v[1])
+
+    def follow_decode(self, program: Optional[ExecProgram],
+                      cap_scale: float, calib: Sequence[int]
+                      ) -> Tuple[Optional[ExecProgram], float,
+                                 Tuple[int, ...]]:
+        """Rank 0's (program, capacity scale, calibration field) of a
+        decode call: ``follow_call``'s header with the ``CALIB_INTS``
+        values of ``calib`` ahead of the program, in the one broadcast."""
+        calib = tuple(int(x) for x in calib)
+        if len(calib) != CALIB_INTS:
+            raise ValueError(f"a calibration field of {len(calib)} values, "
+                             f"not {CALIB_INTS}")
+        if self.group is None:
+            return program, cap_scale, calib
+        v = self.follow([0, float_bits(cap_scale)] + list(calib)
+                        + encode_program(program))
+        got, _ = decode_program(v[2 + CALIB_INTS:])
+        return got, bits_float(v[1]), tuple(v[2:2 + CALIB_INTS])
 
     def follow_placement(self, pl: Optional[Placement]
                          ) -> Optional[Placement]:

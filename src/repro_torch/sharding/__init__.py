@@ -2,8 +2,9 @@
 ``repro.sharding``, with their DTensor placements."""
 from repro_torch.sharding.partition import (PSpec, batch_pspec,
                                             cache_pspecs, distribute_params,
-                                            params_pspecs, placements,
-                                            tree_placements)
+                                            params_pspecs, params_shardings,
+                                            placements, tree_placements)
 
 __all__ = ["PSpec", "batch_pspec", "cache_pspecs", "distribute_params",
-           "params_pspecs", "placements", "tree_placements"]
+           "params_pspecs", "params_shardings", "placements",
+           "tree_placements"]

@@ -181,6 +181,16 @@ def params_pspecs(params, cfg: ModelConfig, model_axis: str = "model",
                                    for names, x in tree_paths(params)])
 
 
+def params_shardings(params, cfg: ModelConfig, mesh,
+                     model_axis: str = "model"):
+    """The DTensor layout of ``params`` on ``mesh`` (a ``DeviceMesh``, or
+    anything with the axis sizes): each leaf's ``placements`` of its
+    ``params_pspecs`` spec — the counterpart of the reference's tree of
+    ``NamedSharding``s."""
+    return tree_placements(params_pspecs(params, cfg, model_axis, mesh),
+                           mesh)
+
+
 def batch_pspec(global_batch: int, mesh,
                 exclude: Tuple[str, ...] = ("model",)) -> PSpec:
     """Shard the batch dim over as many data axes as divide it."""
@@ -374,5 +384,5 @@ def gather_shards(local: torch.Tensor, mesh, pl, keep: Optional[int] = None
 __all__ = ["COL", "ROW", "REPL", "FSDP_EXCLUDE", "FSDP_THRESHOLD_ELEMS",
            "PSpec", "apply_fsdp", "axis_sizes", "batch_axes", "batch_pspec",
            "cache_pspecs", "distribute_params", "gather_shards",
-           "local_shape", "local_shard", "params_pspecs", "placements", "sanitize_spec",
-           "tree_placements"]
+           "local_shape", "local_shard", "params_pspecs", "params_shardings",
+           "placements", "sanitize_spec", "tree_placements"]

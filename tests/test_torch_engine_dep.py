@@ -207,17 +207,6 @@ def test_new_program_mid_serve_is_captured_without_eager_run(group,
         p.graph.r1 * p.graph.r2 for _, p in st.programs)
 
 
-def test_expert_group_of_several_ranks_is_refused():
-    """An expert group of several ranks is served, but not calibrated:
-    ``calibrate=True`` on a wider group would run the microbenchmarks'
-    collectives beside the serving ones, so it raises at construction,
-    before any collective is issued or any weight is made."""
-    wide = DepGroups(expert=None, expert_rank=0, expert_size=2, data=None,
-                     world=None, world_size=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        _engine(None, ep_group=wide, calibrate=True)
-
-
 def test_validate_rejects_tampered_hints(monkeypatch):
     """``validate=True`` runs graphcheck on each distinct program before
     it is used: a reversed hint vector raises at plan time, with the

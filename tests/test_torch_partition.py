@@ -3,7 +3,9 @@ of ``repro.sharding.partition``'s spec logic) against the reference's on
 the same ``jax.sharding.AbstractMesh`` (both read only its axis sizes):
 ``params_pspecs`` of every architecture's full and smoke parameter tree
 at the train and inference FSDP thresholds, ``batch_pspec`` and
-``cache_pspecs`` of every decode shape, on ("data", "model") meshes of
+``cache_pspecs`` of every decode shape, ``params_shardings`` of every
+smoke tree (placements against the reference's ``NamedSharding``s), on
+("data", "model") meshes of
 (2, 2) and (16, 16) (experts padded to the model axis, as both
 ``make_model``s pad them). Specs compare entry for entry, in the
 trees' leaf order (which is ``jax.tree.flatten``'s in both packages).
@@ -38,6 +40,7 @@ from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
 from repro_torch.sharding import partition as part  # noqa: E402
 from repro_torch.training.tree import tree_leaves  # noqa: E402
+from torch.distributed.tensor import Replicate  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 MESHES = {"2x2": AbstractMesh((2, 2), ("data", "model")),
@@ -83,6 +86,20 @@ def test_params_pspecs_match_reference(arch, smoke, mesh_name):
         moe = next(layer["moe"] for layer in specs["layers"]
                    if "moe" in layer)
         assert moe["experts"]["gate"][0] == "model"
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_params_shardings_match_reference(arch):
+    """``params_shardings`` of every smoke parameter tree on the (2, 2)
+    mesh: each leaf's placements are the reference's ``NamedSharding``
+    spec for it mapped through ``placements``."""
+    mesh = MESHES["2x2"]
+    jcfg, cfg, ref, port = _trees(arch, True, mesh)
+    want = [part.placements(part.PSpec(*s.spec), mesh) for s in
+            jax.tree.leaves(jpart.params_shardings(ref, jcfg, mesh))]
+    got = tree_leaves(part.params_shardings(port, cfg, mesh), tuple)
+    assert len(got) == len(want) and got == want
+    assert any(p != (Replicate(), Replicate()) for p in got)
 
 
 @pytest.mark.parametrize("mesh_name", MESHES)

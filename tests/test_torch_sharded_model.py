@@ -389,20 +389,6 @@ _WIDE = DepGroups(expert=None, expert_rank=0, expert_size=2, data=None,
                   world=None, world_size=2)
 
 
-@pytest.mark.parametrize("kw", [dict(calibrate=True),
-                                dict(recalibrate_max_age_s=60.0,
-                                     profile_store="unused"),
-                                dict(drift_threshold=0.5)],
-                         ids=["calibrate", "recalibrate", "drift"])
-def test_calibration_on_a_wide_group_is_refused(kw):
-    """Calibration, periodic re-calibration and drift's re-calibration on
-    a group of several ranks raise at construction, naming the ROADMAP
-    item, before any collective or weight."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        ServingEngine(get_smoke_config(ARCH), device="cpu", ep_group=_WIDE,
-                      **kw)
-
-
 def test_unsharded_weights_on_a_wide_group_are_refused():
     """Given weights on an expert group of 2 must hold E/2 experts a MoE
     layer; the whole stack raises."""
