@@ -36,12 +36,14 @@
               function) against their plain versions in f32: RG-LRU at
               recurrentgemma-9b's train shape (B = 4, S = 512, W = 4096)
               bitwise, mLSTM at xlstm-1.3b's train shape (B = 4, H = 4,
-              S = 512, D = 1024) and at B = 1, S = 64, the clamp off
+              S = 512, D = 1024; the fresh state train_recurrent passes
+              and a random one) and at B = 1, S = 64, the clamp off
               and on, within ``SCAN_BWD_TOL`` (relative L2 of each
-              gradient), each
+              gradient), two mLSTM calls bitwise equal, each
               beside controls that must miss the limit (dh shifted by
               one step; for the mLSTM, with the clamp on, m held
-              constant);
+              constant, and the chunkwise mirror's gate terms formed
+              without dC);
      kernelcheck states  the dense and paged decode kernels over
               ``analysis.kernelcheck``'s ledger states (the paging
               manager's boundary tables, the all-unallocated table, the
@@ -376,7 +378,8 @@ from repro_torch.kernels.mlstm_scan.ops import (  # noqa: E402
     MLSTMScanFunction, mlstm_scan, mlstm_scan_backward,
     mlstm_scan_backward_work, mlstm_scan_work)
 from repro_torch.kernels.mlstm_scan.ref import (  # noqa: E402
-    mlstm_scan_backward_ref, mlstm_scan_ref)
+    mlstm_scan_backward_chunkwise_ref, mlstm_scan_backward_ref,
+    mlstm_scan_ref)
 from repro_torch.kernels.moe_gemm import kernel as gemm_kernel  # noqa: E402
 from repro_torch.kernels.moe_gemm import ops as gemm_ops  # noqa: E402
 from repro_torch.kernels.moe_gemm.ops import (moe_gemm,  # noqa: E402
@@ -437,6 +440,10 @@ from repro_torch.training.tree import (tree_leaves,  # noqa: E402
 # H100 SXM published peaks (NVIDIA data sheet; dense, full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: f32-accurate products on the tensor cores: 3xTF32 takes three TF32
+#: products (495 TFLOP/s) for one, so a kernel that runs its f32 products
+#: so (the mLSTM backward) is priced at this rate, not the 67 of FFMA
+PEAK_FLOPS_3XTF32 = 495e12 / 3
 # f32: summation order differs; bf16: the reference's kernel tolerance
 # (tests/test_kernels.py:19-20)
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
@@ -515,7 +522,7 @@ PER_CALL = {"decode_attention_": 2, "decode_attention_split": 1,
             "decode_attention_combine": 1, "moe_gemm_": 2,
             "flash_attention_": 1, "mlstm_chunk_prep": 1,
             "mlstm_chunk_scan": 1, "rg_lru_scan": 1,
-            "rg_lru_scan_backward": 1, "mlstm_bwd_": 5}
+            "rg_lru_scan_backward": 1, "mlstm_bwd_": 8}
 
 
 def trace_span(prof) -> str:
@@ -532,8 +539,15 @@ def trace_span(prof) -> str:
             f"{max(r.end for r in dev) - t0:.0f} us")
 
 
+#: the kernel ``torch.cuda._sleep`` launches, which ``device_ms`` puts
+#: between a lead call and the measured calls, and its length in cycles
+#: (about 10 us)
+LEAD_MARK = "spin_kernel"
+LEAD_MARK_CYCLES = 20000
+
+
 def device_ms(fn, kernel=None, iters: int = 10, per_call=None,
-              bound=None, lead: bool = False) -> float:
+              bound=None, lead: bool = False, by_name=None) -> float:
     """Mean device time per call of ``fn`` of the kernels whose name
     contains ``kernel`` (every device kernel of the call when ``kernel``
     is None), from torch.profiler: unlike ``time_ms`` it holds no host
@@ -551,7 +565,15 @@ def device_ms(fn, kernel=None, iters: int = 10, per_call=None,
     events of a trace (a call of a few thousand small kernels lost its
     first 29 late in a run; the mLSTM backward's 25 kernels read 24 in
     six traces in a row), and the lead call takes that loss. So every
-    trace after a short one leads."""
+    trace after a short one leads. The lead call is followed by a marker
+    kernel (``torch.cuda._sleep``'s ``spin_kernel``), and only the events
+    that start after the marker's end on the device clock count: the
+    profiler's host and device clocks can sit a millisecond or more apart
+    (a trace's device events read from -16 us against its first host
+    event), so a host-side range start dropped every event of a short
+    call. A trace that lost the marker is short. ``by_name``, a dict,
+    takes the whole trace's device ms per call of each kernel, by its
+    short name."""
     if per_call is None:
         per_call = PER_CALL.get(kernel)
     fn()
@@ -564,22 +586,20 @@ def device_ms(fn, kernel=None, iters: int = 10, per_call=None,
         with torch.profiler.profile(activities=acts) as prof:
             if lead:
                 fn()
+                torch.cuda._sleep(LEAD_MARK_CYCLES)
                 torch.cuda.synchronize()
-            with (torch.profiler.record_function("device_ms measured")
-                  if lead else contextlib.nullcontext()):
-                for _ in range(iters):
-                    fn()
-                torch.cuda.synchronize()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
         t0 = float("-inf")
         if lead:
-            t0 = min(e.time_range.start for e in prof.events()
-                     if e.name == "device_ms measured" and e.device_type
-                     != torch.autograd.DeviceType.CUDA)
-        # the range's own span on the device is no kernel
+            marks = [e.time_range.end for e in device_events(prof)
+                     if LEAD_MARK in e.name]
+            t0 = max(marks, default=float("inf"))
         events = [e for e in device_events(prof)
                   if (kernel is None or kernel in e.name)
                   and e.time_range.start >= t0
-                  and e.name != "device_ms measured"]
+                  and LEAD_MARK not in e.name]
         n = len(events)
         if per_call is not None:
             whole = n == per_call * iters
@@ -588,6 +608,10 @@ def device_ms(fn, kernel=None, iters: int = 10, per_call=None,
         seen.append(n)
         if whole:
             ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+            for e in events if by_name is not None else ():
+                k = _short(e.name)
+                by_name[k] = (by_name.get(k, 0.0)
+                              + e.time_range.elapsed_us() / 1e3 / iters)
             if lead:
                 print(f"  device_ms: {n} device events in {iters} calls "
                       f"after the lead call (traces: {seen})")
@@ -607,16 +631,16 @@ def device_ms(fn, kernel=None, iters: int = 10, per_call=None,
 
 
 def timed(fn, kernel=None, iters: int = 10, per_call=None,
-          bound=None) -> tuple:
+          bound=None, by_name=None) -> tuple:
     """(CUDA-event ms, profiler device ms) of ``fn``."""
     return time_ms(fn, iters=iters), device_ms(fn, kernel, iters=iters,
                                                per_call=per_call,
-                                               bound=bound)
+                                               bound=bound, by_name=by_name)
 
 
-def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
+def bound_ms(nbytes: float, flops: float, dtype, peak=None) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1636,9 +1660,13 @@ def check_rg_lru(gen):
 #: the scans' backwards against their plain versions, f32, relative L2 of
 #: each gradient. The RG-LRU backward takes the plain version's rounded
 #: steps, so it must also be bitwise equal; the mLSTM backward sums in
-#: another order (tiles, warps, shared-memory atomics): this check read
-#: 1.3e-7 to 1.4e-6, 7.6e-7 at the train shape (NVIDIA H100 80GB HBM3,
-#: 700 W), so the CPU tests' 1e-5 holds here too
+#: another order (chunks, 3xTF32 products in 32-deep slices): the
+#: step-sequential kernel this replaced read 1.3e-7 to 1.4e-6, 7.6e-7 at
+#: the train shape; the chunkwise one 6.5e-7 to 1.6e-6, 1.0e-6 to 1.2e-6
+#: at the train shape (NVIDIA H100 80GB HBM3, 700 W), so the CPU tests'
+#: 1e-5 holds here too. Summed straight into the tensor cores' truncating
+#: accumulator, with no slices, it read 1.05e-5 to 1.08e-5 (PERF.md section
+#: 6 row 8)
 SCAN_BWD_TOL = 1e-5
 #: the reference code the backwards take the place of (neither has a TPU
 #: kernel: the reference differentiates these with jax.grad)
@@ -1738,37 +1766,75 @@ def check_rg_lru_backward(gen):
                 controls=controls, shape="B=4 S=512 W=4096 f32", **timing)
 
 
+#: the step-sequential mLSTM backward that the chunkwise one replaced, and
+#: the xlstm-1.3b train step around it, as PERF.md (section 6 row 8 and
+#: section 5) records them on an NVIDIA H100 80GB HBM3 at 700 W: printed
+#: beside this run's readings under that label, never reported as this
+#: run's
+STEPWISE_MLSTM_BWD = dict(device_ms=25.5335, event_ms=25.827,
+                          function_ms=25.680, scratch_gib=3.55,
+                          xlstm_step_ms=(1225.1, 1416.4),
+                          xlstm_peak_gb=20.00)
+STEPWISE_LABEL = "the step-sequential backward, as PERF.md records it"
+
+
+def mlstm_bwd_bound(*args) -> tuple:
+    """``bound_ms`` of the mLSTM backward: the bytes its wrapper counts
+    (``mlstm_scan_backward_work``: each operand read once, each gradient
+    written once) and the operations the chunkwise algebra needs
+    (``kernel.backward_flops``, not the work count's 12 D^2 a step of the
+    step-by-step form) priced at the f32-accurate tensor rate (3xTF32)."""
+    _, nbytes = mlstm_scan_backward_work(*args)
+    B, H, S, D = args[0].shape
+    flops = mlstm_kernel.backward_flops(B * H, S, D)
+    return bound_ms(nbytes, flops, torch.float32, peak=PEAK_FLOPS_3XTF32)
+
+
 def check_mlstm_backward(gen):
     """The mLSTM backward against its plain version in f32 (relative L2
     of each of the eight gradients, gradients on h and the final C, n,
     m): at the train_recurrent path's shape (xlstm-1.3b: B = 4, H = 4,
     S = 512, D = 1024; the plain version keeps 513 states of 64 MiB, 32
-    GiB), at B = 1, S = 64, each with the clamp off and on (q scaled by
-    0.02: the denominator held at 1), at D = 48, S = 37 (a D no tile
-    divides, an S no chunk divides) and at S = 1; controls: dh shifted by
-    one step, and, with the clamp on, a backward that holds m constant
-    (``drop_dm``), each of which must miss the limit. Device times at the
-    train shape (clamp off; the plain version's is the shifted control's
-    call, one call with CUDA events) and at B = 1, S = 64."""
+    GiB) from a random state with the clamp off and on and from the fresh
+    state (m0 = -1e30, C0 = n0 = 0) the train path passes, at B = 1, S =
+    64, the clamp off and on (q scaled by 0.02: the denominator held at
+    1), at D = 48, S = 37 (a D no tile divides, an S no chunk divides)
+    and at S = 1; two calls bitwise equal (no atomics); controls (S > 1):
+    dh shifted by one step, with the clamp on a backward that holds m
+    constant (``drop_dm``), and the chunkwise mirror with its gate terms
+    formed without dC (``drop_seed``), each of which must miss the limit.
+    Device times (warm and cold L2) at the train shape from the random
+    state (clamp off; the plain version's is the shifted control's call,
+    one call with CUDA events), the backward's scratch and its peak, and
+    at B = 1, S = 64."""
     print("[kernels] mlstm_scan_backward")
     name = "mlstm_scan_backward"
     names = ("dq", "dk", "dv", "di", "dlf", "dC0", "dn0", "dm0")
     errs, timing, controls = {}, {}, {}
-    for B, H, S, D, qs in ((4, 4, 512, 1024, 1.0), (4, 4, 512, 1024, 0.02),
-                           (1, 4, 64, 1024, 1.0), (1, 4, 64, 1024, 0.02),
-                           (2, 2, 37, 48, 1.0), (1, 1, 1, 64, 1.0)):
-        args = list(mlstm_inputs(gen, B, H, S, D))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for B, H, S, D, qs, fresh in (
+            (4, 4, 512, 1024, 1.0, False), (4, 4, 512, 1024, 0.02, False),
+            (4, 4, 512, 1024, 1.0, True), (1, 4, 64, 1024, 1.0, False),
+            (1, 4, 64, 1024, 0.02, False), (2, 2, 37, 48, 1.0, False),
+            (1, 1, 1, 64, 1.0, False)):
+        args = list(mlstm_inputs(gen, B, H, S, D, fresh=fresh))
         args[0] = args[0] * qs
         h = mlstm_scan(*args)[0]
         grads = (randn(gen, (B, H, S, D), torch.float32),
                  randn(gen, (B, H, D, D), torch.float32),
                  randn(gen, (B, H, D), torch.float32),
                  randn(gen, (B, H), torch.float32))
-        label = f"B={B} H={H} S={S} D={D} q x{qs}"
+        label = f"B={B} H={H} S={S} D={D} q x{qs}" + (" fresh" if fresh
+                                                     else "")
         got = mlstm_scan_backward(*args, h, *grads)
+        again = mlstm_scan_backward(*args, h, *grads)
         want = mlstm_scan_backward_ref(*args, *grads)
         errs[label] = check_grads_against(name, label, got, want, names)
         del want
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"{name} {label}: two calls differ")
+        print(f"  {label}: two calls bitwise equal")
+        del again
         if S > 1:
             shifted, plain = event_ms_once(lambda: mlstm_scan_backward_ref(
                 *args, grads[0].roll(1, dims=2), *grads[1:]))
@@ -1781,26 +1847,58 @@ def check_mlstm_backward(gen):
                 name, label, "m held constant (clamp on)", got,
                 mlstm_scan_backward_ref(*args, *grads, drop_dm=True),
                 (3, 4, 7))
-        if D == 1024 and qs == 1.0:
+        if S > 1:   # at S = 1, where lf + m0 wins the max, f' is 1 and
+            # dlf, di and dm0 do not depend on df' (read 0.278x the limit)
+            controls[f"{label} gate terms without dC"] = check_control(
+                name, label, "gate terms without dC (drop_seed)", got,
+                mlstm_scan_backward_chunkwise_ref(
+                    *args, *grads, chunk=mlstm_kernel.BACKWARD_CHUNK,
+                    drop_seed=True), (3, 4, 7))
+        if D == 1024 and qs == 1.0 and not fresh:
             def run():
                 return mlstm_scan_backward(*args, h, *grads)
-            b_ms, by = work_bound(mlstm_scan_backward_work, *args, h,
-                                  *grads)
-            ms, dev = timed(run, "mlstm_bwd_", iters=5, bound=b_ms)
-            timing[(B, S)] = dict(ms=ms, device_ms=dev, plain_ms=plain,
-                                  bound_ms=b_ms, bound_by=by)
+            b_ms, by = mlstm_bwd_bound(*args, h, *grads)
+            kern = {}
+            ms, dev = timed(run, "mlstm_bwd_", iters=5, bound=b_ms,
+                            by_name=kern)
+            cold = device_ms(lambda: (flush.zero_(), run()), "mlstm_bwd_",
+                             iters=5, lead=True)
+            scratch = mlstm_kernel.backward_scratch_bytes(B * H, S, D)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            timing[(B, S)] = dict(ms=ms, device_ms=dev, cold_device_ms=cold,
+                                  plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                                  scratch_bytes=scratch,
+                                  call_peak_bytes=peak, kernels_ms=kern)
+            old = (f"; {STEPWISE_LABEL}: "
+                   f"{STEPWISE_MLSTM_BWD['device_ms']} ms device, "
+                   f"{STEPWISE_MLSTM_BWD['event_ms']} events, scratch "
+                   f"{STEPWISE_MLSTM_BWD['scratch_gib']} GiB"
+                   if (B, S) == (4, 512) else "")
             print(f"  {label}: kernels {ms:.4f} ms events, {dev:.4f} ms "
-                  f"device (5 kernels a call); plain {plain:.3f} ms (one "
-                  f"call); bound {b_ms:.4f} ms ({by}), the kernels at "
-                  f"{b_ms / dev:.1%} of it")
+                  f"device, {cold:.4f} cold ({PER_CALL['mlstm_bwd_']} "
+                  f"kernels a call); plain {plain:.3f} ms (one call); "
+                  f"bound {b_ms:.4f} ms ({by}, products at 3xTF32's "
+                  f"{PEAK_FLOPS_3XTF32 / 1e12:.0f} TFLOP/s), the kernels "
+                  f"at {b_ms / dev:.1%} of it; scratch {scratch} bytes "
+                  f"({scratch / 2**30:.3f} GiB), the call's peak {peak} "
+                  f"bytes ({peak / 2**30:.3f} GiB){old}")
+            print(f"  {label}: device ms a call by kernel: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in kern.items()))
         del args, h, grads, got
         torch.cuda.empty_cache()
     train = "B=4 H=4 S=512 D=1024"
     return dict(name=name, source=mlstm_kernel.BACKWARD_SOURCE,
                 replaces=BWD_REPLACES[name],
                 max_abs_err=max(errs[f"{train} q x1.0"],
-                                errs[f"{train} q x0.02"]),
+                                errs[f"{train} q x0.02"],
+                                errs[f"{train} q x1.0 fresh"]),
                 error="relative L2", library_ms=None, controls=controls,
+                bitwise_repeat=True,
                 **timing[(4, 512)], shape=f"{train} f32 (train_recurrent)",
                 s64=dict(timing[(1, 64)], shape="B=1 H=4 S=64 D=1024 f32"))
 
@@ -6976,7 +7074,7 @@ def time_scan_function(cfg, scan: str, gen) -> dict:
     zeros = [torch.zeros_like(t) for t in out[1:]]
     if scan == "mlstm_scan":
         wargs = (*plain, h.detach(), dh, *zeros)
-        b_b = work_bound(mlstm_scan_backward_work, *wargs)
+        b_b = mlstm_bwd_bound(*wargs)
     else:
         wargs = (plain[0], plain[2], h.detach(), dh, *zeros)
         b_b = work_bound(rg_lru_scan_backward_work, *wargs)
@@ -6988,11 +7086,13 @@ def time_scan_function(cfg, scan: str, gen) -> dict:
                backward_wrapper_ms=time_ms(lambda: wrapper(*wargs),
                                            iters=5),
                backward_bound_ms=b_b[0], backward_bound_by=b_b[1])
+    old = (f"; {STEPWISE_LABEL}: {STEPWISE_MLSTM_BWD['function_ms']} ms "
+           "through the Function" if scan == "mlstm_scan" else "")
     print(f"[train_recurrent] {fn.__name__} at {row['shape']} on {card()}:"
           f" forward {row['forward_ms']:.3f} ms (bound {f_b[0]:.3f}, "
           f"{f_b[1]}), backward {row['backward_ms']:.3f} ms (the wrapper "
           f"alone {row['backward_wrapper_ms']:.3f}; bound {b_b[0]:.3f}, "
-          f"{b_b[1]}) (CUDA events)")
+          f"{b_b[1]}) (CUDA events){old}")
     del out, h, args, leaves, plain, zeros, wargs
     return row
 
@@ -7088,7 +7188,12 @@ def train_recurrent_one(arch: str, layers: int, scan: str) -> tuple:
           f"{TRAIN_RECURRENT_STEPS}; all "
           f"{', '.join(f'{x * 1e3:.1f}' for x in step_s)}), "
           f"{row['tokens_per_s']:.0f} tokens/s, peak {peak:.2f} GB; "
-          f"{scan} {n_scan} forward and {n_scan} backward launches a step")
+          f"{scan} {n_scan} forward and {n_scan} backward launches a step"
+          + (f" ({STEPWISE_LABEL}: "
+             f"{STEPWISE_MLSTM_BWD['xlstm_step_ms'][0]}-"
+             f"{STEPWISE_MLSTM_BWD['xlstm_step_ms'][1]} ms a step, peak "
+             f"{STEPWISE_MLSTM_BWD['xlstm_peak_gb']:.2f} GB)"
+             if arch == "xlstm-1.3b" else ""))
     del model, twin, params, state, batches, metrics, loss, mparams, mstate
     sync()
     if TRAIN_DEVICE == "cuda":

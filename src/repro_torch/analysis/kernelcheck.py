@@ -32,7 +32,18 @@ proves, under the reference pass's violation codes:
     (``paged-live-step-scratch``);
   * flash: the GQA fold stays inside the [B * Kv] KV rows
     (``flash-row-range``) and reads ``h // (H / Kv)``, the same KV head
-    across the g query heads of a group (``flash-gqa-fold``).
+    across the g query heads of a group (``flash-gqa-fold``);
+  * the mLSTM backward (``kernels.mlstm_scan.kernel``: ``grad_grid``,
+    ``grad_block``, ``grad_span``, ``state_tile``, ``state_span``,
+    ``state_offset``), for S that the chunk does not divide and D that no
+    tile divides: every gradient block decodes to one (b, h, chunk,
+    column tile) (``mlstm-bwd-block-identity``), writes only inside [S, D]
+    (``mlstm-bwd-write-range``: the ragged last chunk and the columns past
+    D masked), and every (b, h, s, d) of dq, dk and dv is written by
+    exactly one block (``mlstm-bwd-write-coverage``); the state tiles
+    cover the [D, D] state once (``mlstm-bwd-state-tiles``); and chunk c's
+    C and G states lie inside their buffers, apart from every other's
+    (``mlstm-bwd-state-range``).
 
 Each check takes the mirror as an argument, so the tests can hand it a
 broken one and compare the codes with the reference pass's on the
@@ -47,6 +58,7 @@ import numpy as np
 from repro_torch.analysis.report import Violation
 from repro_torch.kernels.decode_attention import kernel as dec
 from repro_torch.kernels.flash_attention import kernel as flash
+from repro_torch.kernels.mlstm_scan import kernel as mlstm
 
 PASS = "kernelcheck"
 
@@ -213,6 +225,78 @@ def check_flash_fold(B: int, H: int, Kv: int,
     return out
 
 
+def check_mlstm_bwd(BH: int, S: int, D: int,
+                    block: Callable = mlstm.grad_block,
+                    span: Callable = mlstm.grad_span,
+                    tile_span: Callable = mlstm.state_span,
+                    offset: Callable = mlstm.state_offset
+                    ) -> List[Violation]:
+    """The mLSTM backward's gradient grid, state tiles and state offsets
+    for one (BH, S, D), at the kernels' chunk length."""
+    out: List[Violation] = []
+    chunk = mlstm.BACKWARD_CHUNK
+    where = f"mlstm_bwd(BH={BH}, S={S}, D={D})"
+    n_ck = -(-S // chunk)
+    n_jt = -(-D // mlstm.BACKWARD_TILE)
+    # one more row and column than the tensors hold: a write past S or D
+    # lands there instead of vanishing
+    writes = np.zeros((BH, S + chunk, D + mlstm.BACKWARD_TILE), np.int32)
+    for y in range(BH):
+        for x in range(mlstm.grad_grid(S, D)):
+            bh, c, j = block(x, y, D)
+            if not (0 <= bh < BH and 0 <= c < n_ck and 0 <= j < n_jt):
+                out.append(Violation(
+                    PASS, "mlstm-bwd-block-identity", where,
+                    f"block ({x}, {y}) decodes to (bh {bh}, chunk {c}, "
+                    f"tile {j}) outside ({BH}, {n_ck}, {n_jt})"))
+                continue
+            rows, cols = span(c, j, S, D)
+            if (rows and (rows[0] < 0 or rows[-1] >= S)) or \
+                    (cols and (cols[0] < 0 or cols[-1] >= D)):
+                out.append(Violation(
+                    PASS, "mlstm-bwd-write-range", where,
+                    f"block (bh {bh}, chunk {c}, tile {j}) writes steps "
+                    f"{rows.start}..{rows.stop - 1}, columns {cols.start}.."
+                    f"{cols.stop - 1} of [{S}, {D}]"))
+            r = slice(max(rows.start, 0), rows.stop)
+            k = slice(max(cols.start, 0), cols.stop)
+            writes[bh, r, k] += 1
+    inside = writes[:, :S, :D]
+    if (inside != 1).any():
+        bh, s, d = np.argwhere(inside != 1)[0]
+        out.append(Violation(
+            PASS, "mlstm-bwd-write-coverage", where,
+            f"{int((inside == 0).sum())} entries of dq/dk/dv written by no "
+            f"block, {int((inside > 1).sum())} by more than one (first: bh "
+            f"{bh}, s {s}, d {d}: {int(inside[bh, s, d])})"))
+    n_st = -(-D // mlstm.BACKWARD_STATE_ROWS) * n_jt
+    pad = mlstm.BACKWARD_STATE_ROWS + mlstm.BACKWARD_TILE
+    cover = np.zeros((D + pad, D + pad), np.int32)
+    for x in range(n_st):
+        rows, cols = tile_span(x, D)
+        cover[max(rows.start, 0):rows.stop, max(cols.start, 0):cols.stop] \
+            += 1
+    state = cover[:D, :D]
+    if (state != 1).any() or cover.sum() != state.sum():
+        out.append(Violation(
+            PASS, "mlstm-bwd-state-tiles", where,
+            f"{int((state == 0).sum())} state entries in no tile, "
+            f"{int((state > 1).sum())} in more than one, "
+            f"{int(cover.sum() - state.sum())} writes past D"))
+    size = BH * n_ck * D * D
+    spans = sorted((offset(bh, c, S, D), bh, c)
+                   for bh in range(BH) for c in range(n_ck))
+    end = 0
+    for off, bh, c in spans:
+        if off < 0 or off + D * D > size or off < end:
+            out.append(Violation(
+                PASS, "mlstm-bwd-state-range", where,
+                f"the state of (bh {bh}, chunk {c}) spans [{off}, "
+                f"{off + D * D}): outside [0, {size}) or over another's"))
+        end = max(end, off + D * D)
+    return out
+
+
 def ledger_states(bs: int = 16):
     """Boundary ledger states from the port's own ledger-only manager:
     shared prefixes, a partial tail, a full table row, decode growth, a
@@ -240,6 +324,11 @@ def ledger_states(bs: int = 16):
 DENSE_CACHES = (128, 60, 100, 13, 64)
 #: (B, H, Kv) of the flash cases: GQA, MHA, one KV head, g = 7
 FLASH_SHAPES = ((2, 8, 2), (1, 4, 4), (3, 6, 1), (2, 14, 2))
+#: (BH, S, D) of the mLSTM backward's cases (L = 64): one step; a ragged
+#: chunk and a D under one tile; L - 1, L + 1, 2 L + 1 and 2 L + 3 steps
+#: against D that neither tile divides; the train shape's D
+MLSTM_BWD_CASES = ((2, 1, 64), (2, 37, 48), (3, 63, 200), (1, 65, 260),
+                   (2, 131, 132), (2, 129, 200), (1, 130, 1024))
 
 
 def run(fast: bool = False, log=None) -> Tuple[List[Violation], Dict]:
@@ -261,6 +350,9 @@ def run(fast: bool = False, log=None) -> Tuple[List[Violation], Dict]:
     cases += 1
     for B, H, Kv in (FLASH_SHAPES[:2] if fast else FLASH_SHAPES):
         out += check_flash_fold(B, H, Kv)
+        cases += 1
+    for BH, S, D in (MLSTM_BWD_CASES[:2] if fast else MLSTM_BWD_CASES):
+        out += check_mlstm_bwd(BH, S, D)
         cases += 1
     if log is not None:
         log(f"kernelcheck: {cases} cases, {len(out)} violations")

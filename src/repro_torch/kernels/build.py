@@ -61,8 +61,8 @@ _SIGNATURES = {
     # a, hs, h0, dhs, dh_last, da, db, dh0, B, S, W, stream
     "repro_rg_lru_scan_backward": [_VOIDP] * 8 + [_INT] * 3 + [_VOIDP],
     # q, k, v, i, log_f, C0, n0, m0, h, dh, dC, dn, dm, gates, stats, nbuf,
-    # ckpt, dq_part, dk_part, dv_part, sf_part, si_part, dq, dk, dv, di,
-    # dlf, dC0, dn0, dm0, BH, S, D, stream
+    # nvec, rec, cst, gst, parts, zpart, dq, dk, dv, di, dlf, dC0, dn0, dm0,
+    # BH, S, D, stream
     "repro_mlstm_scan_backward": [_VOIDP] * 30 + [_INT] * 3 + [_VOIDP],
 }
 

@@ -166,10 +166,11 @@ def mlstm_scan_backward(q, k, v, i_gate, log_f, C0, n0, m0, h, dh, dC, dn,
     formulas), from the forward's operands, its output h, dh and the
     gradients of the final C, n and m; all f32 -> (dq, dk, dv, di, dlf,
     dC0, dn0, dm0). The plain version on CPU tensors; on CUDA tensors the
-    hand-written kernels, which recompute C from checkpoints every
-    ``kernel.BACKWARD_CHUNK`` steps made in the call (scratch
-    ``kernel.backward_scratch``, freed with it). D <= ``kernel.MAX_D``,
-    D % 4 == 0."""
+    hand-written chunkwise kernels (chunks of ``kernel.BACKWARD_CHUNK``
+    steps, every chunk's gradients in parallel), which keep the state
+    entering and the gradient leaving every chunk in scratch made in the
+    call (``kernel.backward_scratch``, freed with it). D <=
+    ``kernel.MAX_D``, D % 4 == 0."""
     args = (q, k, v, i_gate, log_f, C0, n0, m0, h, dh, dC, dn, dm)
     return counted("mlstm_scan_backward", mlstm_scan_backward_work, args,
                    lambda: _backward(*args))
@@ -208,8 +209,7 @@ def _backward(q, k, v, i_gate, log_f, C0, n0, m0, h, dh, dC, dn, dm):
     grads = tuple(torch.empty_like(x) for x in outs)
     check_tma_operands("mlstm_scan_backward", q, k, v, h, dh, C0, dC,
                        *grads[:3], grads[5],
-                       *(scratch[name] for name in ("ckpt", "dq_part",
-                                                    "dk_part", "dv_part")))
+                       *(scratch[name] for name in ("rec", "cst", "gst")))
     kernel.mlstm_scan_backward_cuda(q, k, v, i_gate, log_f, C0, n0, m0, h,
                                     dh, dC, dn, dm, scratch, *grads)
     mlstm_scan_backward.launches += 1

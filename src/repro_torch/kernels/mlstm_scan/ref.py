@@ -119,3 +119,162 @@ def mlstm_scan_backward_ref(q, k, v, i_gate, log_f, C0, n0, m0, dh,
         dC = f_p[..., None, None] * dCt
         dn = f_p[..., None] * dnt
     return dq, dk, dv, di, dlf, dC, dn, dm_c
+
+
+def _walk_m(gf, gi, wa, dm):
+    """The reverse walk of m's max recurrence ([..., S] f32 gate terms):
+    (di, dlf, dm0), in the order of ``mlstm_scan_backward_ref``."""
+    S = gf.shape[-1]
+    di, dlf = torch.empty_like(gf), torch.empty_like(gf)
+    carry = dm
+    for t in range(S - 1, -1, -1):
+        dmt = carry - gf[..., t] - gi[..., t]
+        dlf[..., t] = gf[..., t] + dmt * wa[..., t]
+        di[..., t] = gi[..., t] + dmt * (1.0 - wa[..., t])
+        carry = gf[..., t] + dmt * wa[..., t]
+    return di, dlf, carry
+
+
+
+def mlstm_scan_backward_chunkwise_ref(q, k, v, i_gate, log_f, C0, n0, m0,
+                                      dh, dC=None, dn=None, dm=None,
+                                      chunk=64, drop_seed=False):
+    """``mlstm_scan_backward_ref``'s gradient by the chunkwise algebra of
+    ``csrc/mlstm_scan_bwd.cu``, in plain PyTorch (the tests hold it against
+    the step-by-step form). Per (b, h) and chunk c of ``chunk`` steps
+    c0..e, with the forward's A_t = F_t - m_t, B_s = F_s - i_s (F the
+    chunk's prefix sum of lf), g_t = exp(A_t + m_{c0-1}), w_{t,s} =
+    exp(A_t - B_s) (s <= t; every factor <= 1), P = W * (Q K^T), dNum_t =
+    dh_t / d_t, R = W * (dNum V^T), C_c the state entering chunk c and G_c
+    the gradient reaching the state that leaves it (the last chunk's: dC):
+
+        C_{c+1} = g_e C_c + V^T diag(w_e) K
+        G_{c-1} = g_e G_c + dNum^T diag(g) Q       (G_{-1} = dC0)
+        dQ = diag(g) dNum C_c + R K
+        dK = diag(w_e) V G_c + R^T Q
+        dV = diag(w_e) K G_c^T + P^T dNum
+
+    plus the n path's terms, formed step by step (the kernels run that path
+    as a two-level scan over the chunks, the same sums in another order).
+    The gate terms need no D^2 contraction per step: a_t = f'_t <dC_t~,
+    C_{t-1}> is, within its chunk (u, s over the chunk's steps),
+
+        a_t = sum_{u>=t} g_u X_u + g_e Z + sum_{s<t} w_{e,s} Y_s
+              + sum_{u>=t, s<t} R[u,s] (q_u . k_s)
+
+    with X_u = dNum_u^T C_c q_u and Y_s = v_s^T G_c k_s (row dots of the
+    dQ and dV products before their diagonal scale) and Z = <G_c, C_c>,
+    one D^2 dot a chunk: sums of terms with weights <= 1, so nothing
+    cancels. (The recurrence a_t = a_{t+1} + dh_t . h_t - v_t . dv_t from
+    a_S = <dC, C_S> is exact too, but subtracts the decayed seed from
+    terms of its size: in f32 it left dm0 1e-4 off at S = 300, D = 64.)
+    Then df'_t f'_t = a_t + the n term, di'_t i'_t = v_t . dv_t + the n
+    term, and the walk of m. ``drop_seed`` forms the gate terms from a G
+    pass seeded with zero in place of dC: the checks' control, wrong
+    wherever dC is not zero. Returns (dq, dk, dv, di, dlf, dC0, dn0,
+    dm0)."""
+    B, H, S, D = q.shape
+    L = chunk
+    dC = torch.zeros_like(C0) if dC is None else dC
+    dn = torch.zeros_like(n0) if dn is None else dn
+    dm = torch.zeros_like(m0) if dm is None else dm
+    h = mlstm_scan_ref(q, k, v, i_gate, log_f, C0, n0, m0)[0]
+
+    # m, f', i' and the n path, step by step
+    m, n = m0, n0
+    ms, fps, ips, was, ns, nqs = [], [], [], [], [], []
+    for t in range(S):
+        a = log_f[:, :, t] + m
+        m_new = torch.maximum(a, i_gate[:, :, t])
+        fps.append(torch.exp(a - m_new))
+        ips.append(torch.exp(i_gate[:, :, t] - m_new))
+        was.append(torch.where(a > i_gate[:, :, t], 1.0,
+                               torch.where(a < i_gate[:, :, t], 0.0, 0.5)))
+        n = fps[-1][..., None] * n + ips[-1][..., None] * k[:, :, t]
+        ns.append(n)
+        nqs.append((n * q[:, :, t]).sum(-1))
+        ms.append(m_new)
+        m = m_new
+    fp, ip, wa, mt = (torch.stack(x, -1) for x in (fps, ips, was, ms))
+    nq = torch.stack(nqs, -1)
+    den = nq.abs().clamp(min=1.0)
+    inv_d = 1.0 / den
+    hh = (dh * h).sum(-1)
+    dnq = torch.where(nq.abs() >= 1.0, -hh / den * torch.sign(nq), 0.0)
+    dq, dk = torch.empty_like(q), torch.empty_like(k)
+    sf_n, si_n = torch.empty_like(fp), torch.empty_like(ip)
+    for t in range(S - 1, -1, -1):
+        dnt = dn + dnq[..., t, None] * q[:, :, t]
+        nprev = ns[t - 1] if t > 0 else n0
+        dq[:, :, t] = dnq[..., t, None] * ns[t]
+        dk[:, :, t] = ip[..., t, None] * dnt
+        sf_n[..., t] = (dnt * nprev).sum(-1)
+        si_n[..., t] = (dnt * k[:, :, t]).sum(-1)
+        dn = fp[..., t, None] * dnt
+    dn0 = dn
+
+    # per chunk: g, w, P, R (the record)
+    recs = []
+    for c0 in range(0, S, L):
+        e = min(c0 + L, S)
+        sl = slice(c0, e)
+        F = torch.cumsum(log_f[:, :, sl], -1)
+        mprev = m0 if c0 == 0 else mt[..., c0 - 1]
+        A = F - mt[..., sl]
+        Bs = F - i_gate[:, :, sl]
+        g = torch.exp(A + mprev[..., None])
+        tri = torch.ones(e - c0, e - c0, dtype=torch.bool,
+                         device=q.device).tril()
+        W = torch.where(tri, torch.exp(A[..., :, None] - Bs[..., None, :]),
+                        0.0)
+        QK = torch.einsum("bhtd,bhsd->bhts", q[:, :, sl], k[:, :, sl])
+        dnum = dh[:, :, sl] * inv_d[..., sl, None]
+        R = W * torch.einsum("bhtd,bhsd->bhts", dnum, v[:, :, sl])
+        recs.append((sl, g, W[..., -1, :], W * QK, R, R * QK, dnum))
+
+    def g_pass(seed):
+        Gs, G = [None] * len(recs), seed
+        for c in range(len(recs) - 1, -1, -1):
+            sl, g, we, P, R, E, dnum = recs[c]
+            Gs[c] = G
+            G = g[..., -1, None, None] * G + torch.einsum(
+                "bhu,bhur,bhud->bhrd", g, dnum, q[:, :, sl])
+        return Gs, G
+
+    # the state passes: C entering each chunk, G leaving each chunk
+    Cs, C = [], C0
+    for sl, g, we, P, R, E, dnum in recs:
+        Cs.append(C)
+        C = g[..., -1, None, None] * C + torch.einsum(
+            "bhs,bhsr,bhsd->bhrd", we, v[:, :, sl], k[:, :, sl])
+    Gs, dC0 = g_pass(dC)
+    Gg = g_pass(torch.zeros_like(dC))[0] if drop_seed else Gs
+
+    # the gradients and the gate terms, every chunk on its own
+    dv = torch.empty_like(v)
+    a = torch.empty_like(fp, dtype=torch.float64)
+    for (sl, g, we, P, R, E, dnum), Cc, Gc, Gz in zip(recs, Cs, Gs, Gg):
+        qc, kc, vc = q[:, :, sl], k[:, :, sl], v[:, :, sl]
+        dq1 = torch.einsum("bhtr,bhrd->bhtd", dnum, Cc)
+        dq[:, :, sl] += g[..., None] * dq1 + R @ kc
+        dk[:, :, sl] += we[..., None] * torch.einsum(
+            "bhtr,bhrd->bhtd", vc, Gc) + R.transpose(-1, -2) @ qc
+        dv[:, :, sl] = we[..., None] * torch.einsum(
+            "bhtd,bhrd->bhtr", kc, Gc) + P.transpose(-1, -2) @ dnum
+        X = (dq1 * qc).sum(-1).double()
+        Y = torch.einsum("bhsd,bhrd,bhsr->bhs", kc, Gz, vc).double()
+        Z = (Gz.double() * Cc.double()).sum((-1, -2))
+        Lc = X.shape[-1]
+        t = torch.arange(Lc, device=q.device)
+        after = t[None, :] >= t[:, None]          # [t, u]: u >= t
+        before = t[None, :] < t[:, None]          # [t, s]: s < t
+        gX = torch.where(after, g.double()[..., None, :] * X[..., None, :],
+                         0.0).sum(-1)
+        wY = torch.where(before, (we.double() * Y)[..., None, :], 0.0).sum(-1)
+        Eb = torch.einsum("tu,ts,bhus->bht", after.double(), before.double(),
+                          E.double())
+        a[..., sl] = gX + wY + Eb + (g[..., -1].double() * Z)[..., None]
+    gf = (a + (sf_n * fp).double()).float()
+    gi = (v * dv).sum(-1) + si_n * ip
+    di, dlf, dm0 = _walk_m(gf, gi, wa, dm)
+    return dq, dk, dv, di, dlf, dC0, dn0, dm0

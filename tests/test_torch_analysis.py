@@ -5,8 +5,12 @@ paged map without its table lookup, a GQA fold of ``h % Kv``, a dense map
 that drops the chunk's offset, a fold without the division) gives the
 same violation codes as the reference's pass on the equivalent Pallas
 index map; the ledger states both passes build are the same tables; the
-lint flags host syncs, the tracer rule and unhashable key types; and
-``python -m repro_torch.analysis --check --fast`` exits 0."""
+mLSTM backward's grid mirror (no Pallas counterpart) is clean over its
+case matrix and a mirror with one slip (a ragged chunk or the columns
+past D unmasked, the grid decoded the wrong way round, state rows past
+D, the states laid out one chunk short) raises its code; the lint flags
+host syncs, the tracer rule and unhashable key types; and ``python -m
+repro_torch.analysis --check --fast`` exits 0."""
 import dataclasses
 import os
 import subprocess
@@ -23,6 +27,7 @@ import repro.kernels.flash_attention.kernel as ref_flash  # noqa: E402
 from repro_torch.analysis import PASSES, codes, run_all  # noqa: E402
 from repro_torch.analysis import capturelint, kernelcheck  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as dec  # noqa: E402
+from repro_torch.kernels.mlstm_scan import kernel as mlstm  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -150,6 +155,70 @@ def test_split_grid_decode_broken():
     assert "dense-block-identity" in codes(vs)
     assert "decode-live-position-missed" in codes(vs)
     assert kernelcheck.check_dense_rows(128, [128, 70], Kv=3) == []
+
+
+# ---------------------------------------------------------------------------
+# the mLSTM backward's grid (no reference counterpart: jax.grad has no
+# kernel)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("BH,S,D", kernelcheck.MLSTM_BWD_CASES)
+def test_mlstm_bwd_mirror_is_clean(BH, S, D):
+    """Every case of the matrix, one by one: ragged chunks (S = 1, 37, 63,
+    65, 129, 130, 131 against L = 64) and D that no tile divides."""
+    assert kernelcheck.check_mlstm_bwd(BH, S, D) == []
+
+
+def _no_row_mask(c, j, S, D):
+    L = mlstm.BACKWARD_CHUNK
+    t0, col0 = c * L, j * mlstm.BACKWARD_TILE
+    return range(t0, t0 + L), range(col0, min(col0 + 128, D))
+
+
+def _no_col_mask(c, j, S, D):
+    rows, cols = mlstm.grad_span(c, j, S, D)
+    return rows, range(cols.start, cols.start + mlstm.BACKWARD_TILE)
+
+
+def _chunk_major(x, y, D):
+    # decodes as if the grid were chunk-minor: wrong where n_jt != n_ck
+    n_jt = -(-D // mlstm.BACKWARD_TILE)
+    return y, x % n_jt, x // n_jt
+
+
+def _state_rows_unmasked(x, D):
+    r0, c0 = mlstm.state_tile(x, D)
+    return (range(r0, r0 + mlstm.BACKWARD_STATE_ROWS),
+            range(c0, min(c0 + mlstm.BACKWARD_TILE, D)))
+
+
+def _offset_one_chunk_short(bh, c, S, D):
+    return (bh * (-(-S // mlstm.BACKWARD_CHUNK) - 1) + c) * D * D
+
+
+#: (broken mirror argument, the case, the code it must raise)
+BROKEN_MLSTM_BWD = {
+    "ragged chunk unmasked": (dict(span=_no_row_mask), (2, 37, 200),
+                              "mlstm-bwd-write-range"),
+    "columns past D unmasked": (dict(span=_no_col_mask), (2, 65, 48),
+                                "mlstm-bwd-write-range"),
+    "grid decoded chunk-major": (dict(block=_chunk_major),
+                                 (1, 131, 200),
+                                 "mlstm-bwd-write-coverage"),
+    "state rows past D": (dict(tile_span=_state_rows_unmasked),
+                          (1, 9, 200), "mlstm-bwd-state-tiles"),
+    "states one chunk short": (dict(offset=_offset_one_chunk_short),
+                               (2, 131, 48), "mlstm-bwd-state-range"),
+}
+
+
+@pytest.mark.parametrize("broken", sorted(BROKEN_MLSTM_BWD))
+def test_mlstm_bwd_broken_mirror(broken):
+    """A mirror with one slip raises its code (and the sound mirror on the
+    same case raises none)."""
+    patch, (BH, S, D), code = BROKEN_MLSTM_BWD[broken]
+    assert kernelcheck.check_mlstm_bwd(BH, S, D) == []
+    assert code in codes(kernelcheck.check_mlstm_bwd(BH, S, D, **patch))
 
 
 # ---------------------------------------------------------------------------
