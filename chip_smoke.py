@@ -31,7 +31,13 @@
               f32 at TOL, bf16 at FLASH_TOL beside controls with the last
               key dropped and with a causal mask, each failing in every
               batch row) and the dense decode kernels at the
-              cross-attention shape (C = 1024 every row, D = 64); and
+              cross-attention shape (C = 1024 every row, D = 64); the
+              served configurations' shapes: flash at 8 x 512 for
+              granite (H 16, Kv 8, D 64), qwen2-1.5b (g = 6, D 128),
+              starcoder2 (g = 12, window 4096, and at 1 x 5120 where the
+              window bites) and command-r (H 64, Kv 8, D 128), split-KV
+              decode at 8 x 1024 for granite, qwen2-1.5b and command-r,
+              the expert GEMM at granite's E = 32, M = 1024, H = 512; and
               the scans' backwards (the port's own kernels, no TPU
               function) against their plain versions in f32: RG-LRU at
               recurrentgemma-9b's train shape (B = 4, S = 512, W = 4096)
@@ -54,9 +60,12 @@
   3. small    a smoke-size model on the card (kernels) against the same
               model on the CPU (plain versions): prefill and decode logits
               and greedy tokens (deepseek-v2-lite's MLA through the flash
-              kernel at prefill); the vlm and audio smoke models through
-              the step builders (prefill logits, the memory, greedy
-              tokens);
+              kernel at prefill; granite, starcoder2 past its ring's
+              window and command-r among them); the vlm and audio smoke
+              models through the step builders (prefill logits, the
+              memory, greedy tokens); ``launch.quickstart``'s step 5 (the
+              f32 SIMT expert GEMM once per MoE layer, no other kernel)
+              against the same call on the CPU;
      ring     recurrentgemma-9b at full width cut to one (rec, rec, attn)
               group, f32 weights: teacher-forced decode across the local
               attention ring's wrap against prefill of the longer prompt;
@@ -184,6 +193,25 @@
               per layer and per step beside the expert GEMM; parameters
               against ModelConfig.num_params(), tokens/s, decode step and
               prefill-call ms, peak GB and wall seconds printed;
+     granite  granite-moe-1b-a400m at full width and depth (24 layers,
+              32 experts top-8, no shared expert) through the same
+              protocol as mla and qwen3 but for the DEP engine's eager
+              twin (cut for run time), its f32 readout timed alone
+              (``time_readout``);
+     qwen2-1.5b, starcoder2, command-r  the dense configurations at full
+              width (28 and 30 layers; command-r-35b cut to
+              ``COMMAND_R_LAYERS`` = 16 of 40 for run time), bf16 weights
+              from seed 0, 8 slots, max_context 1024 (starcoder2: 5120,
+              and one 4608-token prompt past its 4096 window), the same
+              16 requests (``served_requests``): the graph engine with the
+              launches checked at every step (flash L per prefill call,
+              split-KV decode L per step, none over starcoder2's ring,
+              which decodes through the plain masked SDPA), a decode and
+              an 8 x 300 prefill profile, the f32 readout timed alone
+              (its kernels by name and its share of the decode step's
+              kernel time), then an eager twin (greedy tokens, 11
+              teacher-forced steps bitwise; starcoder2's across its
+              ring's wrap);
      ep       sharded serving: qwen2-moe-a2.7b at full width cut to
               ``EP_LAYERS`` (12 of 24; seed 0, bf16) on an expert group of
               two ranks, two spawned
@@ -395,6 +423,7 @@ from repro_torch.kernels.rg_lru.ref import (  # noqa: E402
 from repro_torch.analysis import kernelcheck  # noqa: E402
 from repro_torch.models import ExecutionContext, build_model  # noqa: E402
 from repro_torch.data import DataConfig, MarkovTextDataset  # noqa: E402
+from repro_torch.launch import quickstart  # noqa: E402
 from repro_torch.launch import serve_moe  # noqa: E402
 from repro_torch.launch import train_small as train_small_cli  # noqa: E402
 from repro_torch.configs import SHAPES  # noqa: E402
@@ -415,6 +444,7 @@ from repro_torch.roofline import StepCounter  # noqa: E402
 from repro_torch.sharding.partition import (distribute_params,  # noqa: E402
                                             gather_shards)
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.models.attention import is_ring  # noqa: E402
 from repro_torch.models import transformer as transformer_lib  # noqa: E402
 from repro_torch.models.layers import dense_apply  # noqa: E402
 from repro_torch.placement import (Placement, SkewSummary,  # noqa: E402
@@ -1429,15 +1459,16 @@ def check_moe_gemm(gen):
 def check_flash_controls(name: str, got, q, k, v, window=None) -> float:
     """Hold the kernel's bf16 output against plain versions whose mask is
     off by one: every query one position later (the causal diagonal and
-    the window's start shifted), and the window one key shorter and
-    longer. Each must fail FLASH_TOL, or the check could not see such a
-    fault. Returns the least of their worst ratios."""
+    the window's start shifted), and, where the window bites (S above
+    it), the window one key shorter and longer. Each must fail FLASH_TOL,
+    or the check could not see such a fault. Returns the least of their
+    worst ratios."""
     tol = FLASH_TOL[torch.bfloat16]
     g = got.float()
     shifted = flash_attention_ref(torch.roll(q, 1, dims=1), k, v,
                                   window=window)
     wrongs = {"position+1": (g[:, :-1], shifted[:, 1:])}
-    if window is not None:
+    if window is not None and q.shape[1] > window:
         for d in (-1, 1):
             wrongs[f"window{d:+d}"] = (
                 g, flash_attention_ref(q, k, v, window=window + d))
@@ -2010,9 +2041,15 @@ def phase_kernelcheck_states(gen) -> dict:
 # phase 3: a small model on the card against the same model on the CPU
 # ---------------------------------------------------------------------------
 
-def phase_small() -> None:
+def phase_small() -> dict:
+    """Smoke models on the card (kernels) against the same models on the
+    CPU (plain versions): prefill and 4 decode steps, rtol = atol = 1e-4
+    and greedy tokens equal; then the multimodal and paged smoke models
+    and ``launch.quickstart``'s step 5. Returns step 5's launch
+    counts."""
     for arch in ("qwen2-moe-a2.7b", "qwen2-1.5b", "deepseek-v2-lite",
-                 "xlstm-1.3b", "recurrentgemma-9b"):
+                 "xlstm-1.3b", "recurrentgemma-9b", "granite-moe-1b-a400m",
+                 "starcoder2-3b", "command-r-35b"):
         cfg = get_smoke_config(arch)
         ctx = ExecutionContext(attn_impl="decode_kernel")
         cpu = build_model(cfg, ctx=ctx, dtype=torch.float32, device="cpu")
@@ -2023,11 +2060,13 @@ def phase_small() -> None:
         p_gpu = params_from_numpy(_to_numpy(p_cpu), "cuda", torch.float32)
         rng = np.random.RandomState(0)
         # a recurrent state would carry the padding of shorter rows; the
-        # hybrid prompt is longer than its 64-token window, so its ring
-        # rolls at prefill and decodes past the wrap
+        # hybrid and sliding-window prompts are longer than their 64-token
+        # window, so their rings roll at prefill and decode past the wrap
         lens, budget = {"ssm": ([16] * 3, 32),
                         "hybrid": ([80] * 3, 128)}.get(cfg.family,
                                                        ([5, 9, 13], 32))
+        if is_ring(cfg):
+            lens, budget = [80] * 3, 128
         toks = np.zeros((3, max(16, max(lens))), np.int64)
         for i, n in enumerate(lens):
             toks[i, :n] = rng.randint(0, cfg.vocab_size, size=n)
@@ -2062,6 +2101,45 @@ def phase_small() -> None:
               "greedy tokens equal")
     small_multimodal()
     small_paged()
+    return small_quickstart()
+
+
+def small_quickstart() -> dict:
+    """``launch.quickstart``'s step 5 on the card: the reduced
+    deepseek-v2-lite at f32 without a mesh (the capacity MoE, its experts
+    through the f32 SIMT expert GEMM), on weights drawn on the CPU from
+    seed 0, against the same call on the CPU (rtol = atol = 1e-4, the
+    phase's limit); the expert GEMM launched once per MoE layer and no
+    other kernel (``attn_impl="xla"``). Returns the card call's launch
+    counts."""
+    cfg = get_smoke_config(quickstart.SMOKE_ARCH)
+    plan = quickstart.make_planner().plan(seq_len=4096)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    p_cpu = build_model(cfg, dtype=torch.float32, device="cpu").init(gen)
+    p_gpu = params_from_numpy(_to_numpy(p_cpu), "cuda", torch.float32)
+    kernel_lib.reset_launch_counts()
+    card = quickstart.execute(plan, "cuda", params=p_gpu)
+    torch.cuda.synchronize()
+    counts = kernel_lib.launch_counts()
+    cpu = quickstart.execute(plan, "cpu", params=p_cpu)
+    want = {"moe_gemm": len(cfg.moe_layer_indices())}
+    expect_launches("quickstart step 5", counts, want)
+    got = card.logits.float().cpu()
+    worst = float((got - cpu.logits).abs().max())
+    if not torch.allclose(got, cpu.logits, rtol=1e-4, atol=1e-4):
+        fail(f"quickstart step 5: card logits disagree with the CPU "
+             f"(max |dlogit| {worst:.2e})")
+    if abs(card.aux - cpu.aux) > 1e-4 * max(1.0, abs(cpu.aux)):
+        fail(f"quickstart step 5: aux loss {card.aux} on the card, "
+             f"{cpu.aux} on the CPU")
+    print(f"[small] quickstart step 5 ({cfg.name}, moe_impl "
+          f"{card.moe_impl}, plan m_a={plan.m_a} r1={plan.r1} r2={plan.r2} "
+          f"{plan.order} unused without a mesh): logits "
+          f"{tuple(got.shape)} match the CPU (max |dlogit| {worst:.2e}, "
+          f"rtol=atol=1e-4), aux loss {card.aux:.4f} (CPU {cpu.aux:.4f}); "
+          f"launches {counts}")
+    return counts
 
 
 def grow_caches(caches, n: int):
@@ -2437,20 +2515,25 @@ def serve(eng, reqs, cfg, path: str, expect, step_check=None, into=None):
 def decode_kernel_of(cfg):
     """The decode-attention kernel a dense-KV serve of ``cfg`` launches:
     none under MLA, which decodes through the plain masked SDPA over the
-    K/V it recomputes from the latent cache (as the reference does)."""
-    return None if cfg.mla_kv_lora_rank else "decode_attention"
+    K/V it recomputes from the latent cache, and none over a sliding
+    window's ring, which decodes through the plain masked SDPA (both as
+    the reference does)."""
+    if cfg.mla_kv_lora_rank or is_ring(cfg):
+        return None
+    return "decode_attention"
 
 
 def moe_expect(cfg, decode_kernel):
-    """Launches of a capacity MoE serve: per layer one decode attention
-    (``decode_kernel``; None launches none) and one expert GEMM per
-    decode step, one flash attention and one expert GEMM per prefill
-    call."""
+    """Launches of a serve on the capacity path: per layer one decode
+    attention (``decode_kernel``; None launches none) per decode step and
+    one flash attention per prefill call, and in an MoE model one expert
+    GEMM per decode step and per prefill call."""
     L = cfg.num_layers
 
     def expect(st):
-        want = {"flash_attention": L * st.prefill_calls,
-                "moe_gemm": L * (st.steps + st.prefill_calls)}
+        want = {"flash_attention": L * st.prefill_calls}
+        if cfg.is_moe:
+            want["moe_gemm"] = L * (st.steps + st.prefill_calls)
         if decode_kernel:
             want[decode_kernel] = L * st.steps
         return want
@@ -3960,17 +4043,42 @@ QWEN3_LAYERS = 8
 #: deepseek-v2-lite layers served: 14 of its 27 (each an MLA + MoE layer),
 #: cut to keep the whole run within its time with room to spare
 MLA_LAYERS = 14
+#: command-r-35b layers served: 16 of its 40 (all 40 hold 30.3 B params,
+#: 60.6 GB of bf16 weights: they fit the card, but not the run's time)
+COMMAND_R_LAYERS = 16
+#: the repo's other configurations served at full width: path -> (config,
+#: layers served; None keeps its depth)
+SERVED = {"granite": ("granite-moe-1b-a400m", None),
+          "qwen2-1.5b": ("qwen2-1.5b", None),
+          "starcoder2": ("starcoder2-3b", None),
+          "command-r": ("command-r-35b", COMMAND_R_LAYERS)}
+#: starcoder2's KV positions a slot and the prompt that passes its 4096
+#: window (``served_requests``)
+STARCODER_CONTEXT = 5120
+STARCODER_LONG = 4608
 
 
 def backbone_config(path: str):
     """The config of a backbone path: "mla" serves deepseek-v2-lite at
     full width cut to ``MLA_LAYERS``, "qwen3" qwen3-moe cut to
-    ``QWEN3_LAYERS``."""
+    ``QWEN3_LAYERS``, a path of ``SERVED`` its config at full width and
+    the depth it names."""
+    if path in SERVED:
+        arch, layers = SERVED[path]
+        cfg = get_config(arch)
+        return cfg if layers is None else dataclasses.replace(
+            cfg, num_layers=layers)
     if path == "mla":
         return dataclasses.replace(get_config("deepseek-v2-lite"),
                                    num_layers=MLA_LAYERS)
     return dataclasses.replace(get_config("qwen3-moe"),
                                num_layers=QWEN3_LAYERS)
+
+
+def served_context(cfg) -> int:
+    """KV positions a slot of a served path: ``STARCODER_CONTEXT`` under a
+    sliding window (its prompt past the window fits), else 1024."""
+    return STARCODER_CONTEXT if is_ring(cfg) else 1024
 
 
 def check_flash_shape(gen, label: str, B: int, S: int, H: int, Kv: int,
@@ -4252,7 +4360,41 @@ def check_backbone_kernels(gen) -> dict:
     print("[kernels] multimodal (internvl2-1b, seamless-m4t-large-v2) "
           "shapes")
     out["multimodal"] = check_multimodal_shapes(gen)
+    out.update(check_served_kernels(gen))
     torch.cuda.empty_cache()
+    return out
+
+
+def check_served_kernels(gen) -> dict:
+    """The kernels of each ``SERVED`` path at the shapes its serve gives
+    them: flash at the 8 x 300 prefill's bucket (starcoder2: with its
+    4096 window, and at its long prompt's bucket, where the window
+    bites), split-KV decode at 8 slots of 1024 positions (none over
+    starcoder2's ring), the expert GEMM at granite's decode and prefill
+    C; each against its plain version beside its controls, timed beside
+    the plain version and the library call, with the card's bound.
+    Returns {path: {kernel name: {regime: entry}}}."""
+    out = {}
+    for path in SERVED:
+        cfg = backbone_config(path)
+        H, Kv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        window = cfg.sliding_window if is_ring(cfg) else None
+        print(f"[kernels] {path} ({cfg.name}) shapes")
+        S = bucket_length(300)
+        flash = {"prefill": check_flash_shape(gen, f"{path} prefill", 8, S,
+                                              H, Kv, D, window=window)}
+        if window is not None:
+            flash["long prefill"] = check_flash_shape(
+                gen, f"{path} long prefill", 1,
+                min(bucket_length(STARCODER_LONG), served_context(cfg)), H,
+                Kv, D, window=window)
+        out[path] = {"flash_attention": flash}
+        if decode_kernel_of(cfg):
+            out[path]["decode_attention"] = {"decode": check_decode_shape(
+                gen, f"{path} decode", H, Kv, D)}
+        if cfg.is_moe:
+            out[path]["moe_gemm"] = time_gemm_shapes(gen, path, cfg, S)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4346,8 +4488,10 @@ def phase_backbone(path: str, profile):
     teacher-forced steps bitwise), a decode and a prefill profile; a
     paired decode timing of the three engines; the expert GEMM against
     its plain version at every (E, C) both serves gave it; under MLA the
-    decode recompute timed. Returns the launch counts of the two serves
-    (and under MLA the recompute's times)."""
+    decode recompute timed; on a ``SERVED`` path (granite) the f32
+    readout (``time_readout``), and no eager twin of the DEP engine. Returns the launch counts of the two
+    serves and {"recompute": under MLA the recompute's times, "readout":
+    on a ``SERVED`` path the readout's}, each only where it ran."""
     cfg = backbone_config(path)
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     groups = DepGroups.single(DEP_BACKEND)
@@ -4412,11 +4556,14 @@ def phase_backbone(path: str, profile):
         chunk, _ = prefill_split(dep_policy(cfg, profile).resolve(
             "prefill", bucket_length(300), 8), 8)
         profile_prefill(dep, prompts, dep_path, calls=-(-8 // chunk))
-        dep_eager = dep_engine(decode_graph=False)
-        against_eager(dep_path, dep, dep_eager, cfg, reqs,
-                      lambda: mixed_requests(cfg), expect,
-                      forced_prompts(cfg.vocab_size))
-        del dep_eager
+        if path not in SERVED:
+            # a SERVED path holds its capacity engine against eager only:
+            # the DEP twin's serve is cut for the run's time
+            dep_eager = dep_engine(decode_graph=False)
+            against_eager(dep_path, dep, dep_eager, cfg, reqs,
+                          lambda: mixed_requests(cfg), expect,
+                          forced_prompts(cfg.vocab_size))
+            del dep_eager
     compare_decode({"capacity graph": cap, "capacity eager": eager,
                     "dep graph": dep}, cfg)
     del eager
@@ -4424,9 +4571,13 @@ def phase_backbone(path: str, profile):
     experts = params["layers"][0]["moe"]["experts"]
     check_dep_widths({experts["gate"].shape[0]: experts}, rec.shapes,
                      cap.device, path)
-    recompute = (time_mla_recompute(params["layers"][0]["attn"], cfg,
-                                    decode_row)
-                 if cfg.mla_kv_lora_rank else None)
+    extra = {}
+    if cfg.mla_kv_lora_rank:
+        extra["recompute"] = time_mla_recompute(params["layers"][0]["attn"],
+                                                cfg, decode_row)
+    if path in SERVED:
+        extra["readout"] = time_readout(cap.model, params, cfg, path,
+                                        decode_row)
     for name, res in results.items():
         print(f"[{path} summary] {name}: {n_params / 1e9:.3f} B params "
               f"(num_params() {cfg.num_params() / 1e9:.3f} B), "
@@ -4436,13 +4587,147 @@ def phase_backbone(path: str, profile):
               f"{res['peak_mem_gb']:.2f} GB allocated, serve wall "
               f"{res['wall_s']:.2f} s")
     del cap, dep, params, experts, rec
+    check_freed(path)
+    return counts, extra
+
+
+def check_freed(path: str) -> None:
+    """Fail if 0.5 GB or more is still allocated after a serve path (an
+    engine outlived it)."""
     torch.cuda.synchronize()
     left = torch.cuda.memory_allocated() / 1e9
     if left > 0.5:
         fail(f"{path}: {left:.2f} GB still allocated after the phase: an "
              "engine outlived it")
     torch.cuda.empty_cache()
-    return counts, recompute
+
+
+def time_readout(model, params, cfg, path: str, decode_row: dict) -> dict:
+    """The f32 readout of a decode step on its own (8 rows through
+    ``Model._readout``: the whole table cast to f32, then an f32 GEMM, as
+    the reference computes it): its time as CUDA events around
+    back-to-back calls (``back_to_back_ms``: a call of 0.28 ms and more,
+    and late in a run the profiler drops whole traces of it), its
+    kernels by name (torch.profiler over 5 calls; what the trace kept),
+    its share of the decode profile's kernel ms, and two times at the
+    card's memory rate: the bytes it moves (the table read in its dtype,
+    written and read back in f32) and the table read once in its
+    dtype."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    x = randn(gen, (8, 1, cfg.d_model), model.dtype)
+
+    def fn():
+        return model._readout(params, x)
+
+    ms = back_to_back_ms(fn)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in device_events(prof):
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    kernels = {name[:90]: dict(ms=us / 1e3 / 5, per_call=n / 5)
+               for name, (us, n) in by_name.items()}
+    table = (params["embed"]["embedding"] if cfg.tie_embeddings
+             else params["lm_head"]["kernel"])
+    moved = table.numel() * (table.element_size() + 8)
+    once = table.numel() * table.element_size()
+    row = dict(ms=ms, kernels=kernels,
+               share_of_decode_kernel_ms=ms / decode_row["kernel_ms"],
+               decode_kernel_ms=decode_row["kernel_ms"],
+               bytes_moved_gb=moved / 1e9,
+               bytes_moved_ms=moved / HBM_BYTES_PER_S * 1e3,
+               table_once_ms=once / HBM_BYTES_PER_S * 1e3)
+    if ms < row["table_once_ms"]:
+        fail(f"readout {path}: {ms:.4f} ms is below the table's one read "
+             f"at the card's rate, {row['table_once_ms']:.4f} ms")
+    print(f"[readout {path}] {tuple(table.shape)} {table.dtype} table, 8 "
+          f"rows: {ms:.3f} ms back to back, "
+          f"{row['share_of_decode_kernel_ms']:.1%} "
+          f"of the decode step's {decode_row['kernel_ms']:.2f} kernel ms; "
+          f"{moved / 1e9:.2f} GB moved ({row['bytes_moved_ms']:.3f} ms at "
+          f"the card's rate), the table read once {row['table_once_ms']:.3f}"
+          f" ms; by kernel: " + "; ".join(
+              f"{name} {v['ms']:.3f} ms x{v['per_call']:g}"
+              for name, v in kernels.items()))
+    return row
+
+
+def served_requests(cfg):
+    """``mixed_requests``; under a sliding window the last one (greedy)
+    has a prompt of ``STARCODER_LONG`` tokens (``RandomState(9)``), past
+    the window, so the window bites at prefill and in every decode
+    step."""
+    reqs = mixed_requests(cfg)
+    if is_ring(cfg):
+        rng = np.random.RandomState(9)
+        reqs[-1] = Request(prompt=list(rng.randint(0, cfg.vocab_size,
+                                                   size=STARCODER_LONG)),
+                           max_new_tokens=32)
+    return reqs
+
+
+def phase_served(path: str) -> tuple:
+    """A dense ``SERVED`` path at full width on the card, bf16 weights
+    from seed 0, 8 slots, ``served_context`` positions a slot,
+    ``served_requests``: the graph engine serves with the launches
+    checked at every step (``moe_expect``), profiled over 3 decode
+    steps and one 8 x 300 prefill call, the f32 readout timed alone;
+    then an eager twin on the same weights (greedy tokens equal, 11
+    teacher-forced steps bitwise; under the window a 4094-token prompt
+    whose ring wraps during them). Returns the serve's launch counts and
+    the readout's row."""
+    cfg = backbone_config(path)
+    C = served_context(cfg)
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, num_slots=8, max_context=C,
+                        dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(eng.params))
+    window = (f", sliding window {cfg.sliding_window} over a ring"
+              if is_ring(cfg) else "")
+    print(f"[{path}] {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, GQA {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.head_dim}{window}, d_ff {cfg.ffn_dim}, vocab "
+          f"{cfg.vocab_size} ({'tied' if cfg.tie_embeddings else 'untied'}"
+          f"); {n_params / 1e9:.3f} B params drawn in bf16 on the card in "
+          f"{time.perf_counter() - t0:.1f} s (ModelConfig.num_params() says "
+          f"{cfg.num_params() / 1e9:.3f} B); max_context {C}")
+    expect = moe_expect(cfg, decode_kernel_of(cfg))
+    reqs = served_requests(cfg)
+    res = {}
+    counts = serve(eng, reqs, cfg, path, expect,
+                   step_check=launches_per_step(eng, path, expect), into=res)
+    decode_row = profile_decode(eng, np.random.RandomState(5), cfg, path)
+    readout = time_readout(eng.model, eng.params, cfg, path, decode_row)
+    profile_prefill(eng, np.random.RandomState(8).randint(
+        0, cfg.vocab_size, size=(8, 300)), path)
+    eager = ServingEngine(cfg, params=eng.params, num_slots=8,
+                          max_context=C, dtype=torch.bfloat16, seed=0,
+                          decode_graph=False)
+    prompts = forced_prompts(cfg.vocab_size)
+    if is_ring(cfg):
+        # positions 4093.. of a 4094-token prompt: its ring of the window
+        # wraps at the fourth teacher-forced step
+        prompts[-1] = list(np.random.RandomState(13).randint(
+            0, cfg.vocab_size, size=cfg.sliding_window - 2))
+    against_eager(path, eng, eager, cfg, reqs,
+                  lambda: served_requests(cfg), expect, prompts)
+    print(f"[{path} summary] {n_params / 1e9:.3f} B params, "
+          f"{res['tokens_per_s']:.1f} tokens/s, decode step "
+          f"{res['decode_step_ms']:.2f} ms, prefill call "
+          f"{res['prefill_ms_mean']:.1f} ms, peak {res['peak_mem_gb']:.2f} "
+          f"GB allocated, serve wall {res['wall_s']:.2f} s; readout "
+          f"{readout['ms']:.3f} ms of {decode_row['kernel_ms']:.2f} "
+          f"kernel ms a decode step; idle share {decode_row['idle']:.3f}")
+    del eng, eager
+    check_freed(path)
+    return counts, readout
 
 
 # ---------------------------------------------------------------------------
@@ -7489,9 +7774,8 @@ def main(argv=None) -> int:
     backbones = phase("backbone kernels", check_backbone_kernels, gen)
     phase("kernelcheck states", phase_kernelcheck_states, gen)
     torch.cuda.empty_cache()
-    phase("small", phase_small)
+    counts = {"quickstart": phase("small", phase_small)}
     phase("ring", phase_ring)
-    counts = {}
     cal_counts = {}
     if not args.no_serve:
         os.makedirs(os.path.join(ROOT, ".repro-profiles"), exist_ok=True)
@@ -7500,17 +7784,20 @@ def main(argv=None) -> int:
             profile, cal_counts = phase("calibrate", phase_calibrate,
                                         store_dir)
             torch.cuda.empty_cache()
-            counts = phase("serve", phase_serve)
+            counts.update(phase("serve", phase_serve))
             counts["dep"] = phase("dep", phase_serve_dep, profile, store_dir)
             counts["placement"] = phase("placement", phase_placement,
                                         profile)
             phase("obs", phase_obs, profile, store_dir)
-            for path in ("mla", "qwen3"):
-                path_counts, recompute = phase(path, phase_backbone, path,
-                                               profile)
+            for path in ("mla", "qwen3", "granite"):
+                path_counts, extra = phase(path, phase_backbone, path,
+                                           profile)
                 counts.update(path_counts)
-                if recompute:
-                    print("[mla recompute] " + json.dumps(recompute))
+                for what, row in extra.items():
+                    print(f"[{path} {what}] " + json.dumps(row))
+            for path in ("qwen2-1.5b", "starcoder2", "command-r"):
+                counts[path], readout = phase(path, phase_served, path)
+                print(f"[{path} readout] " + json.dumps(readout))
             torch.distributed.destroy_process_group()
             counts["ep"] = phase("ep", phase_ep, profile)
             counts["xlstm"] = phase("xlstm", phase_serve_xlstm)

@@ -537,6 +537,12 @@ def as_exec_program(plan) -> tg.ExecProgram:
                                         max(int(m_e), 1)))
 
 
+def as_exec_graph(plan) -> tg.TaskGraph:
+    """The executor's task graph for ``plan`` (see ``as_exec_program``;
+    this is its ``.graph`` view for callers that only need structure)."""
+    return as_exec_program(plan).graph
+
+
 def _shared_part(shared_fn, shared_x, k: int, n_seg: int):
     """The shared-expert GEMM for segment ``k`` of ``n_seg``: each (mb,
     boundary) SHARED task owns one equal row range of the local batch,

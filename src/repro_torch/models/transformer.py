@@ -485,15 +485,16 @@ class Model:
             auxes.append(aux)
         return x, new_caches, auxes
 
-    def forward(self, params, tokens, extra_embeds=None, memory=None):
+    def forward(self, params, tokens, extra_embeds=None, memory=None,
+                plan=None):
         """tokens: [B, S]; extra_embeds: vlm patch embeddings [B, P, M]
         (or an encoder-decoder model's frames, encoded when no memory is
-        given); memory: the encoder's output. Returns (logits [B, P+S, V]
-        in float32, the MoE aux loss summed over the layers); the
-        reference's middle slot, the caches, is filled here only by
-        ``prefill``."""
+        given); memory: the encoder's output; ``plan`` the DEP schedule of
+        the MoE layers, as in ``prefill``. Returns (logits [B, P+S, V] in
+        float32, the MoE aux loss summed over the layers); the reference's
+        middle slot, the caches, is filled here only by ``prefill``."""
         x, _, auxes = self._layers(params, tokens, extra_embeds, memory,
-                                   None)
+                                   None, plan)
         x = rmsnorm_apply(params["final_norm"], x, self.cfg.norm_eps)
         return self._readout(params, x), torch.stack(auxes).sum()
 

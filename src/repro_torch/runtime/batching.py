@@ -66,8 +66,9 @@ class AdmissionPolicy(Protocol):
     """Pick which waiting requests to admit this step (does not mutate
     ``waiting``; returns a subset, at most ``free_slots`` long).
     ``cost_fn`` overrides the per-request prefill cost — the paged-KV
-    scheduler passes a prefix-discounted cost so cached prompts do not
-    burn token budget they will not stream."""
+    scheduler passes a prefix-discounted cost so cached prompts don't
+    burn token budget they won't stream. Policies may ignore it; the
+    scheduler falls back to the 3-arg call for older implementations."""
 
     name: str
 
@@ -159,8 +160,8 @@ class BatchScheduler:
                    exact_length: bool = False) -> StepPlan:
         """Admit from (and pop out of) ``waiting``, allocate slots, group
         by bucket. ``exact_length`` disables bucket padding (recurrent
-        states would be corrupted by padded prefill tokens, so SSM prompts
-        group by exact length)."""
+        states would be corrupted by padded prefill tokens, so SSM/hybrid
+        prompts group by exact length)."""
         max_context = max_context or kv.max_context
         plan = StepPlan()
         # block-granular KV (PagedKVCacheManager): admission also answers
@@ -171,7 +172,8 @@ class BatchScheduler:
         keep = []
         for req in waiting:
             # the full (resume) sequence — the last token is fed through
-            # decode — must fit the per-slot cache
+            # decode — must fit the per-slot cache, else decode writes
+            # clamp/overwrite
             n_total = len(req.resume_tokens)
             if n_total > max_context:
                 req.error = (f"prompt of {n_total} tokens exceeds "
@@ -201,11 +203,18 @@ class BatchScheduler:
                 Lp = max(len(toks) - 1, 0)
                 return max(Lp - kv.cached_prefix_tokens(toks[:Lp]), 0)
 
-        admitted = self.admission.admit(waiting, kv.free_count(),
-                                        self.token_budget, cost_fn=cost_fn)
+        try:
+            admitted = self.admission.admit(waiting, kv.free_count(),
+                                            self.token_budget,
+                                            cost_fn=cost_fn)
+        except TypeError:   # older 3-arg AdmissionPolicy implementations
+            admitted = self.admission.admit(waiting, kv.free_count(),
+                                            self.token_budget)
         if self.token_budget is not None:
-            # the budget bounds every step regardless of admission policy;
-            # the first request always passes so it cannot starve
+            # the budget bounds every step regardless of admission policy
+            # (TokenBudgetAdmission additionally uses it to pick WHICH
+            # requests to admit); the first request always passes so a
+            # prompt larger than the budget cannot starve
             capped: List[Request] = []
             total = 0
             for req in admitted:

@@ -48,7 +48,8 @@ for must in ("repro_torch.launch.steps", "repro_torch.launch.mesh",
              "repro_torch.sharding", "repro_torch.sharding.partition",
              "repro_torch.roofline", "repro_torch.roofline.analysis",
              "repro_torch.launch.dryrun", "repro_torch.launch.recount",
-             "repro_torch.models.parallel"):
+             "repro_torch.models.parallel", "repro_torch.launch.quickstart",
+             "repro_torch.launch.online_adaptation"):
     assert must in names, must
 print("imported", len(names), "modules")
 """
@@ -116,6 +117,41 @@ def test_launch_layer_runs_with_jax_and_repro_blocked(module):
     assert f"ok {module}" in res.stdout
 
 
+#: an entry point run as ``python -m`` with the blocker in place
+_ENTRY_POINT = r"""
+import runpy, sys
+
+BLOCKED = ("jax", "jaxlib", "repro", "ml_dtypes")
+
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Blocker())
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not leaked, leaked
+"""
+
+
+@pytest.mark.parametrize("argv", [
+    ["repro_torch.launch.quickstart", "--device", "cpu"],
+    ["repro_torch.launch.online_adaptation"]], ids=lambda a: a[0])
+def test_example_entry_points_run_with_jax_and_repro_blocked(argv):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _ENTRY_POINT, *argv],
+                         capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert ("moe_impl=capacity" in res.stdout
+            if "quickstart" in argv[0] else "plan cache:" in res.stdout)
+
+
 def test_meta_only_for_the_spec_builders():
     """``meta`` reaches the model the spec builders make, and no entry
     point: ``resolve_device`` refuses it unless asked, and so does the
@@ -160,3 +196,6 @@ def test_entry_points_need_cuda_without_device():
         build_model(get_smoke_config("qwen2-moe-a2.7b"), device="cuda")
     model = build_model(get_smoke_config("qwen2-moe-a2.7b"), device="cpu")
     assert model.device.type == "cpu"
+    from repro_torch.launch import quickstart
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart.main([])

@@ -3,8 +3,8 @@
 at smoke size.
 
 The calibrate, serve, paged, pressure, dep, drift, placement, obs, mla,
-qwen3, ep, xlstm, hybrid, multimodal, long, train and train_recurrent
-phases run as on
+qwen3, granite, qwen2-1.5b, starcoder2, command-r, ep, xlstm, hybrid,
+multimodal, long, train and train_recurrent phases run as on
 the card, with the smoke configs
 in place of the full ones (the obs phase's entry point too; the qwen3
 path's smoke config at its 8 layers), every engine on the CPU, the
@@ -22,8 +22,8 @@ graph path's bookkeeping (one warm-up before the serve, one capture per
 key, a replay per step, launches added per replay)
 and chip_smoke's checks of it run. The kernel wrappers count their CPU
 calls here, as their CUDA calls count on the card; the profiles and
-timings are skipped, the MLA recompute's timing and the serve path's
-host-sync guard with them (they read
+timings are skipped, the MLA recompute's and the readout's timings and
+the serve path's host-sync guard with them (they read
 device time; a skipped decode profile
 reports the card's host calls per graph step, 1 ``cudaGraphLaunch`` and
 2 ``cudaLaunchKernel``, so that the checks after it run). The obs
@@ -134,12 +134,13 @@ def patch() -> None:
     chip_smoke.ServingEngine = serve_moe.ServingEngine = engine
     chip_smoke.profile_decode = lambda *a, **k: {
         "cudaGraphLaunch": 1, "cudaLaunchKernel": 2, "cudaMemcpyAsync": 0,
-        "cudaStreamSynchronize": 0}
+        "cudaStreamSynchronize": 0, "kernel_ms": 0.0, "idle": 0.0}
     chip_smoke.profile_prefill = lambda *a, **k: None
     chip_smoke.time_dep_chunks = lambda *a, **k: None
     chip_smoke.time_rep_gemm = lambda *a, **k: None
     chip_smoke.time_dep_alltoall = lambda *a, **k: None
     chip_smoke.time_mla_recompute = lambda *a, **k: {}
+    chip_smoke.time_readout = lambda *a, **k: {"ms": 0.0}
     chip_smoke.time_cross_kv = chip_smoke.step_device_ms = \
         lambda *a, **k: 0.0
     chip_smoke.check_sync_guard = lambda *a, **k: None
@@ -174,8 +175,10 @@ def main() -> int:
         chip_smoke.phase_serve_dep(profile, store_dir)
         chip_smoke.phase_placement(profile)
         chip_smoke.phase_obs(profile, store_dir)
-        for path in ("mla", "qwen3"):
+        for path in ("mla", "qwen3", "granite"):
             chip_smoke.phase_backbone(path, profile)
+        for path in ("qwen2-1.5b", "starcoder2", "command-r"):
+            chip_smoke.phase_served(path)
         torch.distributed.destroy_process_group()
         chip_smoke.phase_ep(profile, setup=patch)
         chip_smoke.phase_serve_xlstm()
