@@ -1,0 +1,9 @@
+"""Expert-GEMM launches the DEP walk makes per prefill call, from the
+programs the window ran (``EngineStats.programs``): MoE layers x r1 x
+r2 of each prefill program, averaged over the window's prefill calls."""
+
+
+def read(w):
+    n = [w.served["num_layers"] * p.graph.r1 * p.graph.r2
+         for phase, p in w.programs if phase == "prefill"]
+    return sum(n) / len(n) if n else None
